@@ -1,0 +1,4 @@
+from .trainer import cli
+
+if __name__ == "__main__":
+    cli()

@@ -11,7 +11,12 @@ setup(
         "completion — the capability surface of vfmatzkin/ct-unet, "
         "re-designed TPU-first"
     ),
-    packages=find_packages(include=["ctunet_tpu", "ctunet_tpu.*"]),
+    packages=find_packages(include=["ctunet_tpu", "ctunet_tpu.*",
+                                    "ctunet_tpu_torch", "ctunet_tpu_torch.*"]),
+    # the PyTorch port builds its CUDA kernels from csrc/ at first use and
+    # ships the trained UNetSP weights
+    package_data={"ctunet_tpu_torch": ["csrc/*.cu", "csrc/*.cuh",
+                                       "assets/*.npz"]},
     python_requires=">=3.10",
     install_requires=["numpy", "jax", "flax", "optax", "orbax-checkpoint"],
     extras_require={
@@ -20,6 +25,9 @@ setup(
         "tensorboard": ["torch", "tensorboard"],
     },
     entry_points={
-        "console_scripts": ["ctunet-tpu=ctunet_tpu.trainer:cli"],
+        "console_scripts": [
+            "ctunet-tpu=ctunet_tpu.trainer:cli",
+            "ctunet-tpu-torch=ctunet_tpu_torch.trainer:cli",
+        ],
     },
 )

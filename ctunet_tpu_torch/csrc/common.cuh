@@ -1,10 +1,12 @@
 // Shared helpers of the port's Hopper kernels (plain C interface, no
 // PyTorch headers: each .cu builds with nvcc alone in seconds).
 //
-// Layout: every activation is a dense channels-last bf16 volume
-// (D, H, W, C), C fastest; weights are tap-major (taps..., Cin, Cout) bf16;
-// biases are f32. Kernels accumulate in f32 and store bf16 (round to
-// nearest even, as PyTorch's cast does).
+// Layout: every activation is a dense channels-last volume (D, H, W, C),
+// C fastest; weights are tap-major (taps..., Cin, Cout). The bf16 kernels
+// take bf16 weights and f32 biases, accumulate in f32 and store bf16 (round
+// to nearest even, as PyTorch's cast does); the int8 kernels take int8
+// activations and weights, accumulate in int32 and requantize with f32
+// scale and bias.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -35,6 +37,22 @@ __device__ __forceinline__ void fma_cob(float (&acc)[COB], float xv,
   acc[5] = fmaf(xv, w1.y, acc[5]);
   acc[6] = fmaf(xv, w1.z, acc[6]);
   acc[7] = fmaf(xv, w1.w, acc[7]);
+}
+
+// acc[0..COB) += xv * w[0..COB) in int32 (the int8 kernels): w is 16-byte
+// aligned shared memory holding the int8 weights widened to int.
+__device__ __forceinline__ void imad_cob(int (&acc)[COB], int xv,
+                                         const int* w) {
+  const int4 w0 = *reinterpret_cast<const int4*>(w);
+  const int4 w1 = *reinterpret_cast<const int4*>(w + 4);
+  acc[0] += xv * w0.x;
+  acc[1] += xv * w0.y;
+  acc[2] += xv * w0.z;
+  acc[3] += xv * w0.w;
+  acc[4] += xv * w1.x;
+  acc[5] += xv * w1.y;
+  acc[6] += xv * w1.z;
+  acc[7] += xv * w1.w;
 }
 
 // Dynamic shared memory above the 48 KB default needs an opt-in per kernel.

@@ -1,7 +1,10 @@
-// K2: 2x2x2 stride-2 max pool, bf16, channels-last.
+// K2: 2x2x2 stride-2 max pool, channels-last, bf16 (K2) and int8 (K2q).
 //
 // Replaces ctunet_tpu/ops/pallas/conv3d.py::maxpool2_chain (kernel body
-// _pool_kernel). The TPU kernel pools the W-packed chain layout, taking the
+// _pool_kernel), in its bf16 mode and its int8 mode (fill=-128, the int8
+// engine's zero point; the dense output has no halo, so the fill has no
+// counterpart here and int8 max is exact). The TPU kernel pools the
+// W-packed chain layout, taking the
 // W-pair max with two 0/1 selection matmuls on the otherwise idle MXU and
 // re-packing to pack/2; none of that applies to a dense volume:
 //
@@ -9,23 +12,48 @@
 //
 // (odd extents floor, like F.max_pool3d; NaN propagates like PyTorch's).
 //
-// What bounds it on an H100: one comparison per input byte pair, so it is
+// What bounds it on an H100: one comparison per input value, so it is
 // memory bound: it must read the input once (8 values per output) and
-// write 1/8 of that back, e.g. 290 MB + 36 MB at the 224x304x304x7 layer,
-// about 0.1 ms at 3.35 TB/s.
+// write 1/8 of that back, e.g. 290 MB + 36 MB at the 224x304x304x7 bf16
+// layer, about 0.1 ms at 3.35 TB/s (half that in int8).
 //
 // Design: one thread per output element (voxel, channel), so a warp reads
 // the C contiguous channels of neighbouring voxels and writes contiguous
-// outputs; the 8 loads are plain bf16 loads from L1/L2-backed global
-// memory. The max is exact, so the result equals the plain version bit for
+// outputs; the 8 loads are plain element loads from L1/L2-backed
+// global memory. The max is exact, so the result equals the plain version bit for
 // bit. Vectorised 16-byte loads are later work.
 #include "common.cuh"
 
 using namespace ctunet;
 
+namespace {
+
+// The pooled value type's conversions: bf16 compares in f32 (NaN kept),
+// int8 in int.
+struct Bf16 {
+  using T = __nv_bfloat16;
+  using A = float;
+  static __device__ A lowest() {
+    return __int_as_float(static_cast<int>(0xff800000u));  // -inf
+  }
+  static __device__ A load(T v) { return bf(v); }
+  static __device__ T store(A v) { return __float2bfloat16(v); }
+  static __device__ bool take(A v, A m) { return v > m || v != v; }
+};
+
+struct Int8 {
+  using T = int8_t;
+  using A = int;
+  static __device__ A lowest() { return -128; }
+  static __device__ A load(T v) { return v; }
+  static __device__ T store(A v) { return static_cast<T>(v); }
+  static __device__ bool take(A v, A m) { return v > m; }
+};
+
+template <typename P>
 __global__ void __launch_bounds__(THREADS)
-maxpool2_kernel(const __nv_bfloat16* __restrict__ x,
-                __nv_bfloat16* __restrict__ out, int D, int H, int W,
+maxpool2_kernel(const typename P::T* __restrict__ x,
+                typename P::T* __restrict__ out, int D, int H, int W,
                 int C) {
   const int D2 = D / 2, H2 = H / 2, W2 = W / 2;
   const int64_t n = static_cast<int64_t>(D2) * H2 * W2 * C;
@@ -38,28 +66,42 @@ maxpool2_kernel(const __nv_bfloat16* __restrict__ x,
   t /= W2;
   const int oy = static_cast<int>(t % H2);
   const int oz = static_cast<int>(t / H2);
-  float m = __int_as_float(static_cast<int>(0xff800000u));  // -inf
+  typename P::A m = P::lowest();
 #pragma unroll
   for (int dz = 0; dz < 2; ++dz)
 #pragma unroll
     for (int dy = 0; dy < 2; ++dy)
 #pragma unroll
       for (int dx = 0; dx < 2; ++dx) {
-        const float v = bf(x[((static_cast<int64_t>(2 * oz + dz) * H +
-                               2 * oy + dy) * W + 2 * ox + dx) * C + c]);
-        m = (v > m || v != v) ? v : m;  // a NaN, once taken, stays
+        const typename P::A v = P::load(
+            x[((static_cast<int64_t>(2 * oz + dz) * H + 2 * oy + dy) * W +
+               2 * ox + dx) * C + c]);
+        m = P::take(v, m) ? v : m;  // a bf16 NaN, once taken, stays
       }
-  out[i] = __float2bfloat16(m);
+  out[i] = P::store(m);
 }
 
-extern "C" int ctunet_maxpool2(const void* x, void* out, int D, int H, int W,
-                               int C, int device, void* stream) {
+template <typename P>
+int launch(const void* x, void* out, int D, int H, int W, int C, int device,
+           void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t n = static_cast<int64_t>(D / 2) * (H / 2) * (W / 2) * C;
   const dim3 grid(static_cast<unsigned>((n + THREADS - 1) / THREADS));
-  maxpool2_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<__nv_bfloat16*>(out), D, H, W, C);
+  maxpool2_kernel<P><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const typename P::T*>(x), static_cast<typename P::T*>(out),
+      D, H, W, C);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int ctunet_maxpool2(const void* x, void* out, int D, int H, int W,
+                               int C, int device, void* stream) {
+  return launch<Bf16>(x, out, D, H, W, C, device, stream);
+}
+
+extern "C" int ctunet_maxpool2_q(const void* x, void* out, int D, int H,
+                                 int W, int C, int device, void* stream) {
+  return launch<Int8>(x, out, D, H, W, C, device, stream);
 }

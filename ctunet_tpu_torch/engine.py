@@ -81,6 +81,7 @@ def build_predict(
     compute_dtype: torch.dtype = torch.bfloat16,
     device=None,
     plain: bool = False,
+    record: Optional[Callable[[torch.Tensor], None]] = None,
 ) -> Callable:
     """Build ``predict(images)`` for ``(B, D, H, W, C)`` inputs.
 
@@ -88,6 +89,12 @@ def build_predict(
     :param device: ``None``/``"cuda"`` (the default: raises without a
         card) or ``"cpu"``.
     :param plain: run the plain PyTorch versions of K1-K3 on ``device``.
+    :param record: called on every tensor the JAX engine passes through its
+        ``halo_fn`` hook, in the same order (``ctunet_tpu/engine.py:536-615``):
+        the entry, then per encoder level unit 0, unit 1 and the pool, then
+        per decoder level the fused upconv output and unit 1. Dense
+        ``(D, H, W, C)`` tensors without the JAX layout's ones channel; the
+        int8 engine calibrates on this stream (``engine_q.calibrate``).
     :returns: ``predict`` -> ``(full, flap)``, each ``(B, D, H, W, 2)`` in
         ``compute_dtype`` (double head), or ``(B, D, H, W, 3)``.
     """
@@ -139,15 +146,24 @@ def build_predict(
         if any(s % 2 ** n for s in x.shape[:3]):
             raise ValueError(f"spatial shape {tuple(x.shape[:3])} must "
                              f"divide by {2 ** n} (pad the volume)")
+        rec = record if record is not None else (lambda t: t)
         h = x.to(compute_dtype).contiguous()
+        rec(h)
         skips = []
         for (w0, b0), (w1, b1) in enc:
-            h = conv(conv(h, w0, b0), w1, b1)
+            h = conv(h, w0, b0)
+            rec(h)
+            h = conv(h, w1, b1)
+            rec(h)
             skips.append(h)
             h = pool(h)
+            rec(h)
         a, b = h, None
         for idx, ((wa, wb, wone, bu), (w1, b1)) in enumerate(dec):
-            a = conv(upconv(a, b, wa, wb, wone, bu), w1, b1)
+            a = upconv(a, b, wa, wb, wone, bu)
+            rec(a)
+            a = conv(a, w1, b1)
+            rec(a)
             b = skips[n - 1 - idx]
         return head(a, b)
 

@@ -1,10 +1,13 @@
-"""K1 (Conv3D k3 + folded BN + ReLU) and K2 (2x2x2 max pool) for Hopper.
+"""K1 (Conv3D k3 + folded BN + ReLU) and K2 (2x2x2 max pool) for Hopper,
+with their int8 modes K1q (requantizing int8 conv) and K2q (int8 pool).
 
 Counterpart of ``ctunet_tpu/ops/pallas/conv3d.py``: ``conv3d_chain_split``
-and ``maxpool2_chain``, the two conv-module kernels of the bf16 serving
-path. The CUDA sources are ``csrc/conv3d.cu`` and ``csrc/maxpool.cu``; the
-TPU chain layout (W packed into lanes, halo rows, ones-channel) is not
-carried over: both functions take and return dense channels-last volumes.
+(bf16 and ``scale=``/``zp=`` int8 modes), ``conv3d_chain_q`` (the full-tap
+int8 form, K4a) and ``maxpool2_chain``, the conv-module kernels of the
+serving paths. The CUDA sources are ``csrc/conv3d.cu``,
+``csrc/conv3d_q.cu`` and ``csrc/maxpool.cu``; the TPU chain layout (W
+packed into lanes, halo rows, ones-channel) is not carried over: every
+function takes and returns dense channels-last volumes.
 
 Each wrapper launches its kernel for a CUDA tensor (or raises) and takes
 its plain PyTorch version only for a tensor on the CPU. ``<wrapper>.launches``
@@ -151,3 +154,117 @@ def maxpool2(x: torch.Tensor) -> torch.Tensor:
 
 
 maxpool2.launches = 0
+
+
+# --------------------------------------------------------------------------
+# K1q: int8 Conv3D(k3, SAME) + requant epilogue
+# --------------------------------------------------------------------------
+
+
+def fma_requant(acc: torch.Tensor, scale: torch.Tensor,
+                bias: torch.Tensor) -> torch.Tensor:
+    """``f32(acc) * scale + bias`` rounded once to f32, as the Pallas int8
+    epilogues compute it (XLA fuses their multiply-add) and the int8
+    kernels do (``__fmaf_rn``). f64 holds the product of two f32 values
+    exactly; only the sum may round before the cast to f32, which can then
+    differ from one rounding only when the f64 sum lands exactly on an f32
+    midpoint."""
+    return (acc.float().double() * scale.double() + bias.double()).float()
+
+
+def conv3d_q_requant_plain(x: torch.Tensor, w: torch.Tensor,
+                           scale: torch.Tensor, bias: torch.Tensor,
+                           zp: bool = True) -> torch.Tensor:
+    """Plain PyTorch K1q: the int32 accumulator exactly (``F.conv3d`` in
+    f64 on the int8 values, padded with the layout's fill: -128 in ``zp``
+    mode, 0 otherwise; f32 is not exact past 2^24), then the epilogue of
+    ``conv3d.py:1001-1013`` / ``:1597-1612`` (:func:`fma_requant`).
+
+    :param x: int8 ``(D, H, W, Ci)``; ``w``: int8 ``(3, 3, 3, Ci, Co)``;
+        ``scale``/``bias``: f32 ``(Co,)``.
+    :returns: int8 ``(D, H, W, Co)``.
+    """
+    xf = F.pad(x.double().permute(3, 0, 1, 2)[None], (1,) * 6,
+               value=-128.0 if zp else 0.0)
+    acc = F.conv3d(xf, w.double().permute(4, 3, 0, 1, 2))[0]
+    res = torch.clamp_min(fma_requant(acc.permute(1, 2, 3, 0), scale, bias),
+                          0.0)
+    res = (torch.clamp_max(res, 255.0) - 128.0 if zp
+           else torch.clamp_max(res, 127.0))
+    return torch.round(res).to(torch.int8)
+
+
+def conv3d_q_requant(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                     bias: torch.Tensor, zp: bool = True) -> torch.Tensor:
+    """K1q on int8 ``x`` ``(D, H, W, Ci)`` with int8 ``w``
+    ``(3, 3, 3, Ci, Co)`` and f32 requant ``scale``/``bias`` ``(Co,)`` ->
+    int8 ``(D, H, W, Co)``: ``round(min(relu(fma(acc, scale, bias)), 255)
+    - 128)`` in ``zp`` mode (out-of-volume taps read -128), else
+    ``round(min(relu(.), 127))`` (they read 0).
+
+    CPU tensor: the plain version. CUDA tensor: the ``csrc/conv3d_q.cu``
+    kernel on the current stream, or an error.
+    """
+    if x.device.type == "cpu":
+        return conv3d_q_requant_plain(x, w, scale, bias, zp)
+    _require_cuda(x, "conv3d_q_requant")
+    d, h, wd, ci = x.shape
+    co = w.shape[-1]
+    _check(x, "x", torch.int8)
+    _check(w, "w", torch.int8, (3, 3, 3, ci, co), x.device)
+    _check(scale, "scale", torch.float32, (co,), x.device)
+    _check(bias, "bias", torch.float32, (co,), x.device)
+    out = torch.empty((d, h, wd, co), dtype=torch.int8, device=x.device)
+    if out.numel() == 0:
+        return out
+    fn = build.function("conv3d_q", "ctunet_conv3d_q_requant",
+                        [_P] * 5 + [_I] * 7 + [_P])
+    rc = fn(x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), d, h, wd, ci, co, int(zp), *build.stream_args(x))
+    build.check(rc, "conv3d_q_requant")
+    conv3d_q_requant.launches += 1
+    return out
+
+
+conv3d_q_requant.launches = 0
+
+
+# --------------------------------------------------------------------------
+# K2q: int8 MaxPool 2x2x2, stride 2
+# --------------------------------------------------------------------------
+
+
+def maxpool2_q_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch K2q: the max over each 2x2x2 block of an int8
+    ``(D, H, W, C)`` volume (odd extents floor), by reshape and ``amax``
+    (``F.max_pool3d`` takes no int8)."""
+    d, h, w = (s // 2 for s in x.shape[:3])
+    c = x.shape[3]
+    y = x[:2 * d, :2 * h, :2 * w].reshape(d, 2, h, 2, w, 2, c)
+    return y.amax(dim=(1, 3, 5)).contiguous()
+
+
+def maxpool2_q(x: torch.Tensor) -> torch.Tensor:
+    """K2q on int8 ``(D, H, W, C)`` -> ``(D//2, H//2, W//2, C)``.
+
+    CPU tensor: the plain version. CUDA tensor: the int8 instantiation of
+    ``csrc/maxpool.cu`` on the current stream, or an error.
+    """
+    if x.device.type == "cpu":
+        return maxpool2_q_plain(x)
+    _require_cuda(x, "maxpool2_q")
+    d, h, w, c = x.shape
+    _check(x, "x", torch.int8)
+    out = torch.empty((d // 2, h // 2, w // 2, c), dtype=torch.int8,
+                      device=x.device)
+    if out.numel() == 0:
+        return out
+    fn = build.function("maxpool", "ctunet_maxpool2_q",
+                        [_P, _P, _I, _I, _I, _I, _I, _P])
+    rc = fn(x.data_ptr(), out.data_ptr(), d, h, w, c, *build.stream_args(x))
+    build.check(rc, "maxpool2_q")
+    maxpool2_q.launches += 1
+    return out
+
+
+maxpool2_q.launches = 0

@@ -1,6 +1,9 @@
-"""K3: fused upsample + conv (ConvT(k2,s2) o Conv3D(k3) + folded BN + ReLU).
+"""K3: fused upsample + conv (ConvT(k2,s2) o Conv3D(k3) + folded BN + ReLU),
+and its int8 mode K3q (requantizing, zero-point).
 
-Counterpart of ``ctunet_tpu/ops/pallas/upconv.py::upconv_fused_chain_split``.
+Counterpart of ``ctunet_tpu/ops/pallas/upconv.py::upconv_fused_chain_split``
+(bf16, and int8 ``scale2=``/``zp=``) and of ``upconv_fused_chain`` (the
+full-tap form, K4b, whose int8 integers are the same).
 The decoder's ConvTranspose(k2, s2) and the first conv unit after it are
 both linear, so they compose into one response ``R[4, 4, 4, Cin_aug, Co]``
 applied to the HALF-resolution inputs: ``out[v] = sum_u R[v-2u+1] in[u]``
@@ -26,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from . import build
-from .conv3d import _check, _require_cuda, fold_bn
+from .conv3d import _check, _require_cuda, fma_requant, fold_bn
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -177,3 +180,92 @@ def upconv_bn_relu(a: torch.Tensor, b: Optional[torch.Tensor],
 
 
 upconv_bn_relu.launches = 0
+
+
+# --------------------------------------------------------------------------
+# K3q: int8 fused upsample + conv, requant epilogue, per-parity bias
+# --------------------------------------------------------------------------
+
+
+def upconv_q_requant_plain(a: torch.Tensor, b: Optional[torch.Tensor],
+                           wa: torch.Tensor, wb: Optional[torch.Tensor],
+                           wone: torch.Tensor, scale: torch.Tensor,
+                           bias: torch.Tensor,
+                           zp: bool = True) -> torch.Tensor:
+    """Plain PyTorch K3q: the int32 accumulator exactly, as the k4/s2/p1
+    transposed conv of ``x_aug = cat(a, 127, b)`` (the ones lane holds 127
+    inside the volume) in f64, with one layer of the layout's fill (-128 in
+    ``zp`` mode, else 0) around the half-resolution volume in EVERY lane;
+    then the epilogue of ``upconv.py:431-441`` (one rounding,
+    :func:`~.conv3d.fma_requant`) with the bias row of each output voxel's
+    parity.
+
+    :param a: int8 ``(D2, H2, W2, Ca)``; ``b``: int8 ``(D2, H2, W2, Cb)``
+        or None; ``wa``/``wb``: int8 ``(4, 4, 4, C, Co)``; ``wone``: int8
+        ``(4, 4, 4, Co)``; ``scale``: f32 ``(Co,)``; ``bias``: f32
+        ``(8, Co)``, row ``4*pz + 2*py + px`` for output parity (pz, py, px).
+    :returns: int8 ``(2*D2, 2*H2, 2*W2, Co)``.
+    """
+    fill = -128.0 if zp else 0.0
+    parts = [a.double(), torch.full_like(a[..., :1], 127, dtype=torch.float64)]
+    ws = [wa.double(), wone.double()[..., None, :]]
+    if b is not None:
+        parts.append(b.double())
+        ws.append(wb.double())
+    x = F.pad(torch.cat(parts, -1).permute(3, 0, 1, 2)[None], (1,) * 6,
+              value=fill)
+    R = torch.cat(ws, 3).permute(3, 4, 0, 1, 2)
+    acc = F.conv_transpose3d(x, R, stride=2, padding=1)[0, :, 2:-2, 2:-2,
+                                                          2:-2]
+    d2, h2, w2 = a.shape[:3]
+    co = acc.shape[0]
+    res = fma_requant(acc.permute(1, 2, 3, 0).reshape(d2, 2, h2, 2, w2, 2, co),
+                      scale, bias.reshape(1, 2, 1, 2, 1, 2, co))
+    res = torch.clamp_min(res, 0.0).reshape(2 * d2, 2 * h2, 2 * w2, co)
+    if zp:
+        return (torch.round(torch.clamp_max(res, 255.0)) - 128.0).to(
+            torch.int8)
+    return torch.round(torch.clamp_max(res, 127.0)).to(torch.int8)
+
+
+def upconv_q_requant(a: torch.Tensor, b: Optional[torch.Tensor],
+                     wa: torch.Tensor, wb: Optional[torch.Tensor],
+                     wone: torch.Tensor, scale: torch.Tensor,
+                     bias: torch.Tensor, zp: bool = True) -> torch.Tensor:
+    """K3q on int8 half-resolution ``a`` (and skip ``b``) -> int8 full
+    resolution (arguments as :func:`upconv_q_requant_plain`).
+
+    CPU tensor: the plain version. CUDA tensor: the ``csrc/upconv_q.cu``
+    kernel on the current stream, or an error.
+    """
+    if a.device.type == "cpu":
+        return upconv_q_requant_plain(a, b, wa, wb, wone, scale, bias, zp)
+    _require_cuda(a, "upconv_q_requant")
+    d2, h2, w2, ca = a.shape
+    co = wa.shape[-1]
+    cb = 0 if b is None else b.shape[-1]
+    _check(a, "a", torch.int8)
+    _check(wa, "wa", torch.int8, (4, 4, 4, ca, co), a.device)
+    _check(wone, "wone", torch.int8, (4, 4, 4, co), a.device)
+    _check(scale, "scale", torch.float32, (co,), a.device)
+    _check(bias, "bias", torch.float32, (8, co), a.device)
+    if b is not None:
+        _check(b, "b", torch.int8, (d2, h2, w2, cb), a.device)
+        _check(wb, "wb", torch.int8, (4, 4, 4, cb, co), a.device)
+    out = torch.empty((2 * d2, 2 * h2, 2 * w2, co), dtype=torch.int8,
+                      device=a.device)
+    if out.numel() == 0:
+        return out
+    fn = build.function("upconv_q", "ctunet_upconv_q_requant",
+                        [_P] * 8 + [_I] * 8 + [_P])
+    rc = fn(a.data_ptr(), None if b is None else b.data_ptr(),
+            wa.data_ptr(), None if wb is None else wb.data_ptr(),
+            wone.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), d2, h2, w2, ca, cb, co, int(zp),
+            *build.stream_args(a))
+    build.check(rc, "upconv_q_requant")
+    upconv_q_requant.launches += 1
+    return out
+
+
+upconv_q_requant.launches = 0

@@ -5,7 +5,8 @@ Parity target: the reference ``Model`` (``ctunet/pytorch/Model.py:24-145,
 ``Model(params=dict)`` parses the config over ``default_params``, resolves
 the workspace, binds the problem handler and the test dataset, loads the
 weights and, with ``test_flag``, serves every test volume whole through the
-bf16 engine (``engine.py``) and writes ``pred_<name>/<file>_{sk,fl,i}``
+bf16 engine (``engine.py``), or with ``use_int8`` the calibrated int8
+engine (``engine_q.py``), and writes ``pred_<name>/<file>_{sk,fl,i}``
 NIfTI files. CLI: ``ctunet-tpu-torch <cfg.ini>`` /
 ``python -m ctunet_tpu_torch <cfg.ini>``.
 
@@ -46,7 +47,6 @@ POOL_MULTIPLE = 16
 _NOT_PORTED = (
     ("train_flag", lambda v: v is True,
      "training, ROADMAP Queue 1 items 12-15"),
-    ("use_int8", bool, "int8 serving, ROADMAP Queue 1 items 7-8"),
     ("fg_crop", bool, "foreground-crop serving, ROADMAP Queue 1 item 9"),
     ("serve_scan", lambda v: int(v or 1) > 1,
      "K-volume batching, ROADMAP Queue 1 item 9"),
@@ -111,6 +111,8 @@ class Model:
         self.out_paths = None
         self.n_served = 0
         self.serve_seconds = 0.0
+        self.int8_build_seconds = 0.0  # part of serve_seconds
+        self.int8_engines: Dict = {}  # shape -> int8 predict, None = bf16
 
         if self.params.get("test_flag") is True:
             self.test()
@@ -211,7 +213,9 @@ class Model:
     def _make_whole_volume_predict(self, atlas=None):
         """``predict(images)`` on ``(B, D, H, W)`` device volumes: stacks the
         atlas channel on the device and runs the bf16 engine (or, with
-        ``use_engine = False``, the plain f32 model)."""
+        ``use_engine = False``, the plain f32 model). With ``use_int8`` the
+        int8 engine serves instead, built lazily on the first volume of
+        each shape (``ctunet_tpu/trainer.py:857-999``)."""
         dtype = self.compute_dtype
         if self.params.get("use_engine", True):
             fwd = engine.build_predict(self.params["model_class"],
@@ -219,6 +223,9 @@ class Model:
         else:
             model = self.models["main"].to(self.device)
             fwd = lambda x: model(x.float())  # noqa: E731
+        use_q = bool(self.params.get("use_int8")) and self.params.get(
+            "use_engine", True)
+        q_by_shape = self.int8_engines
         # the atlas is a serving-time constant: upload it once
         atlas_dev = (None if atlas is None
                      else upload(np.asarray(atlas, np.float32), self.device,
@@ -228,9 +235,57 @@ class Model:
             chans = [images.to(dtype)]
             if atlas_dev is not None:
                 chans.append(atlas_dev.expand(images.shape))
-            return fwd(torch.stack(chans, -1))
+            x = torch.stack(chans, -1)
+            if not use_q:
+                return fwd(x)
+            shape = tuple(x.shape[1:])
+            if shape not in q_by_shape:
+                q_by_shape[shape] = self._build_int8(x[0])
+            qfn = q_by_shape[shape]
+            return fwd(x) if qfn is None else qfn(x)
 
         return predict
+
+    def _build_int8(self, x0: torch.Tensor):
+        """The int8 engine calibrated on ``x0`` ``(D, H, W, C)``: AdaQuant
+        first (``int8_adaquant``), then plain int8. Only
+        ``engine_q.Unsupported``, raised while planning before any launch,
+        moves on to the next mode; ``None`` means the bf16 engine serves.
+        A failing kernel build or launch is never caught here."""
+        from . import engine_q
+
+        p = self.params
+        common = dict(
+            compute_dtype=self.compute_dtype, device=self.device,
+            calib_quantile=float(p.get("int8_calib_quantile") or 1.0),
+            bf16_tail=float(p.get("int8_bf16_tail") or 0),
+            bf16_head=float(p.get("int8_bf16_head") or 0))
+        builders = [("int8", engine_q.build_predict_q, {})]
+        if p.get("int8_adaquant"):
+            builders.insert(0, ("int8+adaquant", engine_q.build_predict_q_opt,
+                                dict(adaquant_steps=int(
+                                    p.get("int8_adaquant_steps") or 250),
+                                     learn_scales=bool(
+                                         p.get("int8_learn_scales")))))
+        t0 = time.perf_counter()
+        for label, builder, extra in builders:
+            # the serving loop runs under inference_mode; AdaQuant needs
+            # autograd, and an inference tensor cannot be saved for backward
+            with torch.inference_mode(False), torch.enable_grad():
+                calib = x0.clone()
+                try:
+                    qfn = builder(p["model_class"], self.state_dict, calib,
+                                  **common, **extra)
+                except engine_q.Unsupported as e:
+                    print(f"{label} engine unavailable ({e}); trying the "
+                          "next serving mode.")
+                    continue
+            self.int8_build_seconds += time.perf_counter() - t0
+            print(f"serving: calibrated {label} engine for "
+                  f"{tuple(x0.shape)} in {time.perf_counter() - t0:.1f} s")
+            return qfn
+        print("serving the bf16 engine.")
+        return None
 
     def _forward_pass_test(self) -> None:
         """Serve every test volume (``trainer.py:1120``): pad to the pool

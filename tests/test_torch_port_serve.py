@@ -136,7 +136,7 @@ def test_model_serves_non_multiple_shapes(tmp_path):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("train_flag", True), ("use_int8", True), ("fg_crop", True),
+    ("train_flag", True), ("serve_profile", True), ("fg_crop", True),
     ("serve_scan", 4), ("patch_inference", True), ("distributed", True),
 ])
 def test_unported_settings_raise(tmp_path, key, value):

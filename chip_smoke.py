@@ -8,11 +8,14 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
    ``ctunet_tpu_torch/csrc/`` (one ``nvcc`` per source, in parallel) and
    times it.
 2. Kernels: each kernel against its plain PyTorch version on the card at
-   the serving paths' real shapes (UNetSP, 224x304x304): the bf16 kernels
-   K1-K3 with the stated tolerance, the int8 kernels K1q-K3q exactly (on
-   layers quantized from a calibration on one synthetic volume); the
-   kernel's time beside the plain version's, one PyTorch library call's
-   where one exists, and the card's bound.
+   the paths' real shapes (UNetSP, 224x304x304): the bf16 kernels K1-K3
+   with the stated tolerance, the int8 kernels K1q-K3q exactly (on layers
+   quantized from a calibration on one synthetic volume), and the training
+   conv K6 forward and as input gradient (flipped, channel-swapped
+   weights) in bf16 and f32 at the layers training launches, plus the
+   autograd function's ``dx``/``dw`` against autograd through the plain
+   version; the kernel's time beside the plain version's, one PyTorch
+   library call's where one exists, and the card's bound.
 3. bf16 path: serves synthetic broken skulls (``spherical_shell`` with a
    hole punched; atlas ``spherical_shell(radius_frac=0.42)``) through the
    ``Model`` test path with the committed ``unetsp_10k`` weights, checks
@@ -27,6 +30,19 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
    int8 launch counts (12 K1q, 4 K2q, 4 K3q per volume), masks identical to
    the same int8 engine on the plain versions, and Dice against the plain
    f32 model of at least 0.98 (skull) and 0.95 (flap).
+5. Training: ``Model`` with the settings of
+   ``examples/UNetSPDO/FlapRecSP2O.ini`` (adam, lr 1e-4, Dice + CE, batch 1,
+   bf16) and ``conv_impl = "chain"`` on complete synthetic skulls at
+   224x304x304, random weights from the seed: 1 epoch of 4 train steps and
+   2 eval steps, the checkpoint saved, then the test path serves one volume
+   from the trained weights through the bf16 engine. Checks: finite losses
+   with the 4th below the 1st, K6 launches (31 per train step: 16 forward +
+   15 input gradients, the network input needs none; 16 per eval step), the
+   checkpoint reloading to the same tensors, the masks written, and one
+   train step against the same step on the plain versions (loss within 1e-2
+   relative, BatchNorm batch statistics within bf16 tolerance). Then the
+   step time with ``chain`` and with ``xla`` (cuDNN), the peak memory and a
+   ``torch.profiler`` pass over one ``chain`` step.
 
 The last two lines of output are one JSON object ``{"kernels": [...]}``
 and ``{"ok": true, "device": {...}}``. Any failure exits non-zero and
@@ -53,9 +69,15 @@ N_VOLUMES = 3
 INT8_INI = os.path.join(ROOT, "examples", "UNetSPDO",
                         "FlapRecSP2O_serve_int8.ini")
 ADAQUANT_STEPS = 250
+TRAIN_INI = os.path.join(ROOT, "examples", "UNetSPDO", "FlapRecSP2O.ini")
+N_TRAIN, N_EVAL = 4, 2  # steps of the training phase (batch 1)
+# K6 launches per step of the 16-conv UNetSP: every conv forward, and every
+# input gradient but the network input's
+K6_PER_TRAIN_STEP, K6_PER_EVAL_STEP = 16 + 15, 16
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 BF16_FLOP_PER_S = 989e12    # H100 SXM dense bf16, published
 INT8_OP_PER_S = 1979e12     # H100 SXM dense int8 tensor cores, published
+F32_FLOP_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
 BF16_EPS = 2.0 ** -7        # bf16 spacing at 1.0 (7 stored mantissa bits)
 # A voxel is decided when both engines' class probabilities differ by more
 # than 4 bf16 ulps at 0.5. Two bf16 engines that differ only in f32
@@ -98,6 +120,13 @@ def time_ms(fn, reps: int, device) -> float:
     end.record()
     torch.cuda.synchronize(device)
     return start.elapsed_time(end) / reps
+
+
+def sync(device) -> None:
+    if device.type == "cuda":
+        import torch
+
+        torch.cuda.synchronize(device)
 
 
 def bound_ms(n_bytes: float, n_flops: float, peak: float = BF16_FLOP_PER_S):
@@ -245,6 +274,130 @@ def check_kernels(sd, device, shape=SHAPE, reps_big: int = 5,
     return entries, failures
 
 
+def f32_tol(ref, n_terms: int) -> float:
+    """Kernel and plain version add the same ``n_terms`` f32 products per
+    output in different orders, so each carries a rounding error that grows
+    as ``eps * sqrt(n_terms)`` of the sums' magnitude: 4 times that at the
+    reference's largest magnitude (the largest of ~10^7 outputs is compared).
+    A dropped tap would show as ~1e-1."""
+    return 4.0 * 2.0 ** -23 * math.sqrt(n_terms) * float(
+        ref.float().abs().max())
+
+
+def check_kernel_train(device, shape=SHAPE, reps: int = 3):
+    """K6 against its plain version at the layers training launches: forward
+    and as input gradient (the reverse layer's flipped, channel-swapped
+    weights), bf16 and f32; then the autograd function's ``dx`` and ``dw``
+    against autograd through the plain version at the full-resolution 7->7
+    layer, and the library's forward / dgrad / wgrad times there. Random
+    normal inputs and weights from a seed. Returns ``(entries, failures)``.
+    """
+    import torch
+    import torch.nn.functional as F
+
+    from ctunet_tpu_torch.ops import chain_conv_train as cct
+    from ctunet_tpu_torch.ops.kernels import conv3d as kc
+
+    gen = torch.Generator(device=device).manual_seed(2)
+    d, h, w = shape
+    lv = [(d >> i, h >> i, w >> i) for i in range(5)]
+    entries, failures = {}, []
+
+    def randn(*shp, dtype):
+        return torch.randn(*shp, generator=gen, device=device).to(dtype)
+
+    for ci, co, level in ((2, 7, 0), (7, 7, 0), (28, 7, 0), (7, 28, 0),
+                          (112, 28, 2)):
+        shp = lv[level]
+        for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            wt = randn(3, 3, 3, ci, co, dtype=dtype) * (27 * ci) ** -0.5
+            zero = torch.zeros(co, device=device)
+            for mode in ("fwd", "dgrad"):
+                if mode == "fwd":
+                    x, k, b = randn(*shp, ci, dtype=dtype), wt, zero
+                else:  # gradient of a co->ci layer w.r.t. its input
+                    x = randn(*shp, ci, dtype=dtype)
+                    k = cct.flip_swap(randn(3, 3, 3, co, ci, dtype=dtype)
+                                      * (27 * co) ** -0.5)
+                    b = zero
+                got = kc.conv3d_bias_act(x, k, b, False)
+                ref = kc.conv3d_bias_act_plain(x, k, b, False)
+                sync(device)
+                tol = (bf16_tol(ref) if dtype == torch.bfloat16
+                       else f32_tol(ref, 27 * k.shape[3]))
+                err = float((got.float() - ref.float()).abs().max())
+                ok = bool(torch.isfinite(got.float()).all()) and err <= tol
+                ms = time_ms(lambda: kc.conv3d_bias_act(x, k, b, False), reps,
+                             device)
+                p_ms = time_ms(lambda: kc.conv3d_bias_act_plain(x, k, b,
+                                                                False), 1,
+                               device)
+                x_l = x.permute(3, 0, 1, 2)[None]
+                k_l = k.permute(4, 3, 0, 1, 2).contiguous(
+                    memory_format=torch.channels_last_3d)
+                l_ms = time_ms(lambda: F.conv3d(x_l, k_l, padding=1), reps,
+                               device)
+                esz = 2 if dtype == torch.bfloat16 else 4
+                nbytes = esz * (math.prod(shp) * (ci + co) + k.numel()) + 4 * co
+                nflops = 2 * ci * co * conv_taps(shp, 3)
+                b_ms, b_by = bound_ms(nbytes, nflops, BF16_FLOP_PER_S
+                                      if dtype == torch.bfloat16
+                                      else F32_FLOP_PER_S)
+                case = f"{ci}->{co} {'x'.join(map(str, shp))} {tag} {mode}"
+                log(f"  conv3d_bias_act [{case}]: max_abs_err {err:.3e} (tol "
+                    f"{tol:.3e}) {'ok' if ok else 'FAIL'}; kernel {ms:.3f} ms,"
+                    f" plain {p_ms:.3f} ms, library {l_ms:.3f} ms, bound "
+                    f"{b_ms:.4f} ms ({b_by}); {nflops / ms / 1e9:.2f} TFLOP/s")
+                if not ok:
+                    failures.append(f"conv3d_bias_act [{case}]: err {err} > "
+                                    f"tol {tol} or non-finite")
+                if (ci, co, tag, mode) == (7, 7, "bf16", "fwd"):
+                    entries["conv3d_bias_act"] = dict(
+                        case=case, max_abs_err=err, ms=ms, plain_ms=p_ms,
+                        bound_ms=b_ms, bound_by=b_by, library_ms=l_ms)
+                del x, k, got, ref, x_l, k_l
+
+    # the autograd function at the full-resolution 7->7 layer, bf16
+    bf = torch.bfloat16
+    x = randn(1, *lv[0], 7, dtype=bf).requires_grad_()
+    wt = (randn(3, 3, 3, 7, 7, dtype=bf) * (27 * 7) ** -0.5).requires_grad_()
+    g = randn(1, *lv[0], 7, dtype=bf)
+    zero = torch.zeros(7, device=device)
+    dx, dw = torch.autograd.grad(cct.conv3d_chain_train(x, wt), (x, wt), g)
+    y_ref = kc.conv3d_bias_act_plain(x[0], wt, zero, False)[None]
+    dx_r, dw_r = torch.autograd.grad(y_ref, (x, wt), g)
+    for name, got, ref, ulps in (("dx", dx, dx_r, 1.0), ("dw", dw, dw_r, 2.0)):
+        # dw: each depth plane's partial sum is rounded to bf16 before the
+        # f32 sum over planes, then the sum is rounded: twice K1's tolerance
+        tol = ulps * bf16_tol(ref)
+        err = float((got.float() - ref.float()).abs().max())
+        ok = bool(torch.isfinite(got.float()).all()) and err <= tol
+        log(f"  conv3d_chain_train {name} [7->7 full size bf16] vs autograd "
+            f"through the plain version: max_abs_err {err:.3e} (tol "
+            f"{tol:.3e}, max |ref| {float(ref.float().abs().max()):.3e}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"conv3d_chain_train {name}: err {err} > {tol}")
+    xd, wd = x.detach(), wt.detach()
+    dgrad_ms = time_ms(lambda: kc.conv3d_bias_act(
+        g[0], cct.flip_swap(wd), zero, False), reps, device)
+    wgrad_ms = time_ms(lambda: cct.dw_taps(xd[0], g[0]), reps, device)
+    x_l = x.detach().permute(0, 4, 1, 2, 3).requires_grad_()
+    w_l = wd.permute(4, 3, 0, 1, 2).contiguous(
+        memory_format=torch.channels_last_3d).requires_grad_()
+    g_l = g.permute(0, 4, 1, 2, 3)
+    y_l = F.conv3d(x_l, w_l, padding=1)
+    lib = {}
+    for name, inp in (("dgrad", x_l), ("wgrad", w_l)):
+        lib[name] = time_ms(lambda: torch.autograd.grad(
+            y_l, inp, g_l, retain_graph=True), reps, device)
+    log(f"  7->7 full size bf16 backward: kernel dgrad {dgrad_ms:.3f} ms, "
+        f"27 tap-shifted matmuls wgrad {wgrad_ms:.3f} ms; library (cuDNN "
+        f"through torch.autograd.grad) dgrad {lib['dgrad']:.3f} ms, wgrad "
+        f"{lib['wgrad']:.3f} ms")
+    return entries, failures
+
+
 def check_kernels_q(sd, device, shape=SHAPE, reps_big: int = 5,
                     reps_small: int = 50, reps_plain: int = 1):
     """K1q, K2q and K3q against their plain versions at the int8 path's
@@ -374,9 +527,10 @@ def punched_shell(shape, seed: int):
     return np.where(hole, 0, full).astype(np.uint8)
 
 
-def profile_device(fn, device, rows: int = 12) -> None:
+def profile_device(fn, device, rows: int = 12, what: str = "one volume"):
     """Print the device time of one ``fn()`` by kernel name
-    (``torch.profiler``), or "not measured" when it sees none."""
+    (``torch.profiler``), or "not measured" when it sees none. Returns
+    ``{kernel name: (count, ms)}``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -397,11 +551,12 @@ def profile_device(fn, device, rows: int = 12) -> None:
     total = sum(ms for _, ms in by_name.values())
     if not total:
         log("  device profile: not measured (no device time recorded)")
-        return
-    log(f"  device profile of one volume: {total:.2f} ms of kernels")
+        return by_name
+    log(f"  device profile of {what}: {total:.2f} ms of kernels")
     for key, (n, ms) in sorted(by_name.items(), key=lambda kv: -kv[1][1]
                                )[:rows]:
         log(f"    {ms:8.3f} ms {100 * ms / total:5.1f}% x{n:<3d} {key[:70]}")
+    return by_name
 
 
 def dice(a, b) -> float:
@@ -685,6 +840,187 @@ def serve(device, work: str, shape=SHAPE, n_volumes: int = N_VOLUMES):
     return launches, stats, failures
 
 
+def train(device, work: str, shape=SHAPE, n_train: int = N_TRAIN,
+          n_eval: int = N_EVAL, time_steps: int = 3):
+    """Train UNetSP through ``Model`` with ``conv_impl = "chain"`` at the
+    settings of ``examples/UNetSPDO/FlapRecSP2O.ini`` on complete synthetic
+    skulls, evaluate, save, and serve one volume from the trained weights;
+    then hold one train step against the plain versions and time the step.
+    Returns ``(launches, stats, failures)``."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from ctunet_tpu_torch import (Model, checkpoint, default_params,
+                                  load_params, steps)
+    from ctunet_tpu_torch.data import make_dataset
+    from ctunet_tpu_torch.models import build_model
+    from ctunet_tpu_torch.ops import kernels
+    from ctunet_tpu_torch.problem import FlapRecWithShapePriorDoubleOut
+
+    failures = []
+    data, paths, csv, atlas, affine = write_volumes(work, shape, 1)
+    train_csv = make_dataset(os.path.join(work, "train"), n=n_train,
+                             shape=shape, seed=40)
+    val_csv = make_dataset(os.path.join(work, "val"), n=n_eval, shape=shape,
+                           seed=80)
+    params = load_params(TRAIN_INI, default_params())
+    # the INI's settings but: one epoch, no per-epoch autosave + test (the
+    # final save and test run once), whole synthetic volumes
+    params.update(
+        name="chip_smoke_train", conv_impl="chain", n_epochs=1,
+        autosave_epochs=0, workspace_path=os.path.join(work, "ws"),
+        train_files_csv=train_csv, validation_files_csv=val_csv,
+        test_files_csv=csv, resume_model="", log_every=1)
+    if device.type != "cuda":
+        params["device"] = device.type
+    kernels.reset_launches()
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    m = Model(params=params)  # train, eval, save, then test one volume
+    sync(device)
+    wall = time.perf_counter() - t0
+    counts = kernels.launches()
+    want = {"conv3d_bias_act": n_train * K6_PER_TRAIN_STEP
+            + n_eval * K6_PER_EVAL_STEP,
+            "conv3d_bn_relu": 12, "maxpool2": 4, "upconv_bn_relu": 4}
+    launches = {k: counts[k] for k in want}
+    log(f"  launches: {launches} (want {want}: {n_train} train steps x "
+        f"{K6_PER_TRAIN_STEP} + {n_eval} eval steps x {K6_PER_EVAL_STEP} of "
+        "K6, then one served volume)")
+    if launches != want:
+        failures.append(f"training launch counts {launches} != {want}")
+    losses = [float(v) for v in m.step_losses]
+    hist = {k: v[-1][1] for k, v in m.writer.history.items()}
+    log(f"  train losses per step: {losses}; epoch scalars: "
+        f"{json.dumps(hist)}")
+    if len(losses) != n_train or not all(map(math.isfinite, losses)) or not \
+            all(math.isfinite(v) for v in hist.values()):
+        failures.append(f"training: losses not finite: {losses} {hist}")
+    elif not losses[-1] < losses[0]:
+        failures.append(f"training: loss {losses[-1]} after {n_train} steps "
+                        f"is not below the first {losses[0]}")
+    stats = dict(train_steps=n_train, eval_steps=n_eval,
+                 train_loop_s=m.train_seconds, model_wall_s=wall,
+                 first_loss=losses[0] if losses else None,
+                 last_loss=losses[-1] if losses else None)
+    if device.type == "cuda":
+        stats["peak_mem_gb"] = torch.cuda.max_memory_allocated(device) / 2**30
+        log(f"  peak device memory over Model's train + test: "
+            f"{stats['peak_mem_gb']:.2f} GiB")
+
+    # the checkpoint reloads to the tensors just trained; the masks exist
+    saved = checkpoint.restore_checkpoint(m.params["model_path"])
+    live = m.state.model.state_dict()
+    bad = [k for k in live if not torch.equal(saved["model"][k],
+                                              live[k].cpu())]
+    if bad or set(saved["model"]) != set(live) or saved["step"] != n_train:
+        failures.append(f"checkpoint differs from the trained state: {bad}, "
+                        f"step {saved['step']}")
+    log(f"  checkpoint {os.path.basename(m.params['model_path'])}: "
+        f"{len(live)} tensors reload equal, step {saved['step']}, optimizer "
+        f"count {saved['optimizer']['param_groups'][0]['count']}")
+    read_masks(os.path.join(data, "pred_chip_smoke_train"), paths, shape,
+               affine, failures)
+
+    # one train step on the kernels against the same step on the plain
+    # versions: same initial weights, volume and synthesis draws
+    handler = FlapRecWithShapePriorDoubleOut()
+    loss_cfg = {k: params.get(k) for k in ("ce_lambda", "dice_lambda")}
+    vol = torch.from_numpy(nifti_data(
+        os.path.join(work, "train", "skull_000.nii.gz"))[None]).to(device)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        base = build_model("UNetSP").to(device)
+
+    def one_step(impl, n=1):
+        model = copy.deepcopy(base).configure(impl, torch.bfloat16)
+        state = steps.TrainState(model, steps.make_optimizer(
+            params, model.parameters()))
+        step = steps.make_train_step(model, handler, loss_cfg, atlas=atlas,
+                                     compute_dtype=torch.bfloat16)
+        gen = torch.Generator(device=device).manual_seed(5)
+        out = []
+        for _ in range(n):
+            sync(device)
+            t = time.perf_counter()
+            _, terms = step(state, {"image": vol}, gen)
+            sync(device)
+            out.append((1e3 * (time.perf_counter() - t),
+                        float(terms["epoch_loss"])))
+        return model, state, step, gen, out
+
+    kernels.reset_launches()
+    mk, state_k, step_k, gen_k, out_k = one_step("chain")
+    per_train = kernels.launches()["conv3d_bias_act"]
+    ev = steps.make_eval_step(mk, handler, loss_cfg, atlas=atlas,
+                              compute_dtype=torch.bfloat16)
+    kernels.reset_launches()
+    ev(state_k, {"image": vol}, gen_k)
+    per_eval = kernels.launches()["conv3d_bias_act"]
+    log(f"  K6 launches: {per_train} per train step (want "
+        f"{K6_PER_TRAIN_STEP}), {per_eval} per eval step (want "
+        f"{K6_PER_EVAL_STEP})")
+    if (per_train, per_eval) != (K6_PER_TRAIN_STEP, K6_PER_EVAL_STEP):
+        failures.append(f"K6 launches per step {per_train}/{per_eval}")
+    mp, _, _, _, out_p = one_step("plain")
+    loss_k, loss_p = out_k[0][1], out_p[0][1]
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    worst = 0.0
+    init = base.state_dict()
+    for name, buf in mk.state_dict().items():
+        if not name.endswith(("running_mean", "running_var")):
+            continue
+        # batch statistic = (running - 0.9 * initial) / 0.1
+        bk = (buf - 0.9 * init[name]) / 0.1
+        bp = (mp.state_dict()[name] - 0.9 * init[name]) / 0.1
+        # bf16 activations: 2 bf16 ulps at the statistic's magnitude, and
+        # as much again for what earlier layers' roundings move it
+        tol = 4 * BF16_EPS * float(bp.abs().max().clamp_min(1e-3))
+        err = float((bk - bp).abs().max())
+        worst = max(worst, err / tol)
+        if not err <= tol:
+            failures.append(f"BN batch statistic {name}: {err} > {tol}")
+    log(f"  step 1 kernels vs plain versions: loss {loss_k:.6f} vs "
+        f"{loss_p:.6f} (relative {rel:.2e}, limit 1e-2); BN batch "
+        f"statistics worst error / tolerance {worst:.3f}")
+    if not rel <= 1e-2:
+        failures.append(f"step loss {loss_k} vs plain {loss_p}: {rel} > 1e-2")
+    del mp
+
+    # step time: chain (kernels) and xla (cuDNN), the first step left out
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    for _ in range(time_steps):
+        sync(device)
+        t = time.perf_counter()
+        step_k(state_k, {"image": vol}, gen_k)
+        sync(device)
+        out_k.append((1e3 * (time.perf_counter() - t), 0.0))
+    stats["chain_ms_per_step"] = float(np.mean([t for t, _ in out_k[1:]]))
+    if device.type == "cuda":
+        stats["step_peak_mem_gb"] = (
+            torch.cuda.max_memory_allocated(device) / 2**30)
+    prof = profile_device(lambda: step_k(state_k, {"image": vol}, gen_k),
+                          device, rows=16, what="one chain train step")
+    total = sum(ms for _, ms in prof.values())
+    k6 = sum(ms for key, (_, ms) in prof.items() if "conv3d_bias_act" in key)
+    stats["k6_share_of_device_time"] = k6 / total if total else None
+    del mk, state_k, step_k
+    _, _, _, _, out_x = one_step("xla", n=time_steps + 1)
+    stats["xla_ms_per_step"] = float(np.mean([t for t, _ in out_x[1:]]))
+    log(f"  ms/step at batch 1 (host clock around a synchronized step, first"
+        f" step left out): chain {stats['chain_ms_per_step']:.1f}, xla "
+        f"(cuDNN) {stats['xla_ms_per_step']:.1f}; K6 kernels "
+        f"{k6:.1f} ms of {total:.1f} ms device time in the profiled step; "
+        f"peak memory of a chain step "
+        f"{stats.get('step_peak_mem_gb', float('nan')):.2f} GiB; xla losses "
+        f"{[round(v, 6) for _, v in out_x]}")
+    return launches, stats, failures
+
+
 def main() -> int:
     import torch
 
@@ -724,11 +1060,14 @@ def main() -> int:
         "TF32 off)")
     t0 = time.perf_counter()
     entries = {}
-    for label, check in (("bf16 inputs", check_kernels),
-                         ("int8 inputs, exact", check_kernels_q)):
+    for label, check in (
+            ("bf16 inputs", lambda: check_kernels(sd, device)),
+            ("int8 inputs, exact", lambda: check_kernels_q(sd, device)),
+            ("training conv K6, random weights", lambda: check_kernel_train(
+                device))):
         log(f"  -- {label}")
         try:
-            got, errs = check(sd, device)
+            got, errs = check()
             entries.update(got)
             failures += errs
         except Exception:  # noqa: BLE001  report, then fail the run below
@@ -737,11 +1076,14 @@ def main() -> int:
     log(f"  phase 2: {time.perf_counter() - t0:.1f} s")
 
     launches = {}
+    size = "x".join(map(str, SHAPE))
     for phase, label, fn in (
-            (3, "bf16", serve),
-            (4, f"int8 + AdaQuant ({ADAQUANT_STEPS} steps)", serve_int8)):
-        log(f"== phase {phase}: main path, {label}, {N_VOLUMES} UNetSP "
-            f"volumes {'x'.join(map(str, SHAPE))} through Model")
+            (3, f"bf16, {N_VOLUMES} UNetSP volumes {size}", serve),
+            (4, f"int8 + AdaQuant ({ADAQUANT_STEPS} steps), {N_VOLUMES} "
+                f"UNetSP volumes {size}", serve_int8),
+            (5, f"training, UNetSP {size} bf16 conv_impl=chain, {N_TRAIN} "
+                f"train + {N_EVAL} eval steps, save, serve 1 volume", train)):
+        log(f"== phase {phase}: main path, {label}, through Model")
         t0 = time.perf_counter()
         got = {}
         try:
@@ -749,7 +1091,7 @@ def main() -> int:
                                              dir=ROOT) as work:
                 got, stats, errs = fn(device, work)
             failures += errs
-            log("  serve: " + json.dumps(stats))
+            log("  stats: " + json.dumps(stats))
         except Exception:  # noqa: BLE001  report, then fail the run below
             traceback.print_exc()
             failures.append(f"phase {phase} raised")
@@ -757,7 +1099,9 @@ def main() -> int:
         if not got or min(got.values()) == 0:
             failures.append(f"phase {phase}: a kernel of the path was never "
                             f"launched: {got}")
-        launches.update(got)
+        # a later phase's count of an earlier kernel (phase 5 serves one
+        # volume on K1-K3) does not replace the phase that owns it
+        launches.update({k: v for k, v in got.items() if k not in launches})
 
     log(f"== total {time.perf_counter() - t_all:.1f} s")
     if failures:
@@ -778,6 +1122,8 @@ def main() -> int:
                        "ctunet_tpu/ops/pallas/conv3d.py:1862"),
         "upconv_q_requant": ("ctunet_tpu_torch/csrc/upconv_q.cu",
                              "ctunet_tpu/ops/pallas/upconv.py:1015"),
+        "conv3d_bias_act": ("ctunet_tpu_torch/csrc/conv3d.cu",
+                            "ctunet_tpu/ops/pallas/conv3d.py:453"),
     }
     kernels = []
     for name, (src, repl) in sources.items():

@@ -2,7 +2,7 @@
 
 Public API mirrors ``ctunet_tpu`` (and the reference ``ctunet`` package):
 ``load_params`` parses an INI config, ``Model`` is the config-driven
-predictor entry point. The hot path runs on hand-written Hopper kernels
+trainer and predictor entry point. The hot path runs on hand-written Hopper kernels
 (``ops/kernels``, sources in ``csrc/``) built with ``nvcc`` at first use.
 This package imports ``torch`` and numpy, never JAX or ``ctunet_tpu``.
 """

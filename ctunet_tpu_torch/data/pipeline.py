@@ -5,7 +5,11 @@ next batches while the device works on the current one (the reference used
 DataLoader worker processes and pinned memory, ``Model.py:179-186,198``);
 :func:`upload` copies a decoded volume through pinned host memory with a
 ``non_blocking`` copy, so the transfer is queued on the current stream and
-the host goes on decoding.
+the host goes on decoding; :func:`device_prefetch` keeps a few uploaded
+batches ahead of the consumer.
+
+Sampling parity: training draws with replacement, ``len(dataset)`` samples
+per epoch (``Model.py:175-177``, quirk Q4).
 """
 
 from __future__ import annotations
@@ -19,17 +23,35 @@ import torch
 
 
 class HostLoader:
-    """Iterable over batches in dataset order: ``{'image': (B,D,H,W) f32,
-    'filepath': [...]}`` (the test path; training's sampling with
-    replacement is not ported yet)."""
+    """Iterable over batches ``{'image': (B,D,H,W) f32, ..., 'filepath':
+    [...]}``: in dataset order by default (the test path), shuffled with or
+    without replacement for training (``pipeline.py:24-123``; one process,
+    so no rank slicing)."""
 
-    def __init__(self, dataset, batch_size: int = 1, n_workers: int = 2):
+    def __init__(self, dataset, batch_size: int = 1, n_workers: int = 2,
+                 shuffle: bool = False, replacement: bool = True,
+                 seed: int = 0, drop_remainder: bool = False):
         self.dataset = dataset
         self.batch_size = max(1, int(batch_size))
         self.n_workers = max(1, int(n_workers or 1))
+        self.shuffle = shuffle
+        self.replacement = replacement
+        self.drop_remainder = drop_remainder
+        self._rng = np.random.default_rng(seed)
 
     def __len__(self) -> int:
-        return -(-len(self.dataset) // self.batch_size)
+        n = len(self.dataset)
+        if self.drop_remainder:
+            return n // self.batch_size
+        return -(-n // self.batch_size)
+
+    def _epoch_indices(self) -> np.ndarray:
+        n = len(self.dataset)
+        if not self.shuffle:
+            return np.arange(n)
+        if self.replacement:
+            return self._rng.integers(0, n, size=n)
+        return self._rng.permutation(n)
 
     @staticmethod
     def _collate(samples: List[Dict]) -> Dict:
@@ -41,9 +63,11 @@ class HostLoader:
         return batch
 
     def __iter__(self) -> Iterator[Dict]:
-        idxs = np.arange(len(self.dataset))
+        idxs = self._epoch_indices()
         batches = [idxs[i: i + self.batch_size]
                    for i in range(0, len(idxs), self.batch_size)]
+        if self.drop_remainder:
+            batches = [b for b in batches if len(b) == self.batch_size]
         with cf.ThreadPoolExecutor(self.n_workers) as pool:
             pending: collections.deque = collections.deque()
             it = iter(batches)
@@ -74,3 +98,29 @@ def upload(array: np.ndarray, device: torch.device,
     if device.type == "cuda":
         host = host.pin_memory()
     return host.to(device, non_blocking=True).to(dtype)
+
+
+def device_prefetch(iterator, device: torch.device, depth: int = 2,
+                    dtype: torch.dtype = torch.float32):
+    """Run :func:`upload` ``depth`` batches ahead of the consumer
+    (``pipeline.py:183-250``): array entries become ``dtype`` tensors on
+    ``device``, other entries (file paths) pass through. The packed-bits
+    upload of the JAX package served a slow host link and is not carried
+    over."""
+
+    def put(batch):
+        return {k: (upload(v, device, dtype) if isinstance(v, np.ndarray)
+                    else v) for k, v in batch.items()}
+
+    queue: collections.deque = collections.deque()
+    it = iter(iterator)
+    for batch in it:
+        queue.append(put(batch))
+        if len(queue) >= max(1, depth):
+            break
+    while queue:
+        nxt = queue.popleft()
+        batch = next(it, None)
+        if batch is not None:
+            queue.append(put(batch))
+        yield nxt

@@ -82,6 +82,7 @@ def build_predict(
     device=None,
     plain: bool = False,
     record: Optional[Callable[[torch.Tensor], None]] = None,
+    sparse: int = 0,
 ) -> Callable:
     """Build ``predict(images)`` for ``(B, D, H, W, C)`` inputs.
 
@@ -95,6 +96,12 @@ def build_predict(
         per decoder level the fused upconv output and unit 1. Dense
         ``(D, H, W, C)`` tensors without the JAX layout's ones channel; the
         int8 engine calibrates on this stream (``engine_q.calibrate``).
+    :param sparse: non-zero routes every conv unit through K6
+        (``conv3d_bias_act`` with the ReLU on and the folded bias) instead
+        of K1, as the JAX engine's ``sparse`` sends them to ``conv3d_chain``
+        (``ctunet_tpu/engine.py:170-185``). There the number is the group
+        height of a constant-region skip, a TPU scheduling choice that
+        changes no value; here any non-zero value selects the route.
     :returns: ``predict`` -> ``(full, flap)``, each ``(B, D, H, W, 2)`` in
         ``compute_dtype`` (double head), or ``(B, D, H, W, 3)``.
     """
@@ -109,6 +116,9 @@ def build_predict(
             f"the Hopper kernels compute in bfloat16, not {compute_dtype}; "
             "other engine dtypes on the card are not ported")
     conv = kc.conv3d_bn_relu_plain if plain else kc.conv3d_bn_relu
+    if sparse:
+        k6 = kc.conv3d_bias_act_plain if plain else kc.conv3d_bias_act
+        conv = lambda h, w, b: k6(h, w, b, True)  # noqa: E731
     pool = kc.maxpool2_plain if plain else kc.maxpool2
     upconv = ku.upconv_bn_relu_plain if plain else ku.upconv_bn_relu
 

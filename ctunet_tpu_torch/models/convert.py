@@ -1,4 +1,4 @@
-"""Flax variable trees -> PyTorch state_dict of the port's models.
+"""Flax variable trees <-> PyTorch state_dict of the port's models.
 
 ``ctunet_tpu`` keeps weights as flax trees: ``params`` (conv kernels
 ``(3,3,3,I,O)``, ConvTranspose kernels ``(2,2,2,O,I)`` in the
@@ -17,6 +17,10 @@ state_dict names the port's modules use (``models/unet.py``):
 - ``last_conv`` ``(1,1,1,I,O)`` -> ``(O,I,1,1,1)``.
 
 The arrays are taken as numpy (any nested mapping of array-likes).
+:func:`to_flax` is the way back: a state_dict of the port -> the JAX
+package's ``params`` and ``batch_stats`` as nested dicts of numpy arrays,
+so weights trained here load there and the tests carry one set of weights
+through both train steps.
 """
 
 from __future__ import annotations
@@ -74,3 +78,55 @@ def from_flax(params: Mapping[str, Any],
     sd["last_conv.weight"] = _kernel(params["last_conv"]["kernel"])
     sd["last_conv.bias"] = _t(params["last_conv"]["bias"])
     return sd
+
+
+def _n(t) -> np.ndarray:
+    """A numpy f32 copy (never a view of a live parameter or buffer)."""
+    return np.array(t.detach().cpu().float().numpy(), np.float32)
+
+
+def _kernel_back(t) -> np.ndarray:
+    """The inverse of :func:`_kernel`: torch (A,B,kd,kh,kw) -> (kd,kh,kw,B,A).
+    """
+    return np.ascontiguousarray(np.transpose(_n(t), (2, 3, 4, 1, 0)))
+
+
+def _unit_back(sd, src: str, conv_idx: int):
+    bn = conv_idx + 1
+    conv = {"kernel": _kernel_back(sd[f"{src}.{conv_idx}.weight"])}
+    if f"{src}.{conv_idx}.bias" in sd:
+        conv["bias"] = _n(sd[f"{src}.{conv_idx}.bias"])
+    params = {"conv": conv, "bn": {"scale": _n(sd[f"{src}.{bn}.weight"]),
+                                   "bias": _n(sd[f"{src}.{bn}.bias"])}}
+    stats = {"bn": {"mean": _n(sd[f"{src}.{bn}.running_mean"]),
+                    "var": _n(sd[f"{src}.{bn}.running_var"])}}
+    return params, stats
+
+
+def to_flax(sd: Mapping[str, torch.Tensor], root: str = "unet"):
+    """State_dict of the port's generic family -> ``(params,
+    batch_stats)`` of ``ctunet_tpu``, each under ``root`` (``None``: no
+    root), as numpy f32. The inverse of :func:`from_flax`."""
+    n_blocks = 1 + max(int(k.split(".")[1]) for k in sd
+                       if k.startswith("d_blocks."))
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    for i in range(n_blocks):
+        params[f"d{i}"], stats[f"d{i}"] = {}, {}
+        for j, conv_idx in enumerate((0, 3)):
+            p, s = _unit_back(sd, f"d_blocks.{i}.block", conv_idx)
+            params[f"d{i}"][f"unit{j}"], stats[f"d{i}"][f"unit{j}"] = p, s
+    for j in range(n_blocks):
+        src = f"u_blocks.{j}.block"
+        params[f"u{j}"] = {"upconv": {
+            "kernel": _kernel_back(sd[f"{src}.0.weight"]),
+            "bias": _n(sd[f"{src}.0.bias"])}}
+        stats[f"u{j}"] = {}
+        for k, conv_idx in enumerate((1, 4)):
+            p, s = _unit_back(sd, src, conv_idx)
+            params[f"u{j}"][f"unit{k}"], stats[f"u{j}"][f"unit{k}"] = p, s
+    params["last_conv"] = {"kernel": _kernel_back(sd["last_conv.weight"]),
+                           "bias": _n(sd["last_conv.bias"])}
+    if root is None:
+        return params, stats
+    return {root: params}, {root: stats}

@@ -1,4 +1,5 @@
-"""Hand-written Hopper kernels of the serving path and their plain versions.
+"""Hand-written Hopper kernels of the serving and training paths and their
+plain versions.
 
 =====  ============================  ==================================
 K1     ``conv3d.conv3d_bn_relu``      ``csrc/conv3d.cu``
@@ -7,6 +8,7 @@ K3     ``upconv.upconv_bn_relu``      ``csrc/upconv.cu``
 K1q    ``conv3d.conv3d_q_requant``    ``csrc/conv3d_q.cu``
 K2q    ``conv3d.maxpool2_q``          ``csrc/maxpool.cu`` (int8)
 K3q    ``upconv.upconv_q_requant``    ``csrc/upconv_q.cu``
+K6     ``conv3d.conv3d_bias_act``     ``csrc/conv3d.cu`` (bf16/f32, ReLU flag)
 =====  ============================  ==================================
 
 Importing this package builds nothing and needs neither ``nvcc`` nor a
@@ -17,7 +19,8 @@ from __future__ import annotations
 
 from typing import Dict
 
-from .conv3d import conv3d_bn_relu, conv3d_q_requant, maxpool2, maxpool2_q
+from .conv3d import (conv3d_bias_act, conv3d_bn_relu, conv3d_q_requant,
+                     maxpool2, maxpool2_q)
 from .upconv import upconv_bn_relu, upconv_q_requant
 
 WRAPPERS = {
@@ -27,6 +30,7 @@ WRAPPERS = {
     "conv3d_q_requant": conv3d_q_requant,
     "maxpool2_q": maxpool2_q,
     "upconv_q_requant": upconv_q_requant,
+    "conv3d_bias_act": conv3d_bias_act,
 }
 
 

@@ -1,10 +1,12 @@
 """K1 (Conv3D k3 + folded BN + ReLU) and K2 (2x2x2 max pool) for Hopper,
-with their int8 modes K1q (requantizing int8 conv) and K2q (int8 pool).
+with their int8 modes K1q (requantizing int8 conv) and K2q (int8 pool), and
+K6 (Conv3D k3 + bias + optional ReLU in bf16 or f32, the training conv).
 
 Counterpart of ``ctunet_tpu/ops/pallas/conv3d.py``: ``conv3d_chain_split``
 (bf16 and ``scale=``/``zp=`` int8 modes), ``conv3d_chain_q`` (the full-tap
-int8 form, K4a) and ``maxpool2_chain``, the conv-module kernels of the
-serving paths. The CUDA sources are ``csrc/conv3d.cu``,
+int8 form, K4a), ``maxpool2_chain`` and ``conv3d_chain`` (K6: forward and
+input gradient of the training conv, ``ops/chain_conv_train.py``, and the
+``sparse`` serving route). The CUDA sources are ``csrc/conv3d.cu``,
 ``csrc/conv3d_q.cu`` and ``csrc/maxpool.cu``; the TPU chain layout (W
 packed into lanes, halo rows, ones-channel) is not carried over: every
 function takes and returns dense channels-last volumes.
@@ -75,16 +77,8 @@ def _require_cuda(x: torch.Tensor, what: str) -> None:
 
 def conv3d_bn_relu_plain(x: torch.Tensor, w: torch.Tensor,
                          bias: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch K1: ``F.conv3d`` in f32 on the (already rounded)
-    inputs, + bias, ReLU, cast back to ``x.dtype``.
-
-    :param x: ``(D, H, W, Ci)``; ``w``: ``(3, 3, 3, Ci, Co)``; ``bias``:
-        ``(Co,)`` f32.
-    """
-    xf = x.float().permute(3, 0, 1, 2)[None]
-    wf = w.float().permute(4, 3, 0, 1, 2)
-    y = F.conv3d(xf, wf, padding=1)[0].permute(1, 2, 3, 0)
-    return torch.relu(y + bias.float()).to(x.dtype)
+    """Plain PyTorch K1: K6's plain version with the ReLU on."""
+    return conv3d_bias_act_plain(x, w, bias, True)
 
 
 def conv3d_bn_relu(x: torch.Tensor, w: torch.Tensor,
@@ -116,6 +110,61 @@ def conv3d_bn_relu(x: torch.Tensor, w: torch.Tensor,
 
 
 conv3d_bn_relu.launches = 0
+
+
+# --------------------------------------------------------------------------
+# K6: Conv3D(k3, SAME) + bias + optional ReLU, bf16 or f32
+# --------------------------------------------------------------------------
+
+
+def conv3d_bias_act_plain(x: torch.Tensor, w: torch.Tensor,
+                          bias: torch.Tensor, relu: bool) -> torch.Tensor:
+    """Plain PyTorch K6: ``F.conv3d`` in f32 on the (already rounded)
+    inputs, + bias, ReLU when ``relu``, cast back to ``x.dtype``.
+
+    :param x: ``(D, H, W, Ci)``; ``w``: ``(3, 3, 3, Ci, Co)``; ``bias``:
+        ``(Co,)`` f32.
+    """
+    xf = x.float().permute(3, 0, 1, 2)[None]
+    wf = w.float().permute(4, 3, 0, 1, 2)
+    y = F.conv3d(xf, wf, padding=1)[0].permute(1, 2, 3, 0) + bias.float()
+    return (torch.relu(y) if relu else y).to(x.dtype)
+
+
+def conv3d_bias_act(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                    relu: bool) -> torch.Tensor:
+    """K6 on ``x`` ``(D, H, W, Ci)`` with ``w`` ``(3, 3, 3, Ci, Co)`` of
+    ``x``'s dtype (bf16 or f32) and f32 ``bias`` ``(Co,)`` ->
+    ``(D, H, W, Co)``: ``act(conv(x, w) + bias)`` accumulated in f32, ``act``
+    the ReLU when ``relu`` else the identity.
+
+    CPU tensor: the plain version. CUDA tensor: the ``csrc/conv3d.cu``
+    kernel on the current stream, or an error.
+    """
+    if x.device.type == "cpu":
+        return conv3d_bias_act_plain(x, w, bias, relu)
+    _require_cuda(x, "conv3d_bias_act")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"x: expected bfloat16 or float32, got {x.dtype}")
+    d, h, wd, ci = x.shape
+    co = w.shape[-1]
+    _check(x, "x", x.dtype)
+    _check(w, "w", x.dtype, (3, 3, 3, ci, co), x.device)
+    _check(bias, "bias", torch.float32, (co,), x.device)
+    out = torch.empty((d, h, wd, co), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    fn = build.function("conv3d", "ctunet_conv3d_bias_act",
+                        [_P] * 4 + [_I] * 8 + [_P])
+    rc = fn(x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            d, h, wd, ci, co, int(x.dtype == torch.float32), int(bool(relu)),
+            *build.stream_args(x))
+    build.check(rc, "conv3d_bias_act")
+    conv3d_bias_act.launches += 1
+    return out
+
+
+conv3d_bias_act.launches = 0
 
 
 # --------------------------------------------------------------------------

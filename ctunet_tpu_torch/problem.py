@@ -1,12 +1,19 @@
-"""Problem handlers, serving side: dataset binding + prediction writing.
+"""Problem handlers: dataset binding, on-device target synthesis, losses
+and prediction writing.
 
-Counterpart of the test path of ``ctunet_tpu/problem.py`` (reference
-``ctunet/pytorch/ProblemHandler.py:191-359``). A handler names its test
-dataset, whether the atlas is stacked as a second input channel, and how
-predictions are written: ``pred_<name>/<file>_{sk,fl}.nii.gz`` uint8 masks
-in the input's physical space plus the input copy ``<file>_i.nii.gz``.
-Target synthesis and losses (training) are not ported yet (ROADMAP Queue 1
-items 12-14).
+Counterpart of ``ctunet_tpu/problem.py`` (reference
+``ctunet/pytorch/ProblemHandler.py:21-359``) for the double-output flap
+problems. A handler names its train and test datasets, whether the atlas is
+stacked as a second input channel, how a training pair is synthesized from
+a complete skull (or taken from a stored (broken, flap) pair), how the
+losses compose, and how predictions are written:
+``pred_<name>/<file>_{sk,fl}.nii.gz`` uint8 masks in the input's physical
+space plus the input copy ``<file>_i.nii.gz``. The single-output handlers
+(``FlapRec``, ``FlapRecWithShapePrior``, ``DenoisingAE``) are not ported
+yet (ROADMAP Queue 1 item 13).
+
+Quirk Q4 is kept: the cross entropy consumes the models' post-sigmoid
+outputs as if they were logits.
 """
 
 from __future__ import annotations
@@ -14,10 +21,14 @@ from __future__ import annotations
 import os
 import shutil
 
+from typing import Any, Dict
+
 import numpy as np
+import torch
 
 from . import registry
 from .data import datasets as ds
+from .ops import codecs, losses, synthesis
 from .utils import makedir, nifti
 
 
@@ -44,24 +55,118 @@ def _copy_input(inp_path: str, out_path: str) -> None:
         nifti.write(out_path, nifti.read(inp_path))
 
 
+def single_output_losses(prediction, target, cfg: Dict[str, Any]):
+    """Single-output loss (``problem.py:103-123``, ref
+    ``ProblemHandler.py:44-102``): CE against the argmax-decoded target and
+    the Dice loss, each weighted and logged weighted. Returns
+    ``(total, terms)``."""
+    terms = {}
+    total = 0.0
+    ce_l = cfg.get("ce_lambda") or 0.0
+    dice_l = cfg.get("dice_lambda") or 0.0
+    if ce_l != 0:
+        ce = ce_l * losses.softmax_cross_entropy(
+            prediction, torch.argmax(target, -1))
+        terms["ce"] = ce
+        total = total + ce
+    if dice_l != 0:
+        dl = dice_l * losses.dice_loss(prediction, target)
+        terms["dice_loss"] = dl
+        total = total + dl
+    if cfg.get("save_dice_plots"):
+        terms["dice_coef"] = losses.dice_coeff(prediction, target)
+    terms["epoch_loss"] = total
+    return total, terms
+
+
 @registry.register_problem("FlapRecWithShapePriorDoubleOut")
 class FlapRecWithShapePriorDoubleOut:
     """Double-output flap reconstruction with shape prior
     (ref ``ProblemHandler.py:191-354``)."""
 
+    train_dataset_class = ds.FlapRecWShapePrior2OTrainDataset
     test_dataset_class = ds.NiftiImageWithAtlasDataset
     append_atlas = True
+    double_output = True
     #: optional mask postprocessor (largest connected component), installed
     #: by the trainer from the ``largest_cc`` config key
     postprocess = None
 
     def __init__(self, with_sp: bool = True):
         if not with_sp:  # FlapRecDoubleOut configuration
+            self.train_dataset_class = ds.FlapRec2OTrainDataset
             self.test_dataset_class = ds.NiftiImageDataset
             self.append_atlas = False
 
     def _post(self, hard: np.ndarray) -> np.ndarray:
         return self.postprocess(hard) if self.postprocess else hard
+
+    # ------------------------------------------------------------------
+    # Synthesis on the device (train/val), one sample; the step loops
+    # ------------------------------------------------------------------
+
+    def synthesize(self, gen: torch.Generator, volume: torch.Tensor):
+        """Complete skull ``(D, H, W)`` -> (net input volume, (one-hot full
+        skull, one-hot flap)) (``problem.py:236-238``)."""
+        broken, (full, flap) = synthesis.flap_rec_transform(gen, volume)
+        return broken, (codecs.one_hot(full, 2), codecs.one_hot(flap, 2))
+
+    def targets_from_pair(self, broken: torch.Tensor, flap: torch.Tensor):
+        """Targets of a stored (broken, flap) pair (``problem.py:240-242``).
+        """
+        full = torch.clamp(broken + flap, 0.0, 1.0)
+        return broken, (codecs.one_hot(full, 2), codecs.one_hot(flap, 2))
+
+    # ------------------------------------------------------------------
+    # Losses / metrics
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def compute_losses(prediction, target, cfg: Dict[str, Any]):
+        """Double-output loss (``problem.py:244-280``, ref
+        ``ProblemHandler.py:214-309``): CE on both heads against the argmax
+        targets, Dice on the softmaxed heads, and with ``save_dice_plots``
+        the Dice coefficients. Returns ``(total, terms)``."""
+        full_p, flap_p = prediction
+        full_t, flap_t = target
+        terms = {}
+        total = 0.0
+        ce_l = cfg.get("ce_lambda") or 0.0
+        dice_l = cfg.get("dice_lambda") or 0.0
+        if dice_l != 0 or cfg.get("save_dice_plots"):
+            full_sm = torch.softmax(full_p, -1)
+            flap_sm = torch.softmax(flap_p, -1)
+        if ce_l != 0:
+            ce_sk = ce_l * losses.softmax_cross_entropy(
+                full_p, torch.argmax(full_t, -1))
+            ce_fl = ce_l * losses.softmax_cross_entropy(
+                flap_p, torch.argmax(flap_t, -1))
+            terms["ce_sk"], terms["ce_fl"] = ce_sk, ce_fl
+            total = total + ce_sk + ce_fl
+        if dice_l != 0:
+            dl_sk = dice_l * losses.dice_loss(full_sm, full_t)
+            dl_fl = dice_l * losses.dice_loss(flap_sm, flap_t)
+            terms["dice_loss_sk"], terms["dice_loss_fl"] = dl_sk, dl_fl
+            total = total + dl_sk + dl_fl
+        if cfg.get("save_dice_plots"):
+            terms["dice_coef_sk"] = losses.dice_coeff(full_sm, full_t)
+            terms["dice_coef_fl"] = losses.dice_coeff(flap_sm, flap_t)
+        terms["epoch_loss"] = total
+        return total, terms
+
+    def host_metrics(self, prediction, target, cfg) -> Dict[str, float]:
+        """Hausdorff distances (a display metric; exact EDT on the host,
+        ``problem.py:282-297``)."""
+        out = {}
+        if cfg.get("save_hd_plots"):
+            (full_p, flap_p), (full_t, flap_t) = prediction, target
+            out["hd_coef_sk"] = losses.hausdorff_device_argmax(full_p, full_t)
+            out["hd_coef_fl"] = losses.hausdorff_device_argmax(flap_p, flap_t)
+        return out
+
+    # ------------------------------------------------------------------
+    # Prediction writing (host side)
+    # ------------------------------------------------------------------
 
     def write_predictions(self, predictions, input_filepaths,
                           output_folder_name, input_imgs=None):

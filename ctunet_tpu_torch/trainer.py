@@ -1,14 +1,27 @@
-"""Config-driven predictor: the test path of ``ctunet_tpu/trainer.py``.
+"""Config-driven trainer and predictor: ``ctunet_tpu/trainer.py`` on one
+CUDA card.
 
-Parity target: the reference ``Model`` (``ctunet/pytorch/Model.py:24-145,
-298-380``) and ``ctunet_tpu``'s port of it. ``Model(cfg_file)`` or
+Parity target: the reference ``Model`` (``ctunet/pytorch/Model.py:24-562``)
+and ``ctunet_tpu``'s port of it. ``Model(cfg_file)`` or
 ``Model(params=dict)`` parses the config over ``default_params``, resolves
-the workspace, binds the problem handler and the test dataset, loads the
-weights and, with ``test_flag``, serves every test volume whole through the
-bf16 engine (``engine.py``), or with ``use_int8`` the calibrated int8
-engine (``engine_q.py``), and writes ``pred_<name>/<file>_{sk,fl,i}``
-NIfTI files. CLI: ``ctunet-tpu-torch <cfg.ini>`` /
+the workspace, binds the problem handler and the datasets, then trains
+and/or tests according to the flags. CLI: ``ctunet-tpu-torch <cfg.ini>`` /
 ``python -m ctunet_tpu_torch <cfg.ini>``.
+
+- ``train_flag``: epochs of train steps (``steps.py``: on-device synthesis,
+  atlas stack, forward/backward in the compute dtype, the optimizer) and
+  eval steps, TensorBoard scalars under ``{phase}/epoch/{key}``, the
+  best-model / periodic-checkpoint / ini-snapshot rules of the reference
+  (``Model.py:266-296``), a checkpoint on SIGTERM/SIGINT, and resume of
+  parameters, BatchNorm statistics, optimizer state and step from a
+  ``s_resume_model`` written by this package. ``conv_impl`` picks how the
+  model's k=3 convs run (``models/unet.py``): ``chain`` (and ``pallas``)
+  the hand-written conv kernel forward and dgrad, ``xla`` a library conv.
+  ``b_packed_train`` and ``b_remat`` are TPU memory-layout choices of the
+  JAX package: they are accepted and the same dense graph runs.
+- ``test_flag``: every test volume whole through the bf16 engine
+  (``engine.py``), or with ``use_int8`` the calibrated int8 engine
+  (``engine_q.py``), writing ``pred_<name>/<file>_{sk,fl,i}`` NIfTI files.
 
 It runs on the CUDA card: ``s_device`` ``tpu``, ``gpu``, ``cuda`` or unset
 all mean the card, and a missing card is an error. ``device = cpu`` runs
@@ -22,9 +35,11 @@ from __future__ import annotations
 import collections
 import concurrent.futures as cf
 import os
+import signal
 import sys
 import time
-from typing import Dict, Optional
+from shutil import copyfile
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -32,12 +47,14 @@ import torch
 from . import checkpoint as ckpt
 from . import engine
 from . import problem as _problem  # noqa: F401  (registers handlers)
-from . import registry
+from . import registry, steps
 from .data import atlas as atlas_mod
-from .data.pipeline import HostLoader, upload
+from .data.pipeline import HostLoader, device_prefetch, upload
 from .device import resolve_device
 from .models import build_model
-from .utils import default_params, makedir, print_params_dict, set_cfg_params
+from .utils import (default_params, makedir, print_params_dict,
+                    set_cfg_params, tic, toc_eps)
+from .utils.tb_writer import make_writer
 
 # Spatial divisibility of the ported (4-block) models: 2^n_pool_levels.
 POOL_MULTIPLE = 16
@@ -45,8 +62,10 @@ POOL_MULTIPLE = 16
 # (params key, is-set test, where the feature stands) for settings that
 # ctunet_tpu serves and this port does not yet.
 _NOT_PORTED = (
-    ("train_flag", lambda v: v is True,
-     "training, ROADMAP Queue 1 items 12-15"),
+    ("fg_crop_train", bool,
+     "foreground-crop training, ROADMAP Queue 1 item 9"),
+    ("profile_dir", bool,
+     "profiler trace of the first epoch, ROADMAP Queue 1 item 19"),
     ("fg_crop", bool, "foreground-crop serving, ROADMAP Queue 1 item 9"),
     ("serve_scan", lambda v: int(v or 1) > 1,
      "K-volume batching, ROADMAP Queue 1 item 9"),
@@ -62,8 +81,26 @@ _NOT_PORTED = (
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
+class _ScalarWriter:
+    """TensorBoard scalar writer + in-memory history
+    (``utils/tb_writer.py``: no tensorboard package needed)."""
+
+    def __init__(self, logdir: Optional[str]):
+        self.history: Dict[str, list] = {}
+        self._tb = make_writer(logdir)
+
+    def add_scalar(self, tag: str, value: float, step: int) -> None:
+        self.history.setdefault(tag, []).append((step, float(value)))
+        if self._tb is not None:
+            self._tb.add_scalar(tag, float(value), step)
+
+    def close(self) -> None:
+        if self._tb is not None:
+            self._tb.close()
+
+
 class Model:
-    """Config-driven test entry point (ref ``Model.py:24-145``)."""
+    """Config-driven train/test entry point (ref ``Model.py:24-145``)."""
 
     def __init__(self, cfg_file=None, params: Optional[Dict] = None):
         if cfg_file and params:
@@ -105,15 +142,30 @@ class Model:
         self.write_predictions = self.problem_handler.write_predictions
         self.models: Dict = {"main": None}
         self.state_dict: Optional[Dict[str, torch.Tensor]] = None
-        self.data: Dict = {"test_loader": None}
+        self.state: Optional[steps.TrainState] = None
+        self.data: Dict = {"train_loader": None, "validation_loader": None,
+                           "test_loader": None}
         self.load_datasets()
+        self.current_epoch = 0
+        self.best_model = {"epoch": 1, "value": None}
+        self.losses_and_metrics: Dict[str, list] = {}
+        self.step_losses: list = []  # per-batch train losses, last epoch
+        self.train_seconds = 0.0
         self._atlas = None
+        self._from_pairs = False
+        seed = int(self.params.get("seed") or 0)
+        # the stream of the synthesis draws (hole, noise, crops)
+        self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.writer = _ScalarWriter(self.params.get("tensorboard_run_path")
+                                    if self.params.get("train_flag") else None)
         self.out_paths = None
         self.n_served = 0
         self.serve_seconds = 0.0
         self.int8_build_seconds = 0.0  # part of serve_seconds
         self.int8_engines: Dict = {}  # shape -> int8 predict, None = bf16
 
+        if self.params.get("train_flag") is True:
+            self.train()
         if self.params.get("test_flag") is True:
             self.test()
 
@@ -123,7 +175,8 @@ class Model:
 
     def resolve_out_folder(self) -> None:
         """Workspace layout (ref ``Model.py:407-446``):
-        ``workspace/<ModelClass>_<Handler>/model/<name>.ckpt``."""
+        ``workspace/<ModelClass>_<Handler>/model/<name>.ckpt`` plus a
+        ``runs/`` TensorBoard directory."""
         if not self.params.get("workspace_path"):
             raise AttributeError("workspace_path not defined in the ini file.")
         wsp = self.params["workspace_path"] = os.path.expanduser(
@@ -145,13 +198,27 @@ class Model:
         if not self.params.get("force_resumed"):
             self.params["model_path"] = os.path.join(
                 model_folder, self.params["name"] + ".ckpt")
+        if self.params.get("tensorboard_run_path") is None:
+            self.params["tensorboard_run_path"] = os.path.join(
+                wsp, "runs", run_name + "_" + self.params["name"])
 
     def load_datasets(self) -> None:
-        """Test loader (ref ``Model.load_datasets``, ``Model.py:189-224``)."""
+        """Train, validation and test loaders (ref ``Model.load_datasets``,
+        ``Model.py:189-224``): training samples with replacement (quirk
+        Q4), the test loader runs in dataset order at batch 1."""
         p = self.params
+        handler = self.problem_handler
+        if p.get("train_flag"):
+            for key, csv in (("train_loader", "train_files_csv"),
+                             ("validation_loader", "validation_files_csv")):
+                self.data[key] = HostLoader(
+                    handler.train_dataset_class(p[csv]),
+                    batch_size=p["batch_size"], shuffle=True,
+                    replacement=True, n_workers=p.get("n_workers") or 2,
+                    seed=int(p.get("seed") or 0))
         if p.get("test_flag") and (p.get("test_files_csv")
                                    or p.get("single_file")):
-            ds = self.problem_handler.test_dataset_class(
+            ds = handler.test_dataset_class(
                 p.get("test_files_csv"), single_file=p.get("single_file"))
             self.data["test_loader"] = HostLoader(
                 ds, batch_size=1, n_workers=p.get("n_workers") or 2)
@@ -160,22 +227,41 @@ class Model:
     # Weights
     # ------------------------------------------------------------------
 
-    def initialize_models(self) -> None:
-        """Build the model, load its weights, load the atlas
+    def _sample_shape(self):
+        """(volume shape, whether samples are stored pairs) of the first
+        available dataset, or ``(None, False)`` without one."""
+        for key in ("train_loader", "test_loader", "validation_loader"):
+            loader = self.data.get(key)
+            if loader is not None:
+                sample = loader.dataset[0]
+                return tuple(sample["image"].shape), ("flap" in sample)
+        return None, False
+
+    def initialize_models(self, load_out: bool = False) -> None:
+        """Build the model (random weights from ``seed``), load the atlas,
+        then load weights: the workspace model when ``load_out`` (the test
+        path), else ``resume_model`` when set
         (ref ``Model.initialize_models``, ``Model.py:493-508``)."""
         mc = self.params["model_class"]
         if mc in engine.NOT_PORTED:
             raise NotImplementedError(
                 f"{mc} is not served by ctunet_tpu_torch yet "
                 f"({engine.NOT_PORTED[mc]})")
-        loader = self.data.get("test_loader")
-        if loader is not None and self.problem_handler.append_atlas:
-            im_shape = loader.dataset[0]["image"].shape
+        im_shape, self._from_pairs = self._sample_shape()
+        if im_shape is not None and self.problem_handler.append_atlas:
             self._atlas = atlas_mod.load_atlas(
                 im_shape, self.params.get("atlas_dir"))
-        self.state_dict = self._load_variables(self.params["model_path"])
-        model = build_model(mc)
-        model.load_state_dict(self.state_dict)  # strict: checks every key
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(int(self.params.get("seed") or 0))
+            model = build_model(mc)
+        if load_out:
+            model.load_state_dict(  # strict: checks every key
+                self._load_variables(self.params["model_path"]))
+        elif self.params.get("resume_model") not in ("", None):
+            model.load_state_dict(
+                self._load_variables(self.params["resume_model"]))
+        self.state_dict = {k: v.detach().clone()
+                           for k, v in model.state_dict().items()}
         self.models["main"] = model.eval()
         if self.params.get("show_model_summary"):
             n = sum(p.numel() for p in model.parameters())
@@ -185,7 +271,8 @@ class Model:
         """Load a ``.npz`` flax export or a reference ``.pt`` state_dict,
         falling back to ``resume_model`` when the workspace model is missing
         (ref ``Model.load_model``, ``Model.py:448-472``)."""
-        if (self.params.get("test_flag") is True
+        if (self.params.get("train_flag") is not True
+                and self.params.get("test_flag") is True
                 and (self.params.get("resume_model") or "") != ""
                 and not os.path.exists(path)):
             path = self.params["resume_model"]
@@ -193,13 +280,199 @@ class Model:
         return ckpt.load_any(path)
 
     # ------------------------------------------------------------------
+    # Training
+    # ------------------------------------------------------------------
+
+    def train(self) -> None:
+        """Training loop (``trainer.py:485-582``, ref ``Model.train``,
+        ``Model.py:226-264``)."""
+        p = self.params
+        self.initialize_models()
+        model = self.models["main"].to(self.device).configure(
+            p.get("conv_impl") or "xla", self.compute_dtype)
+        state = steps.TrainState(
+            model, steps.make_optimizer(p, model.parameters()))
+        resume = p.get("resume_model") or ""
+        if ckpt.is_train_state(resume):
+            restored = ckpt.restore_checkpoint(resume)
+            state.optimizer.load_state_dict(restored["optimizer"])
+            state.step = int(restored["step"])
+            print(f"resumed optimizer state and step {state.step} from "
+                  f"{resume}")
+        self.state = state
+
+        loss_cfg = {k: p.get(k)
+                    for k in ("ce_lambda", "dice_lambda", "save_dice_plots")}
+        tps = int(p.get("train_patch_size") or 0)
+        common = dict(atlas=self._atlas, compute_dtype=self.compute_dtype,
+                      from_pairs=self._from_pairs,
+                      train_patch=(tps, tps, tps) if tps > 0 else None)
+        train_step = steps.make_train_step(model, self.problem_handler,
+                                           loss_cfg, **common)
+        eval_step = steps.make_eval_step(model, self.problem_handler,
+                                         loss_cfg, **common)
+        print_params_dict(p)
+
+        # on SIGTERM/SIGINT: finish the current batch, checkpoint, and exit
+        # cleanly so that `resume_model` continues from the interrupted state
+        interrupted = {"flag": False}
+        prev_handlers = {}
+
+        def _on_signal(signum, frame):
+            interrupted["flag"] = True
+            print(f"signal {signum} received: checkpointing after the "
+                  "current batch...")
+
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                prev_handlers[sig] = signal.signal(sig, _on_signal)
+            except ValueError:  # not the main thread
+                pass
+        self._interrupted = interrupted
+        t0 = time.perf_counter()
+        try:
+            self._train_epochs(int(p["n_epochs"]), train_step, eval_step,
+                               interrupted)
+        finally:
+            self.train_seconds = time.perf_counter() - t0
+            for sig, h in prev_handlers.items():
+                signal.signal(sig, h)
+            self.writer.close()
+
+    def _train_epochs(self, n_epochs, train_step, eval_step,
+                      interrupted) -> None:
+        for n_epoch in range(1, n_epochs + 1):
+            ep_time = tic()
+            self.current_epoch = n_epoch
+            print("Epoch: ", n_epoch)
+            self._forward_pass_train(train_step, n_epoch)
+            self.update_plots_tensorboard_avg("train", n_epoch)
+            self._forward_pass_eval(eval_step, n_epoch)
+            ep_loss_v = self.update_plots_tensorboard_avg("val", n_epoch)
+
+            if n_epoch == 1 or (ep_loss_v is not None and (
+                    self.best_model["value"] is None
+                    or ep_loss_v < self.best_model["value"])):
+                if self.best_model["value"] is not None:
+                    print("New best model found. Overwriting saved model. "
+                          f"(new best val loss: {ep_loss_v:.5f} vs "
+                          f"{self.best_model['value']:.5f})")
+                self.best_model["value"] = ep_loss_v
+                self.best_model["epoch"] = n_epoch
+            toc_eps(ep_time, n_epoch, n_epochs)
+
+            autosave = int(self.params.get("autosave_epochs") or 0)
+            if autosave and (n_epoch % autosave) == 0:
+                self.save_main_model(self.cfg_path, True)
+                if self.params.get("test_flag"):
+                    self.test()
+            self.save_main_model()
+            if interrupted["flag"]:
+                print(f"interrupted at epoch {n_epoch}: emergency checkpoint "
+                      "saved; resume with s_resume_model.")
+                self.save_main_model(self.cfg_path, True)
+                break
+
+    def _accumulate(self, terms: Dict[str, Any]):
+        """Collect the per-batch scalars without waiting for the device:
+        they stay tensors until the epoch average (or a console line)
+        reads them."""
+        for k, v in terms.items():
+            self.losses_and_metrics.setdefault(k, []).append(v)
+        return terms["epoch_loss"]
+
+    def _device_batches(self, loader, depth: int = 2):
+        for batch in device_prefetch(iter(loader), self.device, depth=depth):
+            yield {k: v for k, v in batch.items() if not isinstance(v, list)}
+
+    def _forward_pass_train(self, train_step, n_epoch: int) -> None:
+        print("Phase: train.")
+        loader = self.data["train_loader"]
+        log_every = int(self.params.get("log_every") or 0)
+        n = len(loader)
+        depth = int(self.params.get("prefetch_depth") or 2)
+        self.step_losses = []
+        for idx, batch in enumerate(self._device_batches(loader, depth)):
+            self.state, terms = train_step(self.state, batch, self._gen)
+            loss = self._accumulate(terms)
+            self.step_losses.append(loss)
+            if log_every and (idx + 1) % log_every == 0:
+                print("    Batch {}/{} ({:.0f}%)\tLoss: {:.6f}".format(
+                    idx + 1, n, 100.0 * (idx + 1) / n, float(loss)))
+            if self._interrupted["flag"]:
+                break  # finish the epoch's bookkeeping, then checkpoint
+
+    def _forward_pass_eval(self, eval_step, n_epoch: int) -> None:
+        print("Phase: val.")
+        want_hd = bool(self.params.get("save_hd_plots"))
+        for batch in self._device_batches(self.data["validation_loader"]):
+            terms, (out, targets) = eval_step(self.state, batch, self._gen)
+            self._accumulate(terms)
+            if want_hd:
+                hm = self.problem_handler.host_metrics(out, targets,
+                                                       self.params)
+                for k, v in hm.items():
+                    self.losses_and_metrics.setdefault(k, []).append(float(v))
+
+    def update_plots_tensorboard_avg(self, phase: str, i: int,
+                                     type: str = "epoch",
+                                     print_to_console: bool = False
+                                     ) -> Optional[float]:
+        """Average and log the accumulated scalars
+        (ref ``Model.py:382-405``); returns the mean epoch loss."""
+        ep_loss = None
+        vals = [float(v) for v in self.losses_and_metrics.get("epoch_loss", [])]
+        if vals:
+            ep_loss = float(np.mean(vals))
+        for key, vals in self.losses_and_metrics.items():
+            if not vals:
+                continue
+            avg = sum(float(v) for v in vals) / len(vals)
+            self.writer.add_scalar(f"{phase}/{type}/{key}", float(avg), i)
+            self.losses_and_metrics[key] = []
+            if print_to_console:
+                print(f"{type} {i} average: {float(avg)}.")
+        return ep_loss
+
+    # ------------------------------------------------------------------
+    # Checkpointing
+    # ------------------------------------------------------------------
+
+    def save_main_model(self, cfg_file=None, save_checkpoint=False) -> None:
+        """Best-model overwrite + periodic checkpoints + ini snapshot
+        (ref ``Model.save_main_model``, ``Model.py:266-296``)."""
+        path = self.params["model_path"]
+        dir_m, fname = os.path.split(path)
+        makedir(dir_m)
+        if self.current_epoch == self.best_model["epoch"]:
+            ckpt.save_checkpoint(path, self.state, extra={
+                "epoch": self.current_epoch,
+                "model_class": self.params["model_class"]})
+        if cfg_file and self.current_epoch == 1:
+            copyfile(cfg_file, path.replace(".ckpt", "_params.ini"))
+        if save_checkpoint:
+            dir_chk = makedir(os.path.join(dir_m, "checkpoints"))
+            chk_p = os.path.join(dir_chk, fname.replace(
+                ".ckpt", f"_ep{self.current_epoch}.ckpt"))
+            ckpt.save_checkpoint(chk_p, self.state,
+                                 extra={"epoch": self.current_epoch})
+            print("Checkpoint saved ({})".format(save_checkpoint))
+        print("Model saved ({})".format(path))
+
+    # ------------------------------------------------------------------
     # Inference
     # ------------------------------------------------------------------
 
     def test(self) -> None:
-        """Prediction pass (ref ``Model.test``, ``Model.py:298-322``)."""
+        """Prediction pass (ref ``Model.test``, ``Model.py:298-322``): on
+        the weights just trained, else on the workspace model (or
+        ``resume_model`` when that is missing)."""
         if self.models["main"] is None:
-            self.initialize_models()
+            self.initialize_models(load_out=True)
+        if self.state is not None:  # serve the weights as trained so far
+            self.state_dict = {
+                k: v.detach().cpu().clone()
+                for k, v in self.state.model.state_dict().items()}
         if (not self.params.get("test_files_csv")
                 and not self.params.get("single_file")):
             print("No csv provided for testing")
@@ -221,7 +494,10 @@ class Model:
             fwd = engine.build_predict(self.params["model_class"],
                                        self.state_dict, dtype, self.device)
         else:
-            model = self.models["main"].to(self.device)
+            # a plain f32 copy: the trained model keeps its train settings
+            model = build_model(self.params["model_class"])
+            model.load_state_dict(self.state_dict)
+            model = model.to(self.device).eval()
             fwd = lambda x: model(x.float())  # noqa: E731
         use_q = bool(self.params.get("use_int8")) and self.params.get(
             "use_engine", True)

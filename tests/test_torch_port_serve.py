@@ -7,6 +7,9 @@ Synthetic skulls (``spherical_shell``, 32^3) go through the port's CLI and
 settings this slice does not serve must raise, and a missing card must be
 an error. The engine against ``ctunet_tpu.engine.build_predict(...,
 interpret=True)`` is in the slow lane (about 40 s per model here).
+``train_flag`` is served since the training slice (its tests are
+``test_torch_port_train_*``); ``fg_crop_train`` took its place among the
+settings that raise.
 """
 
 import glob
@@ -136,7 +139,7 @@ def test_model_serves_non_multiple_shapes(tmp_path):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("train_flag", True), ("serve_profile", True), ("fg_crop", True),
+    ("fg_crop_train", True), ("serve_profile", True), ("fg_crop", True),
     ("serve_scan", 4), ("patch_inference", True), ("distributed", True),
 ])
 def test_unported_settings_raise(tmp_path, key, value):

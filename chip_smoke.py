@@ -14,8 +14,10 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
    conv K6 forward and as input gradient (flipped, channel-swapped
    weights) in bf16 and f32 at the layers training launches, plus the
    autograd function's ``dx``/``dw`` against autograd through the plain
-   version; the kernel's time beside the plain version's, one PyTorch
-   library call's where one exists, and the card's bound.
+   version, and the legacy engine's K5 (k=5 conv) and K7a/K7b (ConvT
+   k2s2, one operand / the unbuilt concat of two) at its layers' shapes;
+   the kernel's time beside the plain version's, one PyTorch library
+   call's where one exists, and the card's bound.
 3. bf16 path: serves synthetic broken skulls (``spherical_shell`` with a
    hole punched; atlas ``spherical_shell(radius_frac=0.42)``) through the
    ``Model`` test path with the committed ``unetsp_10k`` weights, checks
@@ -43,6 +45,22 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
    relative, BatchNorm batch statistics within bf16 tolerance). Then the
    step time with ``chain`` and with ``xla`` (cuDNN), the peak memory and a
    ``torch.profiler`` pass over one ``chain`` step.
+6. Legacy serving: ``Model`` with the settings of
+   ``examples/autoimplant2020/UNetSP/AutoImplant2020_wShapePrior.ini``
+   (``UNet4_2IC``, ``FlapRecWithShapePrior``, the atlas as the 2nd channel),
+   test only, on the 3 synthetic broken skulls of phase 3 at 224x304x304,
+   from seeded weights (the reference's torch init, BatchNorm statistics of
+   one train-mode forward of the plain f32 model, the head's class-1 bias
+   moved by the median logit gap so both classes hold voxels) saved as a
+   reference-named ``.pt``. Checks: the ``pred_<name>/*_{fl,i}`` files,
+   launches per volume (18 K5, 4 K2, 1 K7a, 3 K7b), masks against the same
+   engine on the plain versions (Dice >= 0.999 over decided voxels) and
+   against the plain f32 model (the kernel engine no further from it than
+   the plain bf16 one, less 0.001); the engine's ms per volume, the loop's
+   volumes/s, a ``torch.profiler`` table and each kernel launch's time by
+   CUDA events. Then one volume of
+   ``recAE_v2_fixed`` (``AutoImplant2020_woShapePrior.ini``, ``FlapRec``, 1
+   input channel) with the same checks.
 
 The last two lines of output are one JSON object ``{"kernels": [...]}``
 and ``{"ok": true, "device": {...}}``. Any failure exits non-zero and
@@ -52,6 +70,7 @@ imports nothing of JAX and nothing of ``ctunet_tpu``.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -70,6 +89,15 @@ INT8_INI = os.path.join(ROOT, "examples", "UNetSPDO",
                         "FlapRecSP2O_serve_int8.ini")
 ADAQUANT_STEPS = 250
 TRAIN_INI = os.path.join(ROOT, "examples", "UNetSPDO", "FlapRecSP2O.ini")
+LEGACY_INIS = {  # AutoImplant 2020: with and without the shape prior
+    "UNet4_2IC": os.path.join(ROOT, "examples", "autoimplant2020", "UNetSP",
+                              "AutoImplant2020_wShapePrior.ini"),
+    "recAE_v2_fixed": os.path.join(ROOT, "examples", "autoimplant2020",
+                                   "UNet", "AutoImplant2020_woShapePrior.ini"),
+}
+# kernel launches per volume of the legacy engine
+LEGACY_PER_VOLUME = {"conv3d5_bias_act": 18, "maxpool2": 4, "convt_k2s2": 1,
+                     "convt_k2s2_dual": 3}
 N_TRAIN, N_EVAL = 4, 2  # steps of the training phase (batch 1)
 # K6 launches per step of the 16-conv UNetSP: every conv forward, and every
 # input gradient but the network input's
@@ -163,6 +191,30 @@ def relu_normal(shape, gen, device):
                       ).to(torch.bfloat16)
 
 
+def record_bf16(entries, failures, name, case, got, ref, ms, plain_ms,
+                lib_ms, nbytes, nflops, tol):
+    """Log one bf16 kernel case against its plain version and the card's
+    bound; the first case of each kernel goes into ``entries``."""
+    import torch
+
+    err = float((got.float() - ref.float()).abs().max())
+    finite = bool(torch.isfinite(got.float()).all())
+    b_ms, b_by = bound_ms(nbytes, nflops)
+    ok = finite and err <= tol
+    log(f"  {name} [{case}]: max_abs_err {err:.3e} (tol {tol:.3e}) "
+        f"{'ok' if ok else 'FAIL'}; kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, library {lib_ms:.3f} ms, bound {b_ms:.4f} ms"
+        f" ({b_by}); {nflops / ms / 1e9:.2f} TFLOP/s, "
+        f"{nbytes / ms / 1e6:.1f} GB/s")
+    if not ok:
+        failures.append(f"{name} [{case}]: err {err} > tol {tol} "
+                        f"or non-finite")
+    if name not in entries:
+        entries[name] = dict(case=case, max_abs_err=err, ms=ms,
+                             plain_ms=plain_ms, bound_ms=b_ms,
+                             bound_by=b_by, library_ms=lib_ms)
+
+
 def check_kernels(sd, device, shape=SHAPE, reps_big: int = 5,
                   reps_small: int = 50):
     """Each kernel against its plain version at the path's shapes, with the
@@ -180,25 +232,7 @@ def check_kernels(sd, device, shape=SHAPE, reps_big: int = 5,
     d, h, w = shape
     lv = [(d >> i, h >> i, w >> i) for i in range(5)]
     entries, failures = {}, []
-
-    def record(name, case, got, ref, ms, plain_ms, lib_ms, nbytes, nflops,
-               tol):
-        err = float((got.float() - ref.float()).abs().max())
-        finite = bool(torch.isfinite(got.float()).all())
-        b_ms, b_by = bound_ms(nbytes, nflops)
-        ok = finite and err <= tol
-        log(f"  {name} [{case}]: max_abs_err {err:.3e} (tol {tol:.3e}) "
-            f"{'ok' if ok else 'FAIL'}; kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.3f} ms, library {lib_ms:.3f} ms, bound {b_ms:.4f} ms"
-            f" ({b_by}); {nflops / ms / 1e9:.2f} TFLOP/s, "
-            f"{nbytes / ms / 1e6:.1f} GB/s")
-        if not ok:
-            failures.append(f"{name} [{case}]: err {err} > tol {tol} "
-                            f"or non-finite")
-        if name not in entries:
-            entries[name] = dict(case=case, max_abs_err=err, ms=ms,
-                                 plain_ms=plain_ms, bound_ms=b_ms,
-                                 bound_by=b_by, library_ms=lib_ms)
+    record = functools.partial(record_bf16, entries, failures)
 
     # K1: the full-resolution 7->7 conv (d0 unit1) and the 28x38x38 56->56
     # conv (d3 unit1)
@@ -271,6 +305,92 @@ def check_kernels(sd, device, shape=SHAPE, reps_big: int = 5,
                p_ms, l_ms, nbytes, 2 * (cin + 1) * co * upconv_taps(shp2),
                bf16_tol(ref))
         del a, b, got, ref
+    return entries, failures
+
+
+def check_kernels_legacy(device, shape=SHAPE, reps_big: int = 3,
+                         reps_small: int = 20):
+    """K5 and K7a/K7b against their plain versions at the legacy engine's
+    shapes: ``UNet4_2IC``'s layers at ``shape`` and ``recAE_v2_fixed``'s
+    128-channel center (the widest dz-plane of weights K5 stages). Random
+    normal weights scaled by their fan-in and ReLU'd normal inputs from a
+    seed. Returns ``(entries, failures)``."""
+    import torch
+    import torch.nn.functional as F
+
+    from ctunet_tpu_torch.ops.kernels import conv3d as kc
+    from ctunet_tpu_torch.ops.kernels import convt as kt
+
+    gen = torch.Generator(device=device).manual_seed(3)
+    bf = torch.bfloat16
+    d, h, w = shape
+    lv = [(d >> i, h >> i, w >> i) for i in range(5)]
+    entries, failures = {}, []
+    record = functools.partial(record_bf16, entries, failures)
+
+    def randn(*shp):
+        return torch.randn(*shp, generator=gen, device=device)
+
+    # K5: dblock1's two units and ublock4's first (full resolution),
+    # ublock1's first (28x38x38), the center's second, recAE's center
+    for ci, co, level in ((7, 7, 0), (2, 7, 0), (28, 7, 0), (112, 56, 3),
+                          (112, 112, 4), (128, 128, 4)):
+        shp = lv[level]
+        wt = (randn(5, 5, 5, ci, co) * (125 * ci) ** -0.5).to(bf)
+        b = randn(co) * 0.1
+        x = relu_normal(shp + (ci,), gen, device)
+        reps = reps_big if level == 0 else reps_small
+        got = kc.conv3d5_bias_act(x, wt, b)
+        ref = kc.conv3d5_bias_act_plain(x, wt, b)
+        ms = time_ms(lambda: kc.conv3d5_bias_act(x, wt, b), reps, device)
+        p_ms = time_ms(lambda: kc.conv3d5_bias_act_plain(x, wt, b),
+                       1 if level == 0 else reps, device)
+        x_l = x.permute(3, 0, 1, 2)[None]
+        w_l = wt.permute(4, 3, 0, 1, 2).contiguous(
+            memory_format=torch.channels_last_3d)
+        b_l = b.to(bf)
+        l_ms = time_ms(lambda: F.conv3d(x_l, w_l, b_l, padding=2), reps,
+                       device)
+        nbytes = 2 * math.prod(shp) * (ci + co) + 2 * wt.numel() + 4 * co
+        record("conv3d5_bias_act", f"{ci}->{co} {'x'.join(map(str, shp))}",
+               got, ref, ms, p_ms, l_ms, nbytes,
+               2 * ci * co * conv_taps(shp, 5), bf16_tol(ref))
+        del x, got, ref, x_l
+
+    # K7a: ublock1's ConvT of the center output; K7b: ublock4's (the
+    # largest output of the engine) and ublock2's, on (block output, skip)
+    for name, ca, cb, co, level in (("convt_k2s2", 112, 0, 112, 4),
+                                    ("convt_k2s2_dual", 14, 14, 28, 1),
+                                    ("convt_k2s2_dual", 56, 56, 112, 3)):
+        shp = lv[level]
+        wt = randn(ca + cb, co, 2, 2, 2) * (ca + cb) ** -0.5
+        bias = randn(co) * 0.1
+        a = relu_normal(shp + (ca,), gen, device)
+        b = relu_normal(shp + (cb,), gen, device) if cb else None
+        wa, wb, bi = kt.convt_weights(wt, bias, ca if cb else None)
+        if cb:
+            run = lambda: kt.convt_k2s2_dual(a, b, wa, wb, bi)  # noqa: E731
+        else:
+            run = lambda: kt.convt_k2s2(a, wa, bi)  # noqa: E731
+        got = run()
+        ref = kt.convt_k2s2_plain(a, b, wa, wb, bi)
+        reps = reps_big if level < 2 else reps_small
+        ms = time_ms(run, reps, device)
+        p_ms = time_ms(lambda: kt.convt_k2s2_plain(a, b, wa, wb, bi), reps,
+                       device)
+        cat = a if b is None else torch.cat([a, b], -1)
+        x_l = cat.permute(3, 0, 1, 2)[None]
+        w_l, b_l = wt.to(bf), bias.to(bf)
+        l_ms = time_ms(lambda: F.conv_transpose3d(x_l, w_l, b_l, stride=2),
+                       reps, device)
+        v_in = math.prod(shp)
+        nbytes = (2 * v_in * (ca + cb) + 2 * 8 * v_in * co
+                  + 2 * wt.numel() + 4 * co)
+        out_shp = "x".join(str(2 * s) for s in shp)
+        record(name, f"({ca}+{cb})->{co} to {out_shp}" if cb
+               else f"{ca}->{co} to {out_shp}", got, ref, ms, p_ms, l_ms,
+               nbytes, 2 * 8 * v_in * (ca + cb) * co, bf16_tol(ref))
+        del a, b, got, ref, cat, x_l
     return entries, failures
 
 
@@ -559,6 +679,81 @@ def profile_device(fn, device, rows: int = 12, what: str = "one volume"):
     return by_name
 
 
+def launch_breakdown(model_class: str, sd, x, device):
+    """Each kernel launch of one pass of a legacy engine over ``x``, in
+    launch order, timed by CUDA events recorded around its wrapper call
+    (the host clock off the card); the rest of the pass (head, softmax,
+    casts) is the pass's time less the launches'. A fresh engine is built
+    and run, after a warm-up pass, with the wrappers wrapped. Logs the
+    launches and returns ``{wrapper name: ms}`` with ``"rest"`` and
+    ``"engine"``."""
+    import torch
+
+    from ctunet_tpu_torch import engine
+    from ctunet_tpu_torch.ops.kernels import conv3d as kc
+    from ctunet_tpu_torch.ops.kernels import convt as kt
+
+    cuda = device.type == "cuda"
+
+    def stamp():
+        if not cuda:
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def span(t0, t1) -> float:
+        return t0.elapsed_time(t1) if cuda else 1e3 * (t1 - t0)
+
+    calls = []
+
+    def timed(name, fn):
+        def call(*args):
+            t0 = stamp()
+            out = fn(*args)
+            t1 = stamp()
+            cin = "+".join(str(a.shape[-1]) for a in args[:2 if "dual" in name
+                                                          else 1])
+            calls.append((f"{name} {cin}->{out.shape[-1]} "
+                          f"{'x'.join(map(str, out.shape[:3]))}", name, t0,
+                          t1))
+            return out
+        # a wrapper counts its launches on its module-level name, which is
+        # this function while it is wrapped; WRAPPERS keeps the real counts
+        call.launches = 0
+        return call
+
+    wrapped = [(m, n, getattr(m, n)) for m, n in (
+        (kc, "conv3d5_bias_act"), (kc, "maxpool2"), (kt, "convt_k2s2"),
+        (kt, "convt_k2s2_dual"))]
+    try:
+        for m, n, fn in wrapped:
+            setattr(m, n, timed(n, fn))
+        pred = engine.build_predict(model_class, sd, device=device)
+        pred(x)
+        calls.clear()
+        t0 = stamp()
+        pred(x)
+        t1 = stamp()
+        sync(device)
+    finally:
+        for m, n, fn in wrapped:
+            setattr(m, n, fn)
+    by_name = {}
+    log(f"  {model_class}: each kernel launch of one volume, in order "
+        "(CUDA events around the wrapper call), ms:")
+    for label, name, a, b in calls:
+        ms = span(a, b)
+        by_name[name] = by_name.get(name, 0.0) + ms
+        log(f"    {ms:9.3f}  {label}")
+    by_name["engine"] = span(t0, t1)
+    by_name["rest"] = by_name["engine"] - sum(
+        v for k, v in by_name.items() if k != "engine")
+    log("  by wrapper, ms: " + ", ".join(f"{k} {v:.3f}"
+                                        for k, v in by_name.items()))
+    return by_name
+
+
 def dice(a, b) -> float:
     import numpy as np
 
@@ -594,9 +789,10 @@ def write_volumes(work: str, shape, n_volumes: int):
     return data, paths, csv, atlas, affine
 
 
-def read_masks(out_dir: str, paths, shape, affine, failures):
-    """The ``{sk,fl,i}`` files ``Model`` wrote for ``paths``, checked for
-    shape and affine: ``{(base, sfx): array}``."""
+def read_masks(out_dir: str, paths, shape, affine, failures,
+               sfxs=("sk", "fl", "i")):
+    """The ``<file>_<sfx>`` files ``Model`` wrote for ``paths``, checked
+    for shape and affine: ``{(base, sfx): array}``."""
     import numpy as np
 
     from ctunet_tpu_torch.utils import nifti
@@ -604,7 +800,7 @@ def read_masks(out_dir: str, paths, shape, affine, failures):
     masks = {}
     for p in paths:
         base = os.path.basename(p).replace(".nii.gz", "")
-        for sfx in ("sk", "fl", "i"):
+        for sfx in sfxs:
             q = os.path.join(out_dir, f"{base}_{sfx}.nii.gz")
             if not os.path.exists(q):
                 failures.append(f"missing {q}")
@@ -1021,6 +1217,155 @@ def train(device, work: str, shape=SHAPE, n_train: int = N_TRAIN,
     return launches, stats, failures
 
 
+def legacy_weights(model_class: str, x, seed: int):
+    """Seeded weights of a legacy model for serving checks: the reference's
+    torch init from ``seed``; BatchNorm running statistics set to the batch
+    statistics of one train-mode forward of the plain f32 model on ``x``
+    ``(1, D, H, W, C)``; then ``last_conv``'s class-1 bias lowered by the
+    median logit gap on ``x``, so that both classes hold voxels. Returns
+    ``(state_dict on the CPU, the f32 model in eval mode on x's device,
+    class-1 share of the f32 model's mask on x)``."""
+    import torch
+
+    from ctunet_tpu_torch.models import build_model
+    from ctunet_tpu_torch.models.unet import BatchNorm
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model = build_model(model_class)
+    model = model.to(x.device)
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    for m in bns:
+        m.momentum = 1.0  # running statistics := this batch's
+    with torch.no_grad():
+        model.train()(x)
+        for m in bns:
+            m.momentum = 0.1
+        gap = model.eval().forward_logits(x)[0].diff(dim=-1)[..., 0]
+        model.last_conv.bias[1] -= gap.median()
+        share = float((model(x)[0].argmax(-1) == 1).float().mean())
+    sd = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    return sd, model, share
+
+
+def serve_legacy(device, work: str, shape=SHAPE, n_volumes: int = N_VOLUMES):
+    """Serve the legacy family through ``Model`` with the AutoImplant 2020
+    INIs' settings, test only: ``n_volumes`` synthetic broken skulls through
+    ``UNet4_2IC`` (shape prior), then the first through ``recAE_v2_fixed``.
+    Checks the ``_fl``/``_i`` files, the launch counts and the masks against
+    the engine on the plain versions and against the plain f32 model.
+    Returns ``(launches of the UNet4_2IC run, stats, failures)``."""
+    import numpy as np
+    import torch
+
+    from ctunet_tpu_torch import Model, default_params, engine, load_params
+    from ctunet_tpu_torch.ops import kernels
+
+    failures = []
+    data, paths, csv, atlas, affine = write_volumes(work, shape, n_volumes)
+    csv1 = os.path.join(data, "first.csv")
+    with open(csv1, "w") as f:
+        f.write(f"image,mask\n{paths[0]},\n")
+    vol0 = nifti_data(paths[0])
+    stats, main_launches = {}, {}
+    for mc, n, files in (("UNet4_2IC", n_volumes, csv),
+                         ("recAE_v2_fixed", 1, csv1)):
+        t0 = time.perf_counter()
+        cin = 2 if mc == "UNet4_2IC" else 1
+        xt = torch.from_numpy(np.stack([vol0, atlas][:cin], -1)[None]).to(
+            device)
+        sd, model, share = legacy_weights(mc, xt, seed=17)
+        log(f"  {mc}: seeded weights, BN statistics from one train-mode "
+            f"forward, class-1 share of the f32 mask {share:.4f} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        if not 0.01 <= share <= 0.99:
+            failures.append(f"{mc}: vacuous weights, class-1 share {share}")
+        pt = os.path.join(work, f"{mc}.pt")
+        torch.save(sd, pt)
+        name = f"chip_smoke_{mc}"
+        params = load_params(LEGACY_INIS[mc], default_params())
+        params.update(train_flag=False, test_flag=True, name=name,
+                      workspace_path=os.path.join(work, "ws"),
+                      test_files_csv=files, resume_model=pt, n_workers=2)
+        if device.type != "cuda":
+            params["device"] = device.type
+        kernels.reset_launches()
+        m = Model(params=params)  # ends with the masks fetched to the host
+        counts = kernels.launches()
+        want = {k: v * n for k, v in LEGACY_PER_VOLUME.items()}
+        got = {k: counts[k] for k in want}
+        log(f"  {mc} launches over {n} volume(s): {got} (want {want})")
+        if got != want:
+            failures.append(f"{mc} launch counts {got} != {want}")
+        if mc == "UNet4_2IC":
+            main_launches = got
+        st = dict(volumes=m.n_served, loop_s=m.serve_seconds,
+                  vol_per_s=m.n_served / m.serve_seconds)
+        log(f"  {mc} Model test loop: {m.n_served} volume(s) in "
+            f"{m.serve_seconds:.3f} s = {st['vol_per_s']:.3f} volumes/s")
+        masks = read_masks(os.path.join(data, f"pred_{name}"), paths[:n],
+                           shape, affine, failures, sfxs=("fl", "i"))
+
+        # references on the card, on the first volume
+        k_pred = engine.build_predict(mc, sd, device=device)
+        p_pred = engine.build_predict(mc, sd, device=device, plain=True)
+        with torch.inference_mode():
+            prob = {"kernel": k_pred(xt)[0].float(),
+                    "plain": p_pred(xt)[0].float(), "f32": model(xt)[0]}
+        mask = {k: torch.argmax(v, -1).to(torch.uint8).cpu().numpy()
+                for k, v in prob.items()}
+        if not bool(torch.isfinite(prob["kernel"]).all()) or tuple(
+                prob["kernel"].shape) != shape + (2,):
+            failures.append(f"{mc}: non-finite or shape "
+                            f"{tuple(prob['kernel'].shape)}")
+        base = os.path.basename(paths[0]).replace(".nii.gz", "")
+        got_file = masks.get((base, "fl"))
+        if got_file is None or not np.array_equal(got_file, mask["kernel"]):
+            failures.append(f"{mc}: Model's file differs from the engine")
+        decided = torch.ones(shape, dtype=torch.bool, device=device)
+        for k in ("kernel", "plain"):
+            decided &= (prob[k][..., 1] - prob[k][..., 0]).abs() > DECIDED
+        dec = decided.cpu().numpy()
+        d = dict(raw=dice(mask["kernel"], mask["plain"]),
+                 decided=dice(mask["kernel"][dec], mask["plain"][dec]),
+                 kernel_f32=dice(mask["kernel"], mask["f32"]),
+                 plain_f32=dice(mask["plain"], mask["f32"]))
+        perr = float((prob["kernel"] - prob["plain"]).abs().max())
+        log(f"  {mc} fl: {int(mask['f32'].sum())} class-1 voxels (f32 "
+            f"model); Dice kernel vs plain engine {d['raw']:.6f} (all), "
+            f"{d['decided']:.6f} (the {int(dec.sum())} decided, "
+            f"{int((~dec).sum())} near-ties left out); vs the f32 model: "
+            f"kernel {d['kernel_f32']:.6f}, plain bf16 {d['plain_f32']:.6f};"
+            f" max |p_kernel - p_plain| {perr:.3e}")
+        st.update({f"dice_{k}": v for k, v in d.items()})
+        if not d["decided"] >= 0.999:
+            failures.append(f"{mc}: Dice on decided voxels {d['decided']} "
+                            "< 0.999")
+        if not d["kernel_f32"] >= d["plain_f32"] - 1e-3:
+            failures.append(f"{mc}: kernel engine further from the f32 "
+                            f"model ({d['kernel_f32']}) than the plain bf16 "
+                            f"engine ({d['plain_f32']})")
+        st["engine_ms"] = time_ms(lambda: k_pred(xt), 3, device)
+        st["plain_engine_ms"] = time_ms(lambda: p_pred(xt), 1, device)
+        log(f"  {mc} engine on the card: kernels {st['engine_ms']:.2f} "
+            f"ms/volume, plain versions {st['plain_engine_ms']:.2f} ms/volume")
+        if mc == "UNet4_2IC":
+            st["busy_share"] = (st["engine_ms"] * m.n_served
+                                / (1e3 * m.serve_seconds))
+            log(f"  device busy share of the Model loop (engine ms x volumes"
+                f" / loop time): {st['busy_share']:.3f}")
+        prof = profile_device(lambda: k_pred(xt), device, rows=8,
+                              what=f"one {mc} volume")
+        if not any("conv3d_plane" in key for key in prof):
+            log("  (the profile holds no K5 launch: the breakdown below is "
+                "taken with CUDA events)")
+        st["breakdown_ms"] = launch_breakdown(mc, sd, xt, device)
+        stats[mc] = st
+        del model, k_pred, p_pred, prob
+        log(f"  {mc}: {time.perf_counter() - t0:.1f} s")
+    return main_launches, stats, failures
+
+
 def main() -> int:
     import torch
 
@@ -1064,7 +1409,9 @@ def main() -> int:
             ("bf16 inputs", lambda: check_kernels(sd, device)),
             ("int8 inputs, exact", lambda: check_kernels_q(sd, device)),
             ("training conv K6, random weights", lambda: check_kernel_train(
-                device))):
+                device)),
+            ("legacy engine K5 / K7a / K7b, random weights",
+             lambda: check_kernels_legacy(device))):
         log(f"  -- {label}")
         try:
             got, errs = check()
@@ -1082,7 +1429,9 @@ def main() -> int:
             (4, f"int8 + AdaQuant ({ADAQUANT_STEPS} steps), {N_VOLUMES} "
                 f"UNetSP volumes {size}", serve_int8),
             (5, f"training, UNetSP {size} bf16 conv_impl=chain, {N_TRAIN} "
-                f"train + {N_EVAL} eval steps, save, serve 1 volume", train)):
+                f"train + {N_EVAL} eval steps, save, serve 1 volume", train),
+            (6, f"legacy k=5 serving, {N_VOLUMES} UNet4_2IC volumes {size} "
+                "+ 1 recAE_v2_fixed volume", serve_legacy)):
         log(f"== phase {phase}: main path, {label}, through Model")
         t0 = time.perf_counter()
         got = {}
@@ -1124,6 +1473,12 @@ def main() -> int:
                              "ctunet_tpu/ops/pallas/upconv.py:1015"),
         "conv3d_bias_act": ("ctunet_tpu_torch/csrc/conv3d.cu",
                             "ctunet_tpu/ops/pallas/conv3d.py:453"),
+        "conv3d5_bias_act": ("ctunet_tpu_torch/csrc/conv3d_k5.cu",
+                             "ctunet_tpu/ops/pallas/conv3d.py:136"),
+        "convt_k2s2": ("ctunet_tpu_torch/csrc/convt.cu",
+                       "ctunet_tpu/ops/pallas/convt.py:78"),
+        "convt_k2s2_dual": ("ctunet_tpu_torch/csrc/convt.cu",
+                            "ctunet_tpu/ops/pallas/convt.py:146"),
     }
     kernels = []
     for name, (src, repl) in sources.items():

@@ -10,10 +10,12 @@ reads it back, and the trainer resumes all of it from ``s_resume_model``
 no orbax: an orbax directory is exported once to a flat ``.npz``
 (``tools/export_unetsp_npz.py``; keys are flax tree paths joined by ``/``),
 which :func:`load_any` maps through ``models.convert.from_flax``. A
-reference ``.pt`` state_dict loads natively, minus the ``module.`` prefix
-of ``nn.DataParallel`` and the dead center-block keys of quirk Q1; a
-pickled reference module is refused. :func:`load_any` returns a state_dict
-of the port's models from any of the three.
+reference ``.pt`` state_dict loads natively (the generic family and the
+legacy ``recAE_v2_fixed`` / ``UNet4_2IC``, whose live ``cblock_center``
+is kept), minus the ``module.`` prefix of ``nn.DataParallel`` and the dead
+``cblock.`` keys of quirk Q1; a pickled reference module is refused.
+:func:`load_any` returns a state_dict of the port's models from any of the
+three.
 """
 
 from __future__ import annotations

@@ -1,8 +1,11 @@
 """bf16 serving engine: the U-Net forward on the port's Hopper kernels.
 
 Counterpart of ``ctunet_tpu/engine.py::build_predict`` (``:279-636``) for
-the generic 4-block family. Weights are prepared once, at build time, and
-the forward runs per volume on dense channels-last tensors:
+the generic 4-block family and ``_build_legacy_predict`` (``:766-828``) for
+the legacy k=5 family. Weights are prepared once, at build time, and the
+forward runs per volume on dense channels-last tensors.
+
+Generic family (UNetSP, UNetDO, UNet4b2i3o, UNet4b1i3o):
 
 - encoder level i: K1 (conv unit 0) -> K1 (conv unit 1) -> K2 (pool);
 - decoder level idx: K3 (ConvT(k2,s2) of ``cat(a, skip)`` fused with conv
@@ -12,9 +15,23 @@ the forward runs per volume on dense channels-last tensors:
   then the two 3x2 maps of the double-output head (``engine.py:405-484``).
 
 For UNetSP at 224x304x304 that is 12 K1, 4 K2 and 4 K3 launches per
-volume. Weight rounding follows the JAX engine: conv weights are folded
-with BN in f32 and then rounded to bf16, the upconv composite is built in
-f64, rounded to f32 and then to bf16, biases stay f32.
+volume; the upconv composite is built in f64, rounded to f32 and then to
+bf16.
+
+Legacy family (recAE_v2_fixed, UNet4_2IC; :func:`build_legacy_predict`):
+
+- encoder level i: K5 -> K5 -> K2; the live center: K5 -> K5;
+- decoder block 1: K7a (ConvT(k2,s2) of the center output) -> K5 -> K5;
+  blocks 2..4: K7b (ConvT of ``cat(previous block output, skip)``, never
+  concatenated) -> K5 -> K5;
+- head: ``last_conv`` weight-split over (block 4 output, first skip) as
+  two small matmuls plus the bias in the compute dtype, softmax in f32
+  (``engine.py:814-820``).
+
+That is 18 K5, 4 K2, 1 K7a and 3 K7b launches per volume. Weight rounding
+follows the JAX engine: conv weights are folded with BN in f32 and then
+rounded to bf16, biases (``conv_bias * scale + bn_shift`` where the conv
+has a bias) stay f32; ConvT weights are rounded once to bf16.
 
 The code is the same on both devices. For CUDA tensors each kernel wrapper
 launches its kernel or raises; for CPU tensors it runs its plain PyTorch
@@ -31,27 +48,29 @@ import torch
 from .device import resolve_device
 from .models.variants import B_FLAP, M_FLAP, M_FULL
 from .ops.kernels import conv3d as kc
+from .ops.kernels import convt as kt
 from .ops.kernels import upconv as ku
 
 # Structural config per ported model (``ctunet_tpu/engine.py:37-48``).
 ENGINE_CONFIGS = {
-    "UNet4b2i3o": dict(n_blocks=4, head=None),
-    "UNet4b1i3o": dict(n_blocks=4, head=None),
-    "UNetSP": dict(n_blocks=4, head="double"),
-    "UNetDO": dict(n_blocks=4, head="double"),
+    "UNet4b2i3o": dict(n_blocks=4, head=None, family="generic"),
+    "UNet4b1i3o": dict(n_blocks=4, head=None, family="generic"),
+    "UNetSP": dict(n_blocks=4, head="double", family="generic"),
+    "UNetDO": dict(n_blocks=4, head="double", family="generic"),
+    "recAE_v2_fixed": dict(n_blocks=4, head="softmax", family="legacy"),
+    "UNet4_2IC": dict(n_blocks=4, head="softmax", family="legacy"),
 }
 
 # Families ctunet_tpu's engine serves that the port does not serve yet.
 NOT_PORTED = {
     "UNet5b2i3o": "ROADMAP Queue 1 item 4 (5-block pack-exhausted tail)",
     "UNetSPSmall": "ROADMAP Queue 1 item 4 (5-block pack-exhausted tail)",
-    "recAE_v2_fixed": "ROADMAP Queue 1 item 16 (legacy k=5 family)",
-    "UNet4_2IC": "ROADMAP Queue 1 item 16 (legacy k=5 family)",
 }
 
 
 def conv_operands(sd, prefix: str, conv_idx: int, dtype, device):
-    """K1 operands ``(w, bias)`` of the conv unit at ``prefix.conv_idx``."""
+    """K1 / K5 operands ``(w, bias)`` of the conv unit at
+    ``prefix.conv_idx`` (its BatchNorm at ``conv_idx + 1``)."""
     bn = conv_idx + 1
     w, b = kc.fold_conv_unit(
         sd[f"{prefix}.{conv_idx}.weight"], sd.get(f"{prefix}.{conv_idx}.bias"),
@@ -96,14 +115,16 @@ def build_predict(
         per decoder level the fused upconv output and unit 1. Dense
         ``(D, H, W, C)`` tensors without the JAX layout's ones channel; the
         int8 engine calibrates on this stream (``engine_q.calibrate``).
-    :param sparse: non-zero routes every conv unit through K6
+    :param sparse: generic family only. Non-zero routes every conv unit
+        through K6
         (``conv3d_bias_act`` with the ReLU on and the folded bias) instead
         of K1, as the JAX engine's ``sparse`` sends them to ``conv3d_chain``
         (``ctunet_tpu/engine.py:170-185``). There the number is the group
         height of a constant-region skip, a TPU scheduling choice that
         changes no value; here any non-zero value selects the route.
     :returns: ``predict`` -> ``(full, flap)``, each ``(B, D, H, W, 2)`` in
-        ``compute_dtype`` (double head), or ``(B, D, H, W, 3)``.
+        ``compute_dtype`` (double head), or ``(B, D, H, W, 3)``; for the
+        legacy family ``(B, D, H, W, 2)`` softmax probabilities.
     """
     if model_class in NOT_PORTED:
         raise NotImplementedError(
@@ -115,6 +136,12 @@ def build_predict(
         raise NotImplementedError(
             f"the Hopper kernels compute in bfloat16, not {compute_dtype}; "
             "other engine dtypes on the card are not ported")
+    if cfg["family"] == "legacy":
+        if record is not None or sparse:
+            raise NotImplementedError(
+                "record and sparse serve the generic family's int8 "
+                "calibration and K6 route; the legacy engine takes neither")
+        return build_legacy_predict(state_dict, compute_dtype, device, plain)
     conv = kc.conv3d_bn_relu_plain if plain else kc.conv3d_bn_relu
     if sparse:
         k6 = kc.conv3d_bias_act_plain if plain else kc.conv3d_bias_act
@@ -185,5 +212,75 @@ def build_predict(
         if isinstance(outs[0], tuple):
             return tuple(torch.stack(o) for o in zip(*outs))
         return torch.stack(outs)
+
+    return predict
+
+
+def build_legacy_predict(state_dict: Dict[str, torch.Tensor],
+                         compute_dtype: torch.dtype, device: torch.device,
+                         plain: bool = False) -> Callable:
+    """The legacy k=5 engine (``_build_legacy_predict``,
+    ``ctunet_tpu/engine.py:766-828``) on K5, K2 and K7a/K7b; called by
+    :func:`build_predict` for ``recAE_v2_fixed`` and ``UNet4_2IC``.
+
+    :returns: ``predict`` -> ``(B, D, H, W, 2)`` softmax probabilities in
+        ``compute_dtype``.
+    """
+    conv = kc.conv3d5_bias_act_plain if plain else kc.conv3d5_bias_act
+    pool = kc.maxpool2_plain if plain else kc.maxpool2
+    up1 = kt.convt_k2s2_plain if plain else (
+        lambda a, b, wa, wb, bias: kt.convt_k2s2(a, wa, bias))
+    up2 = kt.convt_k2s2_plain if plain else (
+        lambda a, b, wa, wb, bias: kt.convt_k2s2_dual(a, b, wa, wb, bias))
+
+    sd = {k: v.detach().cpu() for k, v in state_dict.items()}
+
+    def units(name, idxs):
+        return [conv_operands(sd, name, c, compute_dtype, device)
+                for c in idxs]
+
+    enc = [units(f"dblock{i + 1}", (0, 3)) for i in range(4)]
+    center = units("cblock_center", (0, 3))
+    dec = []
+    for i in range(4):
+        name = f"ublock{i + 1}"
+        # block i > 0 upsamples cat(previous block output, skip)
+        ca = None if i == 0 else int(sd[f"ublock{i}.4.weight"].shape[0])
+        ops = kt.convt_weights(sd[f"{name}.0.weight"], sd[f"{name}.0.bias"],
+                               ca, compute_dtype)
+        dec.append((tuple(None if t is None else t.to(device) for t in ops),
+                    units(name, (1, 4))))
+    lk = sd["last_conv.weight"][:, :, 0, 0, 0].t()  # (Ca+Cb, 2)
+    ca_head = int(sd["ublock4.4.weight"].shape[0])
+    lka = lk[:ca_head].to(device, compute_dtype).contiguous()
+    lkb = lk[ca_head:].to(device, compute_dtype).contiguous()
+    lb = sd["last_conv.bias"].to(device, compute_dtype)
+
+    def forward_one(x: torch.Tensor) -> torch.Tensor:
+        """One ``(D, H, W, C)`` volume through the kernels."""
+        if any(s % 16 for s in x.shape[:3]):
+            raise ValueError(f"spatial shape {tuple(x.shape[:3])} must "
+                             "divide by 16 (pad the volume)")
+        h = x.to(compute_dtype).contiguous()
+        skips = []
+        for (w0, b0), (w1, b1) in enc:
+            h = conv(conv(h, w0, b0), w1, b1)
+            skips.append(h)
+            h = pool(h)
+        (w0, b0), (w1, b1) = center
+        a, b = conv(conv(h, w0, b0), w1, b1), None
+        for i, ((wa, wb, bu), ((w0, b0), (w1, b1))) in enumerate(dec):
+            a = (up1 if b is None else up2)(a, b, wa, wb, bu)
+            a = conv(conv(a, w0, b0), w1, b1)
+            b = skips[3 - i]
+        lc = a @ lka + b @ lkb + lb
+        return torch.softmax(lc.float(), -1).to(compute_dtype)
+
+    @torch.inference_mode()
+    def predict(images: torch.Tensor) -> torch.Tensor:
+        if images.device != device:
+            raise ValueError(f"images on {images.device}, engine on {device}")
+        return torch.stack([forward_one(images[i])
+                            for i in range(images.shape[0])])
 
     return predict

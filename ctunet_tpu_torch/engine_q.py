@@ -283,7 +283,9 @@ def build_predict_q(
         raise NotImplementedError(
             f"{model_class} is not served by the PyTorch port yet: "
             f"{engine.NOT_PORTED[model_class]}")
-    if model_class not in engine.ENGINE_CONFIGS:
+    if engine.ENGINE_CONFIGS.get(model_class, {}).get("family") != "generic":
+        # the legacy k=5 family has no int8 path (ctunet_tpu's
+        # build_predict_q raises a ValueError too): Model serves it in bf16
         raise Unsupported(f"int8 engine: no generic-family config for "
                           f"{model_class}")
     del split_taps  # both forms compute the same integers

@@ -1,4 +1,5 @@
 from .. import registry
+from .legacy import RecAEv2Fixed, UNet4_2IC
 from .unet import UNet, UNetBlock
 from .variants import UNet4b1i3o, UNet4b2i3o, UNetDO, UNetSP, double_out_head
 
@@ -9,9 +10,11 @@ def build_model(name: str):
 
 
 __all__ = [
+    "RecAEv2Fixed",
     "UNet",
     "UNetBlock",
     "UNet4b1i3o",
+    "UNet4_2IC",
     "UNet4b2i3o",
     "UNetDO",
     "UNetSP",

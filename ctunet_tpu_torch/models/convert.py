@@ -1,13 +1,15 @@
 """Flax variable trees <-> PyTorch state_dict of the port's models.
 
 ``ctunet_tpu`` keeps weights as flax trees: ``params`` (conv kernels
-``(3,3,3,I,O)``, ConvTranspose kernels ``(2,2,2,O,I)`` in the
+``(k,k,k,I,O)``, ConvTranspose kernels ``(2,2,2,O,I)`` in the
 ``transpose_kernel`` layout, BN ``scale``/``bias``, ``last_conv`` kernel
 ``(1,1,1,I,O)``) and ``batch_stats`` (BN ``mean``/``var``), under a ``unet``
-root for the generic family. :func:`from_flax` maps them to the reference
-state_dict names the port's modules use (``models/unet.py``):
+root for the generic family and at the root for the legacy family
+(``dblock1/unit0/conv/kernel``, ``ublock1/upconv/kernel``). :func:`from_flax`
+maps them to the reference state_dict names the port's modules use
+(``models/unet.py``, ``models/legacy.py``):
 
-- conv kernel ``(3,3,3,I,O)`` -> ``(O,I,3,3,3)``, no spatial flip;
+- conv kernel ``(k,k,k,I,O)`` -> ``(O,I,k,k,k)``, no spatial flip;
 - ConvTranspose kernel ``(2,2,2,O,I)`` -> torch ``(I,O,2,2,2)``, no flip:
   ``out[2z+a] = sum_i x[z,i] k[a,o,i]`` in flax is
   ``out[2z+a] = sum_i x[z,i] W[i,o,a]`` in torch (``unet.py:176-214``);
@@ -54,12 +56,36 @@ def _unit(sd, params, stats, src: str, dst: str, conv_idx: int) -> None:
     sd[f"{dst}.{bn}.num_batches_tracked"] = torch.tensor(0)
 
 
+LEGACY_DOWN = ("dblock1", "dblock2", "dblock3", "dblock4", "cblock_center")
+LEGACY_UP = ("ublock1", "ublock2", "ublock3", "ublock4")
+
+
+def _from_flax_legacy(params, stats) -> Dict[str, torch.Tensor]:
+    """Legacy tree (``ctunet_tpu/models/legacy.py``) -> the reference's
+    names (``torch_port.py:242-265``)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name in LEGACY_DOWN:
+        for j, conv_idx in enumerate((0, 3)):
+            _unit(sd, params[name], stats[name], f"unit{j}", name, conv_idx)
+    for name in LEGACY_UP:
+        up = params[name]["upconv"]
+        sd[f"{name}.0.weight"] = _kernel(up["kernel"])
+        sd[f"{name}.0.bias"] = _t(up["bias"])
+        for k, conv_idx in enumerate((1, 4)):
+            _unit(sd, params[name], stats[name], f"unit{k}", name, conv_idx)
+    sd["last_conv.weight"] = _kernel(params["last_conv"]["kernel"])
+    sd["last_conv.bias"] = _t(params["last_conv"]["bias"])
+    return sd
+
+
 def from_flax(params: Mapping[str, Any],
               batch_stats: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """Generic-family flax ``params``/``batch_stats`` -> state_dict.
-
-    Accepts the trees with or without their ``unet`` root.
+    """Flax ``params``/``batch_stats`` -> state_dict, for the generic family
+    (with or without the ``unet`` root) and the legacy family (a root with
+    ``dblock1``).
     """
+    if "dblock1" in params:
+        return _from_flax_legacy(params, batch_stats)
     params = params.get("unet", params)
     stats = batch_stats.get("unet", batch_stats)
     n_blocks = sum(1 for k in params if k.startswith("d"))
@@ -103,10 +129,31 @@ def _unit_back(sd, src: str, conv_idx: int):
     return params, stats
 
 
+def _to_flax_legacy(sd: Mapping[str, torch.Tensor]):
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    for name in LEGACY_DOWN + LEGACY_UP:
+        params[name], stats[name] = {}, {}
+        up = name in LEGACY_UP
+        if up:
+            params[name]["upconv"] = {
+                "kernel": _kernel_back(sd[f"{name}.0.weight"]),
+                "bias": _n(sd[f"{name}.0.bias"])}
+        for j, conv_idx in enumerate((1, 4) if up else (0, 3)):
+            p, s = _unit_back(sd, name, conv_idx)
+            params[name][f"unit{j}"], stats[name][f"unit{j}"] = p, s
+    params["last_conv"] = {"kernel": _kernel_back(sd["last_conv.weight"]),
+                           "bias": _n(sd["last_conv.bias"])}
+    return params, stats
+
+
 def to_flax(sd: Mapping[str, torch.Tensor], root: str = "unet"):
-    """State_dict of the port's generic family -> ``(params,
-    batch_stats)`` of ``ctunet_tpu``, each under ``root`` (``None``: no
-    root), as numpy f32. The inverse of :func:`from_flax`."""
+    """State_dict of the port's models -> ``(params, batch_stats)`` of
+    ``ctunet_tpu``, as numpy f32: the generic family's under ``root``
+    (``None``: no root), the legacy family's at the root as the JAX
+    package keeps them. The inverse of :func:`from_flax`."""
+    if "dblock1.0.weight" in sd:
+        return _to_flax_legacy(sd)
     n_blocks = 1 + max(int(k.split(".")[1]) for k in sd
                        if k.startswith("d_blocks."))
     params: Dict[str, Any] = {}

@@ -9,6 +9,9 @@ K1q    ``conv3d.conv3d_q_requant``    ``csrc/conv3d_q.cu``
 K2q    ``conv3d.maxpool2_q``          ``csrc/maxpool.cu`` (int8)
 K3q    ``upconv.upconv_q_requant``    ``csrc/upconv_q.cu``
 K6     ``conv3d.conv3d_bias_act``     ``csrc/conv3d.cu`` (bf16/f32, ReLU flag)
+K5     ``conv3d.conv3d5_bias_act``    ``csrc/conv3d_k5.cu`` (k=5, bf16/f32)
+K7a    ``convt.convt_k2s2``           ``csrc/convt.cu``
+K7b    ``convt.convt_k2s2_dual``      ``csrc/convt.cu`` (concat of two)
 =====  ============================  ==================================
 
 Importing this package builds nothing and needs neither ``nvcc`` nor a
@@ -19,8 +22,9 @@ from __future__ import annotations
 
 from typing import Dict
 
-from .conv3d import (conv3d_bias_act, conv3d_bn_relu, conv3d_q_requant,
-                     maxpool2, maxpool2_q)
+from .conv3d import (conv3d5_bias_act, conv3d_bias_act, conv3d_bn_relu,
+                     conv3d_q_requant, maxpool2, maxpool2_q)
+from .convt import convt_k2s2, convt_k2s2_dual
 from .upconv import upconv_bn_relu, upconv_q_requant
 
 WRAPPERS = {
@@ -31,6 +35,9 @@ WRAPPERS = {
     "maxpool2_q": maxpool2_q,
     "upconv_q_requant": upconv_q_requant,
     "conv3d_bias_act": conv3d_bias_act,
+    "conv3d5_bias_act": conv3d5_bias_act,
+    "convt_k2s2": convt_k2s2,
+    "convt_k2s2_dual": convt_k2s2_dual,
 }
 
 

@@ -1,15 +1,17 @@
 """K1 (Conv3D k3 + folded BN + ReLU) and K2 (2x2x2 max pool) for Hopper,
-with their int8 modes K1q (requantizing int8 conv) and K2q (int8 pool), and
-K6 (Conv3D k3 + bias + optional ReLU in bf16 or f32, the training conv).
+with their int8 modes K1q (requantizing int8 conv) and K2q (int8 pool), K6
+(Conv3D k3 + bias + optional ReLU in bf16 or f32, the training conv) and
+K5 (the same at k5, the legacy family's conv).
 
 Counterpart of ``ctunet_tpu/ops/pallas/conv3d.py``: ``conv3d_chain_split``
 (bf16 and ``scale=``/``zp=`` int8 modes), ``conv3d_chain_q`` (the full-tap
-int8 form, K4a), ``maxpool2_chain`` and ``conv3d_chain`` (K6: forward and
+int8 form, K4a), ``maxpool2_chain``, ``conv3d_chain`` (K6: forward and
 input gradient of the training conv, ``ops/chain_conv_train.py``, and the
-``sparse`` serving route). The CUDA sources are ``csrc/conv3d.cu``,
-``csrc/conv3d_q.cu`` and ``csrc/maxpool.cu``; the TPU chain layout (W
-packed into lanes, halo rows, ones-channel) is not carried over: every
-function takes and returns dense channels-last volumes.
+``sparse`` serving route) and ``conv3d_fused`` at k=5 (K5). The CUDA
+sources are ``csrc/conv3d.cu``, ``csrc/conv3d_k5.cu``,
+``csrc/conv3d_q.cu`` and ``csrc/maxpool.cu``; the TPU chain and W-packed
+layouts (W packed into lanes, halo rows, ones-channel) are not carried
+over: every function takes and returns dense channels-last volumes.
 
 Each wrapper launches its kernel for a CUDA tensor (or raises) and takes
 its plain PyTorch version only for a tensor on the CPU. ``<wrapper>.launches``
@@ -38,13 +40,14 @@ def fold_bn(bn_scale, bn_bias, bn_mean, bn_var, eps: float = 1e-5):
 
 def fold_conv_unit(conv_w, conv_b, bn_w, bn_b, bn_mean, bn_var,
                    dtype=torch.bfloat16):
-    """Conv3d(k3) + BatchNorm3d weights -> the kernel's operands.
+    """Conv3d(k3 or k5) + BatchNorm3d weights -> the kernel's operands.
 
-    ``conv_w`` is torch ``(O, I, 3, 3, 3)``. Returns ``(w, bias)`` with
+    ``conv_w`` is torch ``(O, I, k, k, k)``. Returns ``(w, bias)`` with
     ``w = conv_w * scale`` folded in f32 and then cast to ``dtype``, laid
-    out tap-major ``(3, 3, 3, I, O)``, and ``bias`` f32 ``(O,)`` — the
-    rounding of the JAX engine (``engine.py:77-86``, ``conv3d.py:815-816,
-    1124``: bf16 weights, f32 bias added to the f32 accumulator).
+    out tap-major ``(k, k, k, I, O)``, and ``bias`` f32 ``(O,)``:
+    ``conv_b * scale + bn_shift`` — the rounding of the JAX engine
+    (``engine.py:77-86``, ``conv3d.py:71-72,223,815-816,1124``: bf16
+    weights, f32 bias added to the f32 accumulator).
     """
     inv, bn_bias = fold_bn(bn_w, bn_b, bn_mean, bn_var)
     w = conv_w.float().permute(2, 3, 4, 1, 0) * inv
@@ -165,6 +168,71 @@ def conv3d_bias_act(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
 
 
 conv3d_bias_act.launches = 0
+
+
+# --------------------------------------------------------------------------
+# K5: Conv3D(k5, SAME) + bias + optional ReLU, bf16 or f32
+# --------------------------------------------------------------------------
+
+# dz-plane staging holds 25*Ci*8 f32 weights in one block's shared memory
+K5_MAX_CI = 232448 // (25 * 8 * 4)
+
+
+def conv3d5_bias_act_plain(x: torch.Tensor, w: torch.Tensor,
+                           bias: torch.Tensor,
+                           relu: bool = True) -> torch.Tensor:
+    """Plain PyTorch K5: ``F.conv3d`` with ``padding=2`` in f32 on the
+    (already rounded) inputs, + bias, ReLU when ``relu``, cast back to
+    ``x.dtype`` once.
+
+    :param x: ``(D, H, W, Ci)``; ``w``: ``(5, 5, 5, Ci, Co)``; ``bias``:
+        ``(Co,)`` f32.
+    """
+    xf = x.float().permute(3, 0, 1, 2)[None]
+    wf = w.float().permute(4, 3, 0, 1, 2)
+    y = F.conv3d(xf, wf, padding=2)[0].permute(1, 2, 3, 0) + bias.float()
+    return (torch.relu(y) if relu else y).to(x.dtype)
+
+
+def conv3d5_bias_act(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                     relu: bool = True) -> torch.Tensor:
+    """K5 on ``x`` ``(D, H, W, Ci)`` with ``w`` ``(5, 5, 5, Ci, Co)`` of
+    ``x``'s dtype (bf16 or f32) and f32 ``bias`` ``(Co,)`` ->
+    ``(D, H, W, Co)``: ``act(conv5(x, w) + bias)`` accumulated in f32,
+    ``act`` the ReLU when ``relu`` (the legacy engine's conv units, BN
+    folded into ``w`` and ``bias`` by :func:`fold_conv_unit`) else the
+    identity.
+
+    CPU tensor: the plain version. CUDA tensor: the ``csrc/conv3d_k5.cu``
+    kernel on the current stream, or an error.
+    """
+    if x.device.type == "cpu":
+        return conv3d5_bias_act_plain(x, w, bias, relu)
+    _require_cuda(x, "conv3d5_bias_act")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"x: expected bfloat16 or float32, got {x.dtype}")
+    d, h, wd, ci = x.shape
+    co = w.shape[-1]
+    if ci > K5_MAX_CI:
+        raise ValueError(f"conv3d5_bias_act: Ci={ci} > {K5_MAX_CI}, the "
+                         "widest input whose weight plane fits a block")
+    _check(x, "x", x.dtype)
+    _check(w, "w", x.dtype, (5, 5, 5, ci, co), x.device)
+    _check(bias, "bias", torch.float32, (co,), x.device)
+    out = torch.empty((d, h, wd, co), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    fn = build.function("conv3d_k5", "ctunet_conv3d5_bias_act",
+                        [_P] * 4 + [_I] * 8 + [_P])
+    rc = fn(x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            d, h, wd, ci, co, int(x.dtype == torch.float32), int(bool(relu)),
+            *build.stream_args(x))
+    build.check(rc, "conv3d5_bias_act")
+    conv3d5_bias_act.launches += 1
+    return out
+
+
+conv3d5_bias_act.launches = 0
 
 
 # --------------------------------------------------------------------------

@@ -2,15 +2,17 @@
 and prediction writing.
 
 Counterpart of ``ctunet_tpu/problem.py`` (reference
-``ctunet/pytorch/ProblemHandler.py:21-359``) for the double-output flap
-problems. A handler names its train and test datasets, whether the atlas is
-stacked as a second input channel, how a training pair is synthesized from
-a complete skull (or taken from a stored (broken, flap) pair), how the
-losses compose, and how predictions are written:
-``pred_<name>/<file>_{sk,fl}.nii.gz`` uint8 masks in the input's physical
-space plus the input copy ``<file>_i.nii.gz``. The single-output handlers
-(``FlapRec``, ``FlapRecWithShapePrior``, ``DenoisingAE``) are not ported
-yet (ROADMAP Queue 1 item 13).
+``ctunet/pytorch/ProblemHandler.py:21-359``) for the flap problems. A
+handler names its train and test datasets, whether the atlas is stacked as
+a second input channel, how a training pair is synthesized from a complete
+skull (or taken from a stored (broken, flap) pair), how the losses
+compose, and how predictions are written: uint8 masks in the input's
+physical space, ``pred_<name>/<file>_{sk,fl}.nii.gz`` for the
+double-output handlers and ``<file>_fl.nii.gz`` for the single-output ones
+(``FlapRec``, ``FlapRecWithShapePrior``: the legacy k=5 models' test
+path), plus the input copy ``<file>_i.nii.gz``. The single-output
+handlers' training synthesis needs ``ops/warp.py`` and is not ported yet
+(ROADMAP Queue 1 item 13), nor is ``DenoisingAE``.
 
 Quirk Q4 is kept: the cross entropy consumes the models' post-sigmoid
 outputs as if they were logits.
@@ -203,3 +205,89 @@ class FlapRecDoubleOut(FlapRecWithShapePriorDoubleOut):
 
     def __init__(self):
         super().__init__(with_sp=False)
+
+
+def _write_single_output(handler, predictions, input_filepaths,
+                         output_folder_name):
+    """Single-output writer (``ctunet_tpu/problem.py:129-170``, ref
+    ``ProblemHandler.py:116-163``): per sample the argmax mask as
+    ``pred_<name>/<file>_fl.nii.gz`` in the input's physical space, or one
+    ``<file>_c{i}.nii.gz`` per sub-volume when a sample holds several; the
+    input copy ``_i`` of the last sample of the call, as the JAX writer
+    makes it (the serving loop calls once per volume)."""
+    print(" Saving prediction for...")
+    saved = []
+    out_folder = name = last_inp = None
+    for pred, inp_path in zip(np.asarray(predictions), input_filepaths):
+        path, name = os.path.split(inp_path)
+        print("  " + name + "..")
+        out_folder = makedir(os.path.join(path, "pred_" + output_folder_name))
+        src = nifti.read(inp_path, header_only=True)
+        last_inp = inp_path
+        hard = _hard_mask(pred)
+        if hard.ndim > 3:  # several images: <file>_c{i}.nii.gz each
+            for i, sub in enumerate(hard.reshape((-1,) + hard.shape[-3:])):
+                out_path = os.path.join(
+                    out_folder, name.replace(".nii.gz", f"_c{i}.nii.gz"))
+                nifti.write(out_path,
+                            src.with_data(_mask_u8(handler._post(sub))))
+                saved.append(out_path)
+            continue
+        out_path = os.path.join(out_folder,
+                                name.replace(".nii.gz", "_fl.nii.gz"))
+        nifti.write(out_path, src.with_data(_mask_u8(handler._post(hard))))
+        saved.append(out_path)
+    if out_folder is not None:
+        orig = os.path.join(out_folder, name.replace(".nii.gz", "_i.nii.gz"))
+        _copy_input(last_inp, orig)
+        saved.append(orig)
+    return saved
+
+
+@registry.register_problem("FlapRec")
+class FlapRec:
+    """Single-output flap reconstruction, broken skull in, flap out (ref
+    ``ProblemHandler.py:166-173``; ``recAE_v2_fixed``'s handler in
+    ``examples/autoimplant2020/UNet/AutoImplant2020_woShapePrior.ini``).
+    Test side only: the datasets, the losses and the writer."""
+
+    train_dataset_class = ds.NiftiImageDataset
+    test_dataset_class = ds.NiftiImageDataset
+    append_atlas = False
+    double_output = False
+    postprocess = None
+
+    def _post(self, hard: np.ndarray) -> np.ndarray:
+        return self.postprocess(hard) if self.postprocess else hard
+
+    def synthesize(self, gen: torch.Generator, volume: torch.Tensor):
+        raise NotImplementedError(
+            f"{type(self).__name__} training synthesis needs ops/warp.py and "
+            "the single-output synthesis, not ported yet: ROADMAP Queue 1 "
+            "item 13")
+
+    def targets_from_pair(self, broken: torch.Tensor, flap: torch.Tensor):
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support pre-augmented pairs")
+
+    @staticmethod
+    def compute_losses(prediction, target, cfg: Dict[str, Any]):
+        return single_output_losses(prediction, target, cfg)
+
+    def host_metrics(self, prediction, target, cfg) -> Dict[str, float]:
+        return {}
+
+    def write_predictions(self, predictions, input_filepaths,
+                          output_folder_name, input_imgs=None):
+        return _write_single_output(self, predictions, input_filepaths,
+                                    output_folder_name)
+
+
+@registry.register_problem("FlapRecWithShapePrior")
+class FlapRecWithShapePrior(FlapRec):
+    """Single-output flap reconstruction with the atlas as a second input
+    channel (ref ``ProblemHandler.py:176-188``; ``UNet4_2IC``'s handler in
+    ``examples/autoimplant2020/UNetSP/AutoImplant2020_wShapePrior.ini``)."""
+
+    test_dataset_class = ds.NiftiImageWithAtlasDataset
+    append_atlas = True

@@ -21,13 +21,18 @@ and/or tests according to the flags. CLI: ``ctunet-tpu-torch <cfg.ini>`` /
   JAX package: they are accepted and the same dense graph runs.
 - ``test_flag``: every test volume whole through the bf16 engine
   (``engine.py``), or with ``use_int8`` the calibrated int8 engine
-  (``engine_q.py``), writing ``pred_<name>/<file>_{sk,fl,i}`` NIfTI files.
+  (``engine_q.py``), writing ``pred_<name>/<file>_{sk,fl,i}`` NIfTI files
+  (``<file>_{fl,i}`` for the single-output handlers ``FlapRec`` and
+  ``FlapRecWithShapePrior``). The legacy k=5 models (``recAE_v2_fixed``,
+  ``UNet4_2IC``) are served by the bf16 engine in every case: they have no
+  int8 path, as in ``ctunet_tpu``.
 
 It runs on the CUDA card: ``s_device`` ``tpu``, ``gpu``, ``cuda`` or unset
 all mean the card, and a missing card is an error. ``device = cpu`` runs
 the same code with the kernels' plain PyTorch versions (what the tests
 do). Settings this port does not serve yet raise ``NotImplementedError``
-naming their ROADMAP item instead of serving something else.
+naming their ROADMAP item instead of serving something else: among them
+training the legacy family or a single-output handler.
 """
 
 from __future__ import annotations
@@ -139,6 +144,18 @@ class Model:
 
         self.problem_handler = registry.get_problem(
             self.params["problem_handler"])()
+        if self.params.get("train_flag") is True:
+            mc = self.params["model_class"]
+            if engine.ENGINE_CONFIGS.get(mc, {}).get("family") == "legacy":
+                raise NotImplementedError(
+                    f"training {mc} (legacy k=5 family) is not ported yet: "
+                    "the next slice, K5 forward/dgrad with conv_impl = "
+                    "'pallas' (ROADMAP Queue 1 item 16)")
+            if not self.problem_handler.double_output:
+                raise NotImplementedError(
+                    f"training with {self.params['problem_handler']} needs "
+                    "ops/warp.py and the single-output synthesis (ROADMAP "
+                    "Queue 1 item 13)")
         self.write_predictions = self.problem_handler.write_predictions
         self.models: Dict = {"main": None}
         self.state_dict: Optional[Dict[str, torch.Tensor]] = None

@@ -137,7 +137,7 @@ def test_engine_refuses_unported_families():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tengine.build_predict("UNetSPSmall", {}, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tengine.build_predict("recAE_v2_fixed", {}, device="cpu")
+        tengine.build_predict("UNet5b2i3o", {}, device="cpu")
 
 
 def test_committed_npz_equals_orbax_restore():
@@ -229,6 +229,8 @@ def test_port_imports_no_jax_and_no_ctunet_tpu():
     files = glob.glob(os.path.join(ROOT, "ctunet_tpu_torch", "**", "*.py"),
                       recursive=True) + [os.path.join(ROOT, "chip_smoke.py")]
     assert len(files) > 20
+    for mod in ("models/legacy.py", "ops/kernels/convt.py", "engine.py"):
+        assert os.path.join(ROOT, "ctunet_tpu_torch", mod) in files, mod
     bad = []
     for f in files:
         for mod in _imports(f):

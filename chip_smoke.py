@@ -8,16 +8,19 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
    ``ctunet_tpu_torch/csrc/`` (one ``nvcc`` per source, in parallel) and
    times it.
 2. Kernels: each kernel against its plain PyTorch version on the card at
-   the paths' real shapes (UNetSP, 224x304x304): the bf16 kernels K1-K3
-   with the stated tolerance, the int8 kernels K1q-K3q exactly (on layers
-   quantized from a calibration on one synthetic volume), and the training
-   conv K6 forward and as input gradient (flipped, channel-swapped
-   weights) in bf16 and f32 at the layers training launches, plus the
-   autograd function's ``dx``/``dw`` against autograd through the plain
-   version, and the legacy engine's K5 (k=5 conv) and K7a/K7b (ConvT
-   k2s2, one operand / the unbuilt concat of two) at its layers' shapes;
-   the kernel's time beside the plain version's, one PyTorch library
-   call's where one exists, and the card's bound.
+   the paths' real shapes (224x304x304 and its levels): ``conv3d_tc``, the
+   bf16 k=3/k=5 tensor-core conv behind K1, K6 and K5, at every distinct
+   shape the paths launch (UNetSP's K1 per volume, K6's forward and input
+   gradients per train step, ``UNet4_2IC``'s and ``recAE_v2_fixed``'s K5
+   per volume), beside the direct CUDA-core kernel it replaced (same
+   inputs, same call); K2 and K3 with the stated tolerance; the int8
+   kernels K1q-K3q exactly (on layers quantized from a calibration on one
+   synthetic volume); K6's f32 route (the direct kernel) forward and as
+   input gradient, and the autograd function's ``dx``/``dw`` against
+   autograd through the plain version; K7a/K7b (ConvT k2s2, one operand /
+   the unbuilt concat of two) at the legacy engine's shapes. Each with the
+   kernel's time beside the plain version's, one PyTorch library call's
+   where one exists, and the card's bound.
 3. bf16 path: serves synthetic broken skulls (``spherical_shell`` with a
    hole punched; atlas ``spherical_shell(radius_frac=0.42)``) through the
    ``Model`` test path with the committed ``unetsp_10k`` weights, checks
@@ -97,7 +100,7 @@ LEGACY_INIS = {  # AutoImplant 2020: with and without the shape prior
 }
 # kernel launches per volume of the legacy engine
 LEGACY_PER_VOLUME = {"conv3d5_bias_act": 18, "maxpool2": 4, "convt_k2s2": 1,
-                     "convt_k2s2_dual": 3}
+                     "convt_k2s2_dual": 3, "conv3d_tc": 18}
 N_TRAIN, N_EVAL = 4, 2  # steps of the training phase (batch 1)
 # K6 launches per step of the 16-conv UNetSP: every conv forward, and every
 # input gradient but the network input's
@@ -217,9 +220,10 @@ def record_bf16(entries, failures, name, case, got, ref, ms, plain_ms,
 
 def check_kernels(sd, device, shape=SHAPE, reps_big: int = 5,
                   reps_small: int = 50):
-    """Each kernel against its plain version at the path's shapes, with the
-    trained weights of the layer that runs at that shape. Returns
-    ``(entries, failures)``, ``entries`` keyed by wrapper name."""
+    """K2 and K3 against their plain versions at the UNetSP path's shapes,
+    with the trained weights of the layer that runs at that shape (K1 is
+    ``conv3d_tc``: :func:`check_conv_tc`). Returns ``(entries,
+    failures)``, ``entries`` keyed by wrapper name."""
     import torch
     import torch.nn.functional as F
 
@@ -233,31 +237,6 @@ def check_kernels(sd, device, shape=SHAPE, reps_big: int = 5,
     lv = [(d >> i, h >> i, w >> i) for i in range(5)]
     entries, failures = {}, []
     record = functools.partial(record_bf16, entries, failures)
-
-    # K1: the full-resolution 7->7 conv (d0 unit1) and the 28x38x38 56->56
-    # conv (d3 unit1)
-    for blk, shp in ((0, lv[0]), (3, lv[3])):
-        w_, b_ = engine.conv_operands(sd, f"d_blocks.{blk}.block", 3, bf,
-                                      device)
-        ci, co = w_.shape[3], w_.shape[4]
-        x = relu_normal(shp + (ci,), gen, device)
-        reps = reps_big if blk == 0 else reps_small
-        got = kc.conv3d_bn_relu(x, w_, b_)
-        ref = kc.conv3d_bn_relu_plain(x, w_, b_)
-        ms = time_ms(lambda: kc.conv3d_bn_relu(x, w_, b_), reps, device)
-        p_ms = time_ms(lambda: kc.conv3d_bn_relu_plain(x, w_, b_), reps,
-                       device)
-        x_l = x.permute(3, 0, 1, 2)[None]
-        w_l = w_.permute(4, 3, 0, 1, 2).contiguous(
-            memory_format=torch.channels_last_3d)
-        b_l = b_.to(bf)
-        l_ms = time_ms(lambda: F.conv3d(x_l, w_l, b_l, padding=1), reps,
-                       device)
-        nbytes = 2 * math.prod(shp) * (ci + co) + w_.numel() * 2 + co * 4
-        record("conv3d_bn_relu", f"{ci}->{co} {'x'.join(map(str, shp))}",
-               got, ref, ms, p_ms, l_ms, nbytes,
-               2 * ci * co * conv_taps(shp, 3), bf16_tol(ref))
-        del x, got, ref
 
     # K2: the full-resolution pool (d0 output, 7 channels); max is exact
     x = torch.randn(lv[0] + (7,), generator=gen, device=device).to(bf)
@@ -308,17 +287,158 @@ def check_kernels(sd, device, shape=SHAPE, reps_big: int = 5,
     return entries, failures
 
 
-def check_kernels_legacy(device, shape=SHAPE, reps_big: int = 3,
-                         reps_small: int = 20):
-    """K5 and K7a/K7b against their plain versions at the legacy engine's
-    shapes: ``UNet4_2IC``'s layers at ``shape`` and ``recAE_v2_fixed``'s
-    128-channel center (the widest dz-plane of weights K5 stages). Random
-    normal weights scaled by their fan-in and ReLU'd normal inputs from a
-    seed. Returns ``(entries, failures)``."""
+def unetsp_convs(widths=(7, 14, 28, 56), cin: int = 2):
+    """UNetSP's 16 k=3 convs as ``(ci, co, level, served)``: each encoder
+    level's two units, then decoder block j's two at level ``n - 1 - j``;
+    ``served`` marks the K1 launches of the bf16 engine (it fuses each
+    decoder block's first unit into K3)."""
+    n, convs = len(widths), []
+    for i, w in enumerate(widths):
+        convs += [(cin, w, i, True), (w, w, i, True)]
+        cin = w
+    for j in range(n):
+        w = widths[n - 1 - j]
+        convs += [(cin, w, n - 1 - j, False), (w, w, n - 1 - j, True)]
+        cin = 2 * w
+    return convs
+
+
+def legacy_convs(i_size: int, cin: int):
+    """The 18 k=5 convs of a legacy model as ``(ci, co, level)``: encoder
+    levels 0-3, the center at 4, decoder blocks at 3..0 (each upsamples
+    ``cat(previous output, skip)``)."""
+    f = [i_size * 2 ** n for n in range(5)]
+    convs = []
+    for i in range(5):
+        convs += [(cin, f[i], i), (f[i], f[i], i)]
+        cin = f[i]
+    for i in range(4):
+        convs += [(cin, f[3 - i], 3 - i), (f[3 - i], f[3 - i], 3 - i)]
+        cin = 2 * f[3 - i]
+    return convs
+
+
+def conv_tc_shapes():
+    """Every distinct bf16 conv the paths launch, ``{(k, ci, co, level):
+    {path: launches}}``: K1 per UNetSP volume, K6 per UNetSP train step
+    (16 forward + 15 input gradients, ``co -> ci``, the network input's
+    left out), K5 per ``UNet4_2IC`` and per ``recAE_v2_fixed`` volume."""
+    rows = {}
+
+    def add(key, path):
+        rows.setdefault(key, {}).setdefault(path, 0)
+        rows[key][path] += 1
+
+    for i, (ci, co, lv, served) in enumerate(unetsp_convs()):
+        if served:
+            add((3, ci, co, lv), "K1/volume")
+        add((3, ci, co, lv), "K6/step")
+        if i:
+            add((3, co, ci, lv), "K6/step")
+    for mc, i_size, cin in (("UNet4_2IC", 7, 2), ("recAE_v2_fixed", 8, 1)):
+        for ci, co, lv in legacy_convs(i_size, cin):
+            add((5, ci, co, lv), f"{mc}/volume")
+    return dict(sorted(rows.items()))
+
+
+def check_conv_tc(device, shape=SHAPE):
+    """``conv3d_tc`` against its plain version within ``bf16_tol`` at every
+    shape of :func:`conv_tc_shapes`, called through the wrapper its path
+    calls (K1 ``conv3d_bn_relu``, K6 ``conv3d_bias_act`` without ReLU, K5
+    ``conv3d5_bias_act``); beside it the direct CUDA-core kernel's time
+    (the kernel these wrappers launched before, same inputs, same call),
+    cuDNN's bf16 ``F.conv3d`` and the bound. Random normal weights scaled by
+    their fan-in, f32 biases, ReLU'd normal inputs from a seed. Logs one
+    ``TC`` line per shape and each path's sums (time x launches). Returns
+    ``(entries, failures)``."""
     import torch
     import torch.nn.functional as F
 
     from ctunet_tpu_torch.ops.kernels import conv3d as kc
+
+    gen = torch.Generator(device=device).manual_seed(4)
+    bf = torch.bfloat16
+    d, h, w = shape
+    lv = [(d >> i, h >> i, w >> i) for i in range(5)]
+    entries, failures, sums = {}, [], {}
+    for (k, ci, co, level), paths in conv_tc_shapes().items():
+        shp = lv[level]
+        if k == 5:
+            name, relu = "conv3d5_bias_act", True
+            run = functools.partial(kc.conv3d5_bias_act, relu=True)
+            direct = kc.conv3d5_bias_act_direct
+        elif "K1/volume" in paths:
+            name, relu = "conv3d_bn_relu", True
+            run, direct = kc.conv3d_bn_relu, kc.conv3d_bias_act_direct
+        else:
+            name, relu = "conv3d_bias_act", False
+            run = functools.partial(kc.conv3d_bias_act, relu=False)
+            direct = kc.conv3d_bias_act_direct
+        wt = (torch.randn(k, k, k, ci, co, generator=gen, device=device)
+              * (k ** 3 * ci) ** -0.5).to(bf)
+        b = torch.randn(co, generator=gen, device=device) * 0.1
+        x = relu_normal(shp + (ci,), gen, device)
+        big = level < 2
+        got = run(x, wt, b)
+        ref = kc.conv3d_tc_plain(x, wt, b, relu)
+        ms = time_ms(lambda: run(x, wt, b), 2 if big else 20, device)
+        d_ms = time_ms(lambda: direct(x, wt, b, relu), 1 if big else 5,
+                       device)
+        x_l = x.permute(3, 0, 1, 2)[None]
+        w_l = wt.permute(4, 3, 0, 1, 2).contiguous(
+            memory_format=torch.channels_last_3d)
+        l_ms = time_ms(lambda: F.conv3d(x_l, w_l, b.to(bf), padding=k // 2),
+                       2 if big else 20, device)
+        # the plain version's time where an entry of the kernels line needs
+        # it: each wrapper's first shape, and the largest K5 launch
+        first = name not in entries
+        largest = (k, ci, co, level) == (5, 56, 14, 1)
+        p_ms = (time_ms(lambda: kc.conv3d_tc_plain(x, wt, b, relu), 1,
+                        device) if first or largest else None)
+        nbytes = 2 * math.prod(shp) * (ci + co) + 2 * wt.numel() + 4 * co
+        nflops = 2 * ci * co * conv_taps(shp, k)
+        b_ms, b_by = bound_ms(nbytes, nflops)
+        err = float((got.float() - ref.float()).abs().max())
+        tol = bf16_tol(ref)
+        ok = bool(torch.isfinite(got.float()).all()) and err <= tol
+        case = f"k{k} {ci}->{co} {'x'.join(map(str, shp))}"
+        per = ", ".join(f"{n} {p}" for p, n in paths.items())
+        log(f"  TC {case}: max_abs_err {err:.3e} (tol {tol:.3e}) "
+            f"{'ok' if ok else 'FAIL'}; conv3d_tc {ms:.3f} ms "
+            f"({nflops / ms / 1e9:.1f} TFLOP/s), direct {d_ms:.3f} ms, cuDNN "
+            f"{l_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}); launches {per}; "
+            f"via {name}")
+        if not ok:
+            failures.append(f"conv3d_tc [{case}]: err {err} > tol {tol} or "
+                            "non-finite")
+        for p, n in paths.items():
+            t = sums.setdefault(p, [0.0, 0.0, 0.0, 0])
+            t[0] += n * ms
+            t[1] += n * d_ms
+            t[2] += n * l_ms
+            t[3] += n
+        entry = dict(case=case, max_abs_err=err, ms=ms, plain_ms=p_ms,
+                     bound_ms=b_ms, bound_by=b_by, library_ms=l_ms)
+        if first:
+            entries[name] = entry
+        if largest:
+            entries["conv3d_tc"] = entry
+        del x, got, ref, x_l
+    for p, (t, t_d, t_l, n) in sums.items():
+        log(f"  TC sum {p}: {n} launches, conv3d_tc {t:.3f} ms, direct "
+            f"{t_d:.3f} ms, cuDNN {t_l:.3f} ms")
+    return entries, failures
+
+
+def check_kernels_legacy(device, shape=SHAPE, reps_big: int = 3,
+                         reps_small: int = 20):
+    """K7a/K7b against their plain versions at the legacy engine's shapes
+    (K5 is ``conv3d_tc``: :func:`check_conv_tc`). Random normal weights
+    scaled by their fan-in and ReLU'd normal inputs from a seed. Returns
+    ``(entries, failures)``."""
+    import torch
+    import torch.nn.functional as F
+
     from ctunet_tpu_torch.ops.kernels import convt as kt
 
     gen = torch.Generator(device=device).manual_seed(3)
@@ -330,32 +450,6 @@ def check_kernels_legacy(device, shape=SHAPE, reps_big: int = 3,
 
     def randn(*shp):
         return torch.randn(*shp, generator=gen, device=device)
-
-    # K5: dblock1's two units and ublock4's first (full resolution),
-    # ublock1's first (28x38x38), the center's second, recAE's center
-    for ci, co, level in ((7, 7, 0), (2, 7, 0), (28, 7, 0), (112, 56, 3),
-                          (112, 112, 4), (128, 128, 4)):
-        shp = lv[level]
-        wt = (randn(5, 5, 5, ci, co) * (125 * ci) ** -0.5).to(bf)
-        b = randn(co) * 0.1
-        x = relu_normal(shp + (ci,), gen, device)
-        reps = reps_big if level == 0 else reps_small
-        got = kc.conv3d5_bias_act(x, wt, b)
-        ref = kc.conv3d5_bias_act_plain(x, wt, b)
-        ms = time_ms(lambda: kc.conv3d5_bias_act(x, wt, b), reps, device)
-        p_ms = time_ms(lambda: kc.conv3d5_bias_act_plain(x, wt, b),
-                       1 if level == 0 else reps, device)
-        x_l = x.permute(3, 0, 1, 2)[None]
-        w_l = wt.permute(4, 3, 0, 1, 2).contiguous(
-            memory_format=torch.channels_last_3d)
-        b_l = b.to(bf)
-        l_ms = time_ms(lambda: F.conv3d(x_l, w_l, b_l, padding=2), reps,
-                       device)
-        nbytes = 2 * math.prod(shp) * (ci + co) + 2 * wt.numel() + 4 * co
-        record("conv3d5_bias_act", f"{ci}->{co} {'x'.join(map(str, shp))}",
-               got, ref, ms, p_ms, l_ms, nbytes,
-               2 * ci * co * conv_taps(shp, 5), bf16_tol(ref))
-        del x, got, ref, x_l
 
     # K7a: ublock1's ConvT of the center output; K7b: ublock4's (the
     # largest output of the engine) and ublock2's, on (block output, skip)
@@ -405,12 +499,13 @@ def f32_tol(ref, n_terms: int) -> float:
 
 
 def check_kernel_train(device, shape=SHAPE, reps: int = 3):
-    """K6 against its plain version at the layers training launches: forward
-    and as input gradient (the reverse layer's flipped, channel-swapped
-    weights), bf16 and f32; then the autograd function's ``dx`` and ``dw``
-    against autograd through the plain version at the full-resolution 7->7
-    layer, and the library's forward / dgrad / wgrad times there. Random
-    normal inputs and weights from a seed. Returns ``(entries, failures)``.
+    """K6's f32 route (the direct kernel) against its plain version at the
+    layers training launches: forward and as input gradient (the reverse
+    layer's flipped, channel-swapped weights); then the autograd function's
+    bf16 ``dx`` and ``dw`` against autograd through the plain version at the
+    full-resolution 7->7 layer, and the library's forward / dgrad / wgrad
+    times there. Random normal inputs and weights from a seed. Returns
+    ``(entries, failures)``.
     """
     import torch
     import torch.nn.functional as F
@@ -426,56 +521,44 @@ def check_kernel_train(device, shape=SHAPE, reps: int = 3):
     def randn(*shp, dtype):
         return torch.randn(*shp, generator=gen, device=device).to(dtype)
 
+    # f32: the direct kernel (bf16 is conv3d_tc: check_conv_tc)
+    f32 = torch.float32
     for ci, co, level in ((2, 7, 0), (7, 7, 0), (28, 7, 0), (7, 28, 0),
                           (112, 28, 2)):
         shp = lv[level]
-        for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
-            wt = randn(3, 3, 3, ci, co, dtype=dtype) * (27 * ci) ** -0.5
-            zero = torch.zeros(co, device=device)
-            for mode in ("fwd", "dgrad"):
-                if mode == "fwd":
-                    x, k, b = randn(*shp, ci, dtype=dtype), wt, zero
-                else:  # gradient of a co->ci layer w.r.t. its input
-                    x = randn(*shp, ci, dtype=dtype)
-                    k = cct.flip_swap(randn(3, 3, 3, co, ci, dtype=dtype)
-                                      * (27 * co) ** -0.5)
-                    b = zero
-                got = kc.conv3d_bias_act(x, k, b, False)
-                ref = kc.conv3d_bias_act_plain(x, k, b, False)
-                sync(device)
-                tol = (bf16_tol(ref) if dtype == torch.bfloat16
-                       else f32_tol(ref, 27 * k.shape[3]))
-                err = float((got.float() - ref.float()).abs().max())
-                ok = bool(torch.isfinite(got.float()).all()) and err <= tol
-                ms = time_ms(lambda: kc.conv3d_bias_act(x, k, b, False), reps,
-                             device)
-                p_ms = time_ms(lambda: kc.conv3d_bias_act_plain(x, k, b,
-                                                                False), 1,
-                               device)
-                x_l = x.permute(3, 0, 1, 2)[None]
-                k_l = k.permute(4, 3, 0, 1, 2).contiguous(
-                    memory_format=torch.channels_last_3d)
-                l_ms = time_ms(lambda: F.conv3d(x_l, k_l, padding=1), reps,
-                               device)
-                esz = 2 if dtype == torch.bfloat16 else 4
-                nbytes = esz * (math.prod(shp) * (ci + co) + k.numel()) + 4 * co
-                nflops = 2 * ci * co * conv_taps(shp, 3)
-                b_ms, b_by = bound_ms(nbytes, nflops, BF16_FLOP_PER_S
-                                      if dtype == torch.bfloat16
-                                      else F32_FLOP_PER_S)
-                case = f"{ci}->{co} {'x'.join(map(str, shp))} {tag} {mode}"
-                log(f"  conv3d_bias_act [{case}]: max_abs_err {err:.3e} (tol "
-                    f"{tol:.3e}) {'ok' if ok else 'FAIL'}; kernel {ms:.3f} ms,"
-                    f" plain {p_ms:.3f} ms, library {l_ms:.3f} ms, bound "
-                    f"{b_ms:.4f} ms ({b_by}); {nflops / ms / 1e9:.2f} TFLOP/s")
-                if not ok:
-                    failures.append(f"conv3d_bias_act [{case}]: err {err} > "
-                                    f"tol {tol} or non-finite")
-                if (ci, co, tag, mode) == (7, 7, "bf16", "fwd"):
-                    entries["conv3d_bias_act"] = dict(
-                        case=case, max_abs_err=err, ms=ms, plain_ms=p_ms,
-                        bound_ms=b_ms, bound_by=b_by, library_ms=l_ms)
-                del x, k, got, ref, x_l, k_l
+        wt = randn(3, 3, 3, ci, co, dtype=f32) * (27 * ci) ** -0.5
+        zero = torch.zeros(co, device=device)
+        for mode in ("fwd", "dgrad"):
+            x = randn(*shp, ci, dtype=f32)
+            k = wt if mode == "fwd" else cct.flip_swap(  # a co->ci layer's
+                randn(3, 3, 3, co, ci, dtype=f32) * (27 * co) ** -0.5)
+            got = kc.conv3d_bias_act(x, k, zero, False)
+            ref = kc.conv3d_bias_act_plain(x, k, zero, False)
+            sync(device)
+            tol = f32_tol(ref, 27 * k.shape[3])
+            err = float((got - ref).abs().max())
+            ok = bool(torch.isfinite(got).all()) and err <= tol
+            ms = time_ms(lambda: kc.conv3d_bias_act(x, k, zero, False), reps,
+                         device)
+            p_ms = time_ms(lambda: kc.conv3d_bias_act_plain(x, k, zero,
+                                                            False), 1, device)
+            x_l = x.permute(3, 0, 1, 2)[None]
+            k_l = k.permute(4, 3, 0, 1, 2).contiguous(
+                memory_format=torch.channels_last_3d)
+            l_ms = time_ms(lambda: F.conv3d(x_l, k_l, padding=1), reps,
+                           device)
+            nbytes = 4 * (math.prod(shp) * (ci + co) + k.numel()) + 4 * co
+            nflops = 2 * ci * co * conv_taps(shp, 3)
+            b_ms, b_by = bound_ms(nbytes, nflops, F32_FLOP_PER_S)
+            case = f"{ci}->{co} {'x'.join(map(str, shp))} f32 {mode}"
+            log(f"  conv3d_bias_act [{case}]: max_abs_err {err:.3e} (tol "
+                f"{tol:.3e}) {'ok' if ok else 'FAIL'}; kernel {ms:.3f} ms, "
+                f"plain {p_ms:.3f} ms, library {l_ms:.3f} ms, bound "
+                f"{b_ms:.4f} ms ({b_by}); {nflops / ms / 1e9:.2f} TFLOP/s")
+            if not ok:
+                failures.append(f"conv3d_bias_act [{case}]: err {err} > tol "
+                                f"{tol} or non-finite")
+            del x, k, got, ref, x_l, k_l
 
     # the autograd function at the full-resolution 7->7 layer, bf16
     bf = torch.bfloat16
@@ -959,7 +1042,7 @@ def serve(device, work: str, shape=SHAPE, n_volumes: int = N_VOLUMES):
     kernels.reset_launches()
     m = Model(params=params)  # ends with the masks fetched to the host
     want = {"conv3d_bn_relu": 12 * n_volumes, "maxpool2": 4 * n_volumes,
-            "upconv_bn_relu": 4 * n_volumes}
+            "upconv_bn_relu": 4 * n_volumes, "conv3d_tc": 12 * n_volumes}
     launches = {k: v for k, v in kernels.launches().items() if k in want}
     log(f"  launches over {n_volumes} volumes: {launches} (want {want})")
     if launches != want:
@@ -1079,13 +1162,14 @@ def train(device, work: str, shape=SHAPE, n_train: int = N_TRAIN,
     sync(device)
     wall = time.perf_counter() - t0
     counts = kernels.launches()
-    want = {"conv3d_bias_act": n_train * K6_PER_TRAIN_STEP
-            + n_eval * K6_PER_EVAL_STEP,
-            "conv3d_bn_relu": 12, "maxpool2": 4, "upconv_bn_relu": 4}
+    k6 = n_train * K6_PER_TRAIN_STEP + n_eval * K6_PER_EVAL_STEP
+    want = {"conv3d_bias_act": k6, "conv3d_bn_relu": 12, "maxpool2": 4,
+            "upconv_bn_relu": 4, "conv3d_tc": k6 + 12}
     launches = {k: counts[k] for k in want}
     log(f"  launches: {launches} (want {want}: {n_train} train steps x "
         f"{K6_PER_TRAIN_STEP} + {n_eval} eval steps x {K6_PER_EVAL_STEP} of "
-        "K6, then one served volume)")
+        "K6, then one served volume; each bf16 K6/K1 launch is a "
+        "conv3d_tc launch)")
     if launches != want:
         failures.append(f"training launch counts {launches} != {want}")
     losses = [float(v) for v in m.step_losses]
@@ -1202,7 +1286,7 @@ def train(device, work: str, shape=SHAPE, n_train: int = N_TRAIN,
     prof = profile_device(lambda: step_k(state_k, {"image": vol}, gen_k),
                           device, rows=16, what="one chain train step")
     total = sum(ms for _, ms in prof.values())
-    k6 = sum(ms for key, (_, ms) in prof.items() if "conv3d_bias_act" in key)
+    k6 = sum(ms for key, (_, ms) in prof.items() if "conv3d_tc" in key)
     stats["k6_share_of_device_time"] = k6 / total if total else None
     del mk, state_k, step_k
     _, _, _, _, out_x = one_step("xla", n=time_steps + 1)
@@ -1356,7 +1440,7 @@ def serve_legacy(device, work: str, shape=SHAPE, n_volumes: int = N_VOLUMES):
                 f" / loop time): {st['busy_share']:.3f}")
         prof = profile_device(lambda: k_pred(xt), device, rows=8,
                               what=f"one {mc} volume")
-        if not any("conv3d_plane" in key for key in prof):
+        if not any("conv3d_tc" in key for key in prof):
             log("  (the profile holds no K5 launch: the breakdown below is "
                 "taken with CUDA events)")
         st["breakdown_ms"] = launch_breakdown(mc, sd, xt, device)
@@ -1397,7 +1481,8 @@ def main() -> int:
         f"all built in {time.perf_counter() - t0:.1f} s (parallel)")
     for name in build.SOURCES:
         for line in build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if ("Compiling entry function" in line or "registers" in line
+                    or "spill" in line):
                 log(f"  ptxas {name}: {line.strip()}")
 
     sd = load_any(UNETSP_10K)
@@ -1408,8 +1493,10 @@ def main() -> int:
     for label, check in (
             ("bf16 inputs", lambda: check_kernels(sd, device)),
             ("int8 inputs, exact", lambda: check_kernels_q(sd, device)),
-            ("training conv K6, random weights", lambda: check_kernel_train(
-                device)),
+            ("bf16 conv3d_tc (K1, K6, K5) at every shape of the paths, "
+             "random weights", lambda: check_conv_tc(device)),
+            ("training conv K6 f32 and autograd, random weights",
+             lambda: check_kernel_train(device)),
             ("legacy engine K5 / K7a / K7b, random weights",
              lambda: check_kernels_legacy(device))):
         log(f"  -- {label}")
@@ -1422,7 +1509,7 @@ def main() -> int:
             failures.append(f"phase 2 ({label}) raised")
     log(f"  phase 2: {time.perf_counter() - t0:.1f} s")
 
-    launches = {}
+    launches, tc_launches = {}, 0
     size = "x".join(map(str, SHAPE))
     for phase, label, fn in (
             (3, f"bf16, {N_VOLUMES} UNetSP volumes {size}", serve),
@@ -1449,8 +1536,11 @@ def main() -> int:
             failures.append(f"phase {phase}: a kernel of the path was never "
                             f"launched: {got}")
         # a later phase's count of an earlier kernel (phase 5 serves one
-        # volume on K1-K3) does not replace the phase that owns it
+        # volume on K1-K3) does not replace the phase that owns it; the
+        # bf16 convs of phases 3, 5 and 6 all launch conv3d_tc
+        tc_launches += got.pop("conv3d_tc", 0)
         launches.update({k: v for k, v in got.items() if k not in launches})
+    launches["conv3d_tc"] = tc_launches
 
     log(f"== total {time.perf_counter() - t_all:.1f} s")
     if failures:
@@ -1459,7 +1549,9 @@ def main() -> int:
         return 1
 
     sources = {
-        "conv3d_bn_relu": ("ctunet_tpu_torch/csrc/conv3d.cu",
+        "conv3d_tc": ("ctunet_tpu_torch/csrc/conv3d_tc.cu",
+                      "ctunet_tpu/ops/pallas/conv3d.py:136"),
+        "conv3d_bn_relu": ("ctunet_tpu_torch/csrc/conv3d_tc.cu",
                            "ctunet_tpu/ops/pallas/conv3d.py:1031"),
         "maxpool2": ("ctunet_tpu_torch/csrc/maxpool.cu",
                      "ctunet_tpu/ops/pallas/conv3d.py:1862"),
@@ -1471,9 +1563,9 @@ def main() -> int:
                        "ctunet_tpu/ops/pallas/conv3d.py:1862"),
         "upconv_q_requant": ("ctunet_tpu_torch/csrc/upconv_q.cu",
                              "ctunet_tpu/ops/pallas/upconv.py:1015"),
-        "conv3d_bias_act": ("ctunet_tpu_torch/csrc/conv3d.cu",
+        "conv3d_bias_act": ("ctunet_tpu_torch/csrc/conv3d_tc.cu",
                             "ctunet_tpu/ops/pallas/conv3d.py:453"),
-        "conv3d5_bias_act": ("ctunet_tpu_torch/csrc/conv3d_k5.cu",
+        "conv3d5_bias_act": ("ctunet_tpu_torch/csrc/conv3d_tc.cu",
                              "ctunet_tpu/ops/pallas/conv3d.py:136"),
         "convt_k2s2": ("ctunet_tpu_torch/csrc/convt.cu",
                        "ctunet_tpu/ops/pallas/convt.py:78"),

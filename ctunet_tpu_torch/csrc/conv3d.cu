@@ -1,4 +1,8 @@
-// K1 and K6: Conv3D(k3, SAME, stride 1) + bias + optional ReLU.
+// K1 and K6: Conv3D(k3, SAME, stride 1) + bias + optional ReLU, the
+// direct kernel. On the paths it runs the f32 convs (K6 in f32 training);
+// bf16 convs run conv3d_tc.cu on the tensor cores, and this kernel's bf16
+// form is kept for timing beside it (ops/kernels/conv3d.py
+// conv3d_bias_act_direct).
 //
 // K1 replaces ctunet_tpu/ops/pallas/conv3d.py::conv3d_chain_split (kernel
 // body _chain_kernel_ring_split), bf16 mode, with the BatchNorm folded into
@@ -33,8 +37,7 @@
 // read as broadcast float4s; input voxels are read straight from global
 // memory (neighbouring threads read neighbouring voxels, and the 27-fold
 // reuse is served by L1/L2). Borders are masked per tap, so any D, H, W
-// (ragged 19x19, W=304) is fine. Tensor-core tiling (mma/wgmma over an
-// implicit GEMM) is later work.
+// (ragged 19x19, W=304) is fine. The tensor-core form is conv3d_tc.cu.
 #include "common.cuh"
 
 using namespace ctunet;
@@ -118,15 +121,6 @@ static int launch(const void* x, const void* w, const void* bias, void* out,
           static_cast<const float*>(bias), static_cast<T*>(out), D, H, W, Ci,
           Co);
   return static_cast<int>(cudaGetLastError());
-}
-
-// K1: bf16, ReLU on.
-extern "C" int ctunet_conv3d_bn_relu(const void* x, const void* w,
-                                     const void* bias, void* out, int D,
-                                     int H, int W, int Ci, int Co, int device,
-                                     void* stream) {
-  return launch<__nv_bfloat16, true>(x, w, bias, out, D, H, W, Ci, Co, device,
-                                     stream);
 }
 
 // K6: is_f32 selects f32 tensors (else bf16), relu the activation.

@@ -1,4 +1,7 @@
-// K5: Conv3D(k5, SAME, stride 1) + bias + optional ReLU.
+// K5: Conv3D(k5, SAME, stride 1) + bias + optional ReLU, the direct
+// kernel. On the paths it runs the f32 convs; bf16 convs run conv3d_tc.cu
+// on the tensor cores, and this kernel's bf16 form is kept for timing
+// beside it (ops/kernels/conv3d.py conv3d5_bias_act_direct).
 //
 // Replaces ctunet_tpu/ops/pallas/conv3d.py::conv3d_fused (kernel body
 // _kernel) at k = 5, the conv of the legacy k=5 family (recAE_v2_fixed,

@@ -2,14 +2,18 @@
 plain versions.
 
 =====  ============================  ==================================
-K1     ``conv3d.conv3d_bn_relu``      ``csrc/conv3d.cu``
+TC     ``conv3d.conv3d_tc``           ``csrc/conv3d_tc.cu`` (bf16 k3/k5,
+                                      tensor cores: K1, K6, K5 in bf16)
+K1     ``conv3d.conv3d_bn_relu``      ``csrc/conv3d_tc.cu``
 K2     ``conv3d.maxpool2``            ``csrc/maxpool.cu``
 K3     ``upconv.upconv_bn_relu``      ``csrc/upconv.cu``
 K1q    ``conv3d.conv3d_q_requant``    ``csrc/conv3d_q.cu``
 K2q    ``conv3d.maxpool2_q``          ``csrc/maxpool.cu`` (int8)
 K3q    ``upconv.upconv_q_requant``    ``csrc/upconv_q.cu``
-K6     ``conv3d.conv3d_bias_act``     ``csrc/conv3d.cu`` (bf16/f32, ReLU flag)
-K5     ``conv3d.conv3d5_bias_act``    ``csrc/conv3d_k5.cu`` (k=5, bf16/f32)
+K6     ``conv3d.conv3d_bias_act``     bf16: ``csrc/conv3d_tc.cu``; f32:
+                                      ``csrc/conv3d.cu`` (ReLU flag)
+K5     ``conv3d.conv3d5_bias_act``    bf16: ``csrc/conv3d_tc.cu``; f32:
+                                      ``csrc/conv3d_k5.cu`` (k=5)
 K7a    ``convt.convt_k2s2``           ``csrc/convt.cu``
 K7b    ``convt.convt_k2s2_dual``      ``csrc/convt.cu`` (concat of two)
 =====  ============================  ==================================
@@ -23,7 +27,7 @@ from __future__ import annotations
 from typing import Dict
 
 from .conv3d import (conv3d5_bias_act, conv3d_bias_act, conv3d_bn_relu,
-                     conv3d_q_requant, maxpool2, maxpool2_q)
+                     conv3d_q_requant, conv3d_tc, maxpool2, maxpool2_q)
 from .convt import convt_k2s2, convt_k2s2_dual
 from .upconv import upconv_bn_relu, upconv_q_requant
 
@@ -38,6 +42,7 @@ WRAPPERS = {
     "conv3d5_bias_act": conv3d5_bias_act,
     "convt_k2s2": convt_k2s2,
     "convt_k2s2_dual": convt_k2s2_dual,
+    "conv3d_tc": conv3d_tc,
 }
 
 

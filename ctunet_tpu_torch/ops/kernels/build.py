@@ -31,7 +31,7 @@ BUILD_DIR = os.path.join(PKG, "_build")
 SOURCES = {"conv3d": "conv3d.cu", "maxpool": "maxpool.cu",
            "upconv": "upconv.cu", "conv3d_q": "conv3d_q.cu",
            "upconv_q": "upconv_q.cu", "conv3d_k5": "conv3d_k5.cu",
-           "convt": "convt.cu"}
+           "convt": "convt.cu", "conv3d_tc": "conv3d_tc.cu"}
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")

@@ -7,21 +7,30 @@ Counterpart of ``ctunet_tpu/ops/pallas/conv3d.py``: ``conv3d_chain_split``
 (bf16 and ``scale=``/``zp=`` int8 modes), ``conv3d_chain_q`` (the full-tap
 int8 form, K4a), ``maxpool2_chain``, ``conv3d_chain`` (K6: forward and
 input gradient of the training conv, ``ops/chain_conv_train.py``, and the
-``sparse`` serving route) and ``conv3d_fused`` at k=5 (K5). The CUDA
-sources are ``csrc/conv3d.cu``, ``csrc/conv3d_k5.cu``,
-``csrc/conv3d_q.cu`` and ``csrc/maxpool.cu``; the TPU chain and W-packed
-layouts (W packed into lanes, halo rows, ones-channel) are not carried
-over: every function takes and returns dense channels-last volumes.
+``sparse`` serving route) and ``conv3d_fused`` at k=5 (K5). The TPU chain
+and W-packed layouts (W packed into lanes, halo rows, ones-channel) are
+not carried over: every function takes and returns dense channels-last
+volumes.
+
+In bf16, K1, K6 and K5 are one kernel, :func:`conv3d_tc`
+(``csrc/conv3d_tc.cu``): an implicit GEMM on the tensor cores whose tiles
+:func:`tc_plan` chooses per layer and shape and whose weights
+:func:`pack_tc_weights` lays out once per weight tensor. In f32, K6 and K5
+run the direct kernels ``csrc/conv3d.cu`` and ``csrc/conv3d_k5.cu`` (the
+tensor cores' f32 mode is TF32); their bf16 forms are kept as
+``*_direct`` functions for timing beside the new kernel. The int8 kernels
+are ``csrc/conv3d_q.cu`` and ``csrc/maxpool.cu``.
 
 Each wrapper launches its kernel for a CUDA tensor (or raises) and takes
 its plain PyTorch version only for a tensor on the CPU. ``<wrapper>.launches``
 counts kernel launches, so a run can show that its path went through the
-kernels.
+kernels; a bf16 K1/K6/K5 call counts on its wrapper and on ``conv3d_tc``.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -74,6 +83,272 @@ def _require_cuda(x: torch.Tensor, what: str) -> None:
 
 
 # --------------------------------------------------------------------------
+# conv3d_tc: bf16 Conv3D(k3 or k5, SAME) + bias + optional ReLU on the
+# tensor cores, the kernel of K1, K6 and K5 in bf16
+# --------------------------------------------------------------------------
+
+# SMs of an H100 SXM: the plan wants at least two blocks on each
+TC_SMS = 132
+# output tiles of 64 * mf voxels of one z plane, as (mf, log2 TX): 16x16,
+# 32x8, 8x16 and 16x8 (TY x TX)
+TC_TILES = ((4, 4), (4, 3), (2, 4), (2, 3))
+# bytes of one pipeline stage (slab + weights), a block holding two: small
+# stages keep several blocks on an SM, which the k=5 layers need more than
+# wide channel chunks (a plan sweep on the H100 chose it)
+TC_STAGE_BYTES = 26 * 1024
+
+
+class TcPlan(NamedTuple):
+    """Launch parameters of ``csrc/conv3d_tc.cu`` for one layer at one
+    shape: kernel size ``k``; ``mf`` m16 fragments per warp (4 warps, so
+    64 * mf voxels a tile, ``1 << tx_log2`` of them along W); ``nf`` n8
+    tiles per block (``8 * nf`` output channels); ``cc`` input channels per
+    pipeline stage, ``chunks`` stages per input plane."""
+
+    k: int
+    mf: int
+    nf: int
+    tx_log2: int
+    cc: int
+    chunks: int
+
+    @property
+    def tile(self):
+        """(TY, TX): the output tile of one block in one z plane."""
+        tx = 1 << self.tx_log2
+        return 64 * self.mf // tx, tx
+
+    def n_tiles(self, co: int) -> int:
+        return -(-co // (8 * self.nf))
+
+    def groups(self) -> int:
+        """k-groups of 8 input channels per stage, rounded up to even (one
+        k16 product takes two)."""
+        return (self.k * self.k * self.cc // 8 + 1) // 2 * 2
+
+
+def _tc_stage_bytes(k: int, cc: int, nf: int, slab_voxels: int) -> int:
+    cs = cc if (cc // 8) % 2 else cc + 8  # odd 16-byte words per voxel
+    groups = (k * k * cc // 8 + 1) // 2 * 2
+    return 2 * slab_voxels * cs + 16 * groups * 8 * nf
+
+
+def tc_channels(ci: int, k: int, nf: int):
+    """``(cc, chunks)``: the input-channel chunk of one stage and the
+    chunks per plane. The fewest padded channels (``cc * chunks >= ci``),
+    then the widest chunk, whose stage fits ``TC_STAGE_BYTES`` at the
+    largest halo slab of ``TC_TILES``; depends on the layer alone, so one
+    weight packing serves every shape."""
+    slab = max((64 * mf // (1 << t) + k - 1) * ((1 << t) + k - 1)
+               for mf, t in TC_TILES)
+    best = None
+    for cc in range(8, -(-ci // 8) * 8 + 1, 8):
+        if cc > 8 and _tc_stage_bytes(k, cc, nf, slab) > TC_STAGE_BYTES:
+            continue
+        chunks = -(-ci // cc)
+        key = (chunks * cc, -cc)
+        if best is None or key < best[0]:
+            best = (key, cc, chunks)
+    return best[1], best[2]
+
+
+def tc_plan(shape, ci: int, co: int, k: int) -> TcPlan:
+    """The tile plan of a ``k`` conv ``ci -> co`` over a ``(D, H, W)``
+    volume. ``nf`` covers ``co`` in one N tile up to 32 channels (wider
+    layers take several, one block each). The M tile is the one of
+    ``TC_TILES`` with the least estimated time: the voxels computed
+    (ragged extents round up to whole tiles) times the shared-memory bytes
+    per product (``512 / nf`` of A, ``128 / mf`` of B), stretched when the
+    grid has fewer than two blocks per SM."""
+    d, h, w = shape
+    nf = 1 if co <= 8 else 2 if co <= 16 else 4
+    n_tiles = -(-co // (8 * nf))
+    cc, chunks = tc_channels(ci, k, nf)
+    best = None
+    for mf, tx_log2 in TC_TILES:
+        tx = 1 << tx_log2
+        ty = 64 * mf // tx
+        nty, ntx = -(-h // ty), -(-w // tx)
+        blocks = d * nty * ntx * n_tiles
+        work = d * nty * ty * ntx * tx * n_tiles
+        cost = work * (512 / nf + 128 / mf) * max(1.0, 2 * TC_SMS / blocks)
+        if best is None or cost < best[0]:
+            best = (cost, mf, tx_log2)
+    return TcPlan(k, best[1], nf, best[2], cc, chunks)
+
+
+def tc_blocks(shape, co: int, plan: TcPlan):
+    """The blocks of the kernel's grid, with its index arithmetic: each is
+    ``(z, y0, x0, n0, vy, vx, ncol)``, the output rows ``y0..y0+vy``,
+    columns ``x0..x0+vx`` and channels ``n0..n0+ncol`` of plane ``z`` that
+    it writes."""
+    d, h, w = shape
+    ty, tx = plan.tile
+    bn, n_tiles = 8 * plan.nf, plan.n_tiles(co)
+    tiles_x, tiles_y = -(-w // tx), -(-h // ty)
+    for z in range(d):  # blockIdx.y
+        for b in range(tiles_y * tiles_x * n_tiles):  # blockIdx.x
+            tile, nt = divmod(b, n_tiles)
+            ty_i, tx_i = divmod(tile, tiles_x)
+            y0, x0, n0 = ty_i * ty, tx_i * tx, nt * bn
+            yield (z, y0, x0, n0, min(ty, h - y0), min(tx, w - x0),
+                   min(bn, co - n0))
+
+
+def pack_tc_weights(w: torch.Tensor, plan: TcPlan) -> torch.Tensor:
+    """``(k, k, k, Ci, Co)`` weights -> the kernel's B operand
+    ``(n_tiles, k, chunks, groups, 8 * nf, 8)``: per N tile, input plane dz
+    and channel chunk, one stage's k-groups (group ``(dy * k + dx) *
+    cc / 8 + c8`` holds input channels ``chunk * cc + 8 * c8 + j``), each
+    ``[n][j]``; zeros pad Ci, Co and an odd group count."""
+    k, ci, co = w.shape[0], w.shape[3], w.shape[4]
+    bn, nt = 8 * plan.nf, plan.n_tiles(co)
+    c8 = plan.cc // 8
+    wz = w.new_zeros((k, k, k, plan.cc * plan.chunks, bn * nt))
+    wz[..., :ci, :co] = w
+    t = wz.reshape(k, k * k, plan.chunks, c8, 8, nt, bn)
+    t = t.permute(5, 0, 2, 1, 3, 6, 4).reshape(nt, k, plan.chunks,
+                                               k * k * c8, bn, 8)
+    return F.pad(t, (0, 0, 0, 0, 0, plan.groups() - k * k * c8)).contiguous()
+
+
+def tc_packed(w: torch.Tensor, plan: TcPlan) -> torch.Tensor:
+    """:func:`pack_tc_weights`, once per weight tensor: the packing is kept
+    on ``w`` and made again only when ``w`` was written in place since (its
+    version counter) or another packing is asked for."""
+    key = (plan.cc, plan.chunks, plan.nf,
+           None if w.is_inference() else w._version)
+    hit = getattr(w, "_tc_packed", None)
+    if hit is None or hit[0] != key:
+        hit = (key, pack_tc_weights(w, plan))
+        w._tc_packed = hit
+    return hit[1]
+
+
+def conv3d_tc_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                    relu: bool = True) -> torch.Tensor:
+    """Plain PyTorch version of every conv of this module: ``F.conv3d``
+    with SAME padding (``k // 2``) in f32 on the (already rounded) inputs,
+    + bias, ReLU when ``relu``, cast back to ``x.dtype`` once.
+
+    :param x: ``(D, H, W, Ci)``; ``w``: ``(k, k, k, Ci, Co)``, k odd;
+        ``bias``: ``(Co,)`` f32.
+    """
+    xf = x.float().permute(3, 0, 1, 2)[None]
+    wf = w.float().permute(4, 3, 0, 1, 2)
+    y = F.conv3d(xf, wf, padding=w.shape[0] // 2)[0].permute(1, 2, 3, 0)
+    y = y + bias.float()
+    return (torch.relu(y) if relu else y).to(x.dtype)
+
+
+def _conv_checks(x, w, bias, k: int, what: str):
+    """Check a conv's operands (``w`` of ``x``'s dtype, ``(k, k, k, Ci,
+    Co)``) and return ``(D, H, W, Ci, Co)``."""
+    _require_cuda(x, what)
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"x: expected bfloat16 or float32, got {x.dtype}")
+    d, h, wd, ci = x.shape
+    co = w.shape[-1]
+    _check(x, "x", x.dtype)
+    _check(w, "w", x.dtype, (k, k, k, ci, co), x.device)
+    _check(bias, "bias", torch.float32, (co,), x.device)
+    return d, h, wd, ci, co
+
+
+def conv3d_tc(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+              relu: bool = True) -> torch.Tensor:
+    """The tensor-core conv on bf16 ``x`` ``(D, H, W, Ci)`` with bf16 ``w``
+    ``(k, k, k, Ci, Co)``, k 3 or 5, and f32 ``bias`` ``(Co,)`` ->
+    ``(D, H, W, Co)``: ``act(conv(x, w) + bias)`` accumulated in f32 and
+    rounded once, ``act`` the ReLU when ``relu``.
+
+    CPU tensor: the plain version. CUDA tensor: the ``csrc/conv3d_tc.cu``
+    kernel on the current stream with :func:`tc_plan`'s tiles and
+    :func:`tc_packed` weights, or an error.
+    """
+    if x.device.type == "cpu":
+        return conv3d_tc_plain(x, w, bias, relu)
+    k = w.shape[0] if w.dim() == 5 else 0
+    if k not in (3, 5):
+        raise ValueError(f"conv3d_tc: k = 3 or 5, got w {tuple(w.shape)}")
+    d, h, wd, ci, co = _conv_checks(x, w, bias, k, "conv3d_tc")
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"conv3d_tc: bfloat16 only, got {x.dtype}")
+    if x.data_ptr() % 16:
+        raise ValueError("conv3d_tc: x must start on a 16-byte boundary")
+    if d * h * wd * co == 0:
+        return torch.empty((d, h, wd, co), dtype=torch.bfloat16,
+                           device=x.device)
+    plan = tc_plan((d, h, wd), ci, co, k)
+    out = launch_tc(x, tc_packed(w, plan), bias, relu, plan)
+    conv3d_tc.launches += 1
+    return out
+
+
+conv3d_tc.launches = 0
+
+
+def launch_tc(x: torch.Tensor, wp: torch.Tensor, bias: torch.Tensor,
+              relu: bool, plan: TcPlan) -> torch.Tensor:
+    """One launch of ``csrc/conv3d_tc.cu`` on checked operands with the
+    weights ``wp`` packed for ``plan`` (:func:`conv3d_tc` picks both)."""
+    d, h, wd, ci = x.shape
+    co = bias.shape[0]
+    out = torch.empty((d, h, wd, co), dtype=torch.bfloat16, device=x.device)
+    fn = build.function("conv3d_tc", "ctunet_conv3d_tc",
+                        [_P] * 4 + [_I] * 13 + [_P])
+    rc = fn(x.data_ptr(), wp.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            d, h, wd, ci, co, plan.k, int(bool(relu)), plan.mf, plan.nf,
+            plan.tx_log2, plan.cc, plan.chunks, *build.stream_args(x))
+    build.check(rc, "conv3d_tc")
+    return out
+
+
+# --------------------------------------------------------------------------
+# The direct kernels (csrc/conv3d.cu at k3, csrc/conv3d_k5.cu at k5): one
+# thread per voxel x 8 output channels on the CUDA cores. They run the f32
+# convs; in bf16 only phase 2 of chip_smoke.py times them.
+# --------------------------------------------------------------------------
+
+# dz-plane staging holds 25*Ci*8 f32 weights in one block's shared memory
+K5_MAX_CI = 232448 // (25 * 8 * 4)
+
+
+def _direct(x, w, bias, relu, k: int, what: str):
+    if x.device.type == "cpu":
+        return conv3d_tc_plain(x, w, bias, relu)
+    d, h, wd, ci, co = _conv_checks(x, w, bias, k, what)
+    if k == 5 and ci > K5_MAX_CI:
+        raise ValueError(f"{what}: Ci={ci} > {K5_MAX_CI}, the widest input "
+                         "whose weight plane fits a block")
+    out = torch.empty((d, h, wd, co), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    lib, sym = (("conv3d", "ctunet_conv3d_bias_act") if k == 3 else
+                ("conv3d_k5", "ctunet_conv3d5_bias_act"))
+    fn = build.function(lib, sym, [_P] * 4 + [_I] * 8 + [_P])
+    rc = fn(x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            d, h, wd, ci, co, int(x.dtype == torch.float32), int(bool(relu)),
+            *build.stream_args(x))
+    build.check(rc, what)
+    return out
+
+
+def conv3d_bias_act_direct(x, w, bias, relu: bool) -> torch.Tensor:
+    """The direct k=3 kernel (``csrc/conv3d.cu``) on CUDA tensors, bf16 or
+    f32 (:func:`conv3d_bias_act`'s f32 route); the plain version on CPU
+    tensors."""
+    return _direct(x, w, bias, relu, 3, "conv3d_bias_act_direct")
+
+
+def conv3d5_bias_act_direct(x, w, bias, relu: bool = True) -> torch.Tensor:
+    """The direct k=5 kernel (``csrc/conv3d_k5.cu``) on CUDA tensors, bf16
+    or f32 with ``Ci <= K5_MAX_CI`` (:func:`conv3d5_bias_act`'s f32 route);
+    the plain version on CPU tensors."""
+    return _direct(x, w, bias, relu, 5, "conv3d5_bias_act_direct")
+
+
+# --------------------------------------------------------------------------
 # K1: Conv3D(k3, SAME) + folded BN + ReLU
 # --------------------------------------------------------------------------
 
@@ -89,26 +364,15 @@ def conv3d_bn_relu(x: torch.Tensor, w: torch.Tensor,
     """K1 on ``x`` ``(D, H, W, Ci)`` with folded ``w`` ``(3, 3, 3, Ci, Co)``
     and f32 ``bias`` ``(Co,)`` -> ``(D, H, W, Co)``.
 
-    CPU tensor: the plain version. CUDA tensor: the ``csrc/conv3d.cu``
-    kernel (bf16 only) on the current stream, or an error.
+    CPU tensor: the plain version. CUDA tensor: :func:`conv3d_tc` (bf16
+    only), or an error.
     """
     if x.device.type == "cpu":
         return conv3d_bn_relu_plain(x, w, bias)
-    _require_cuda(x, "conv3d_bn_relu")
-    d, h, wd, ci = x.shape
-    co = w.shape[-1]
-    _check(x, "x", torch.bfloat16)
-    _check(w, "w", torch.bfloat16, (3, 3, 3, ci, co), x.device)
-    _check(bias, "bias", torch.float32, (co,), x.device)
-    out = torch.empty((d, h, wd, co), dtype=torch.bfloat16, device=x.device)
-    if out.numel() == 0:
-        return out
-    fn = build.function("conv3d", "ctunet_conv3d_bn_relu",
-                        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
-    rc = fn(x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            d, h, wd, ci, co, *build.stream_args(x))
-    build.check(rc, "conv3d_bn_relu")
-    conv3d_bn_relu.launches += 1
+    _conv_checks(x, w, bias, 3, "conv3d_bn_relu")
+    out = conv3d_tc(x, w, bias, True)
+    if out.numel():  # an empty volume launches nothing
+        conv3d_bn_relu.launches += 1
     return out
 
 
@@ -122,16 +386,12 @@ conv3d_bn_relu.launches = 0
 
 def conv3d_bias_act_plain(x: torch.Tensor, w: torch.Tensor,
                           bias: torch.Tensor, relu: bool) -> torch.Tensor:
-    """Plain PyTorch K6: ``F.conv3d`` in f32 on the (already rounded)
-    inputs, + bias, ReLU when ``relu``, cast back to ``x.dtype``.
+    """Plain PyTorch K6: :func:`conv3d_tc_plain` at k=3.
 
     :param x: ``(D, H, W, Ci)``; ``w``: ``(3, 3, 3, Ci, Co)``; ``bias``:
         ``(Co,)`` f32.
     """
-    xf = x.float().permute(3, 0, 1, 2)[None]
-    wf = w.float().permute(4, 3, 0, 1, 2)
-    y = F.conv3d(xf, wf, padding=1)[0].permute(1, 2, 3, 0) + bias.float()
-    return (torch.relu(y) if relu else y).to(x.dtype)
+    return conv3d_tc_plain(x, w, bias, relu)
 
 
 def conv3d_bias_act(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
@@ -141,29 +401,18 @@ def conv3d_bias_act(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     ``(D, H, W, Co)``: ``act(conv(x, w) + bias)`` accumulated in f32, ``act``
     the ReLU when ``relu`` else the identity.
 
-    CPU tensor: the plain version. CUDA tensor: the ``csrc/conv3d.cu``
-    kernel on the current stream, or an error.
+    CPU tensor: the plain version. CUDA tensor: :func:`conv3d_tc` in bf16,
+    the direct ``csrc/conv3d.cu`` kernel in f32, or an error.
     """
     if x.device.type == "cpu":
         return conv3d_bias_act_plain(x, w, bias, relu)
-    _require_cuda(x, "conv3d_bias_act")
-    if x.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"x: expected bfloat16 or float32, got {x.dtype}")
-    d, h, wd, ci = x.shape
-    co = w.shape[-1]
-    _check(x, "x", x.dtype)
-    _check(w, "w", x.dtype, (3, 3, 3, ci, co), x.device)
-    _check(bias, "bias", torch.float32, (co,), x.device)
-    out = torch.empty((d, h, wd, co), dtype=x.dtype, device=x.device)
-    if out.numel() == 0:
-        return out
-    fn = build.function("conv3d", "ctunet_conv3d_bias_act",
-                        [_P] * 4 + [_I] * 8 + [_P])
-    rc = fn(x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            d, h, wd, ci, co, int(x.dtype == torch.float32), int(bool(relu)),
-            *build.stream_args(x))
-    build.check(rc, "conv3d_bias_act")
-    conv3d_bias_act.launches += 1
+    _conv_checks(x, w, bias, 3, "conv3d_bias_act")
+    if x.dtype == torch.bfloat16:
+        out = conv3d_tc(x, w, bias, relu)
+    else:
+        out = conv3d_bias_act_direct(x, w, bias, relu)
+    if out.numel():  # an empty volume launches nothing
+        conv3d_bias_act.launches += 1
     return out
 
 
@@ -174,24 +423,16 @@ conv3d_bias_act.launches = 0
 # K5: Conv3D(k5, SAME) + bias + optional ReLU, bf16 or f32
 # --------------------------------------------------------------------------
 
-# dz-plane staging holds 25*Ci*8 f32 weights in one block's shared memory
-K5_MAX_CI = 232448 // (25 * 8 * 4)
-
 
 def conv3d5_bias_act_plain(x: torch.Tensor, w: torch.Tensor,
                            bias: torch.Tensor,
                            relu: bool = True) -> torch.Tensor:
-    """Plain PyTorch K5: ``F.conv3d`` with ``padding=2`` in f32 on the
-    (already rounded) inputs, + bias, ReLU when ``relu``, cast back to
-    ``x.dtype`` once.
+    """Plain PyTorch K5: :func:`conv3d_tc_plain` at k=5.
 
     :param x: ``(D, H, W, Ci)``; ``w``: ``(5, 5, 5, Ci, Co)``; ``bias``:
         ``(Co,)`` f32.
     """
-    xf = x.float().permute(3, 0, 1, 2)[None]
-    wf = w.float().permute(4, 3, 0, 1, 2)
-    y = F.conv3d(xf, wf, padding=2)[0].permute(1, 2, 3, 0) + bias.float()
-    return (torch.relu(y) if relu else y).to(x.dtype)
+    return conv3d_tc_plain(x, w, bias, relu)
 
 
 def conv3d5_bias_act(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
@@ -203,32 +444,19 @@ def conv3d5_bias_act(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     folded into ``w`` and ``bias`` by :func:`fold_conv_unit`) else the
     identity.
 
-    CPU tensor: the plain version. CUDA tensor: the ``csrc/conv3d_k5.cu``
-    kernel on the current stream, or an error.
+    CPU tensor: the plain version. CUDA tensor: :func:`conv3d_tc` in bf16,
+    the direct ``csrc/conv3d_k5.cu`` kernel in f32 (``Ci <= K5_MAX_CI``),
+    or an error.
     """
     if x.device.type == "cpu":
         return conv3d5_bias_act_plain(x, w, bias, relu)
-    _require_cuda(x, "conv3d5_bias_act")
-    if x.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"x: expected bfloat16 or float32, got {x.dtype}")
-    d, h, wd, ci = x.shape
-    co = w.shape[-1]
-    if ci > K5_MAX_CI:
-        raise ValueError(f"conv3d5_bias_act: Ci={ci} > {K5_MAX_CI}, the "
-                         "widest input whose weight plane fits a block")
-    _check(x, "x", x.dtype)
-    _check(w, "w", x.dtype, (5, 5, 5, ci, co), x.device)
-    _check(bias, "bias", torch.float32, (co,), x.device)
-    out = torch.empty((d, h, wd, co), dtype=x.dtype, device=x.device)
-    if out.numel() == 0:
-        return out
-    fn = build.function("conv3d_k5", "ctunet_conv3d5_bias_act",
-                        [_P] * 4 + [_I] * 8 + [_P])
-    rc = fn(x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            d, h, wd, ci, co, int(x.dtype == torch.float32), int(bool(relu)),
-            *build.stream_args(x))
-    build.check(rc, "conv3d5_bias_act")
-    conv3d5_bias_act.launches += 1
+    _conv_checks(x, w, bias, 5, "conv3d5_bias_act")
+    if x.dtype == torch.bfloat16:
+        out = conv3d_tc(x, w, bias, relu)
+    else:
+        out = conv3d5_bias_act_direct(x, w, bias, relu)
+    if out.numel():  # an empty volume launches nothing
+        conv3d5_bias_act.launches += 1
     return out
 
 

@@ -13,19 +13,22 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
    shape the paths launch (UNetSP's K1 per volume, K6's forward and input
    gradients per train step, ``UNet4_2IC``'s and ``recAE_v2_fixed``'s K5
    per volume), beside the direct CUDA-core kernel it replaced (same
-   inputs, same call); K2 and K3 with the stated tolerance; the int8
-   kernels K1q-K3q exactly (on layers quantized from a calibration on one
+   inputs, same call); ``upconv_tc``, the bf16 tensor-core stride-2
+   upsampling kernel behind K3 and K7a/K7b, at UNetSP's four K3 shapes and
+   every K7a/K7b shape of both legacy models, beside the CUDA-core
+   kernels it replaced; K2 with the stated tolerance; the int8 kernels
+   K1q-K3q exactly (on layers quantized from a calibration on one
    synthetic volume); K6's f32 route (the direct kernel) forward and as
    input gradient, and the autograd function's ``dx``/``dw`` against
-   autograd through the plain version; K7a/K7b (ConvT k2s2, one operand /
-   the unbuilt concat of two) at the legacy engine's shapes. Each with the
-   kernel's time beside the plain version's, one PyTorch library call's
-   where one exists, and the card's bound.
+   autograd through the plain version. Each with the kernel's time beside
+   the plain version's, one PyTorch library call's where one exists, and
+   the card's bound.
 3. bf16 path: serves synthetic broken skulls (``spherical_shell`` with a
    hole punched; atlas ``spherical_shell(radius_frac=0.42)``) through the
    ``Model`` test path with the committed ``unetsp_10k`` weights, checks
    the written ``pred_<name>/*_{sk,fl,i}.nii.gz`` masks (shape, affine),
-   the launch counts (12 K1, 4 K2, 4 K3 per volume) and the masks against
+   the launch counts (12 K1, 4 K2, 4 K3 per volume; each K1 a
+   ``conv3d_tc`` and each K3 an ``upconv_tc`` launch) and the masks against
    the engine run with the plain versions on the card (Dice >= 0.999 over
    the voxels both decide, see ``DECIDED``) and against the plain f32
    model (the kernel engine no further from it than the plain bf16 one).
@@ -34,7 +37,10 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
    AdaQuant, ``ADAQUANT_STEPS``) on whole volumes; checks the files, the
    int8 launch counts (12 K1q, 4 K2q, 4 K3q per volume), masks identical to
    the same int8 engine on the plain versions, and Dice against the plain
-   f32 model of at least 0.98 (skull) and 0.95 (flap).
+   f32 model of at least 0.98 (skull) and 0.95 (flap). Then two AdaQuant
+   rounding searches of ``REPRO_STEPS`` steps on the same volume and scales
+   must give bit-equal integers (and a third, without cuDNN's
+   deterministic algorithms, is timed beside them).
 5. Training: ``Model`` with the settings of
    ``examples/UNetSPDO/FlapRecSP2O.ini`` (adam, lr 1e-4, Dice + CE, batch 1,
    bf16) and ``conv_impl = "chain"`` on complete synthetic skulls at
@@ -56,7 +62,8 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
    one train-mode forward of the plain f32 model, the head's class-1 bias
    moved by the median logit gap so both classes hold voxels) saved as a
    reference-named ``.pt``. Checks: the ``pred_<name>/*_{fl,i}`` files,
-   launches per volume (18 K5, 4 K2, 1 K7a, 3 K7b), masks against the same
+   launches per volume (18 K5, 4 K2, 1 K7a, 3 K7b; each K5 a ``conv3d_tc``
+   and each K7a/K7b an ``upconv_tc`` launch), masks against the same
    engine on the plain versions (Dice >= 0.999 over decided voxels) and
    against the plain f32 model (the kernel engine no further from it than
    the plain bf16 one, less 0.001); the engine's ms per volume, the loop's
@@ -91,6 +98,8 @@ N_VOLUMES = 3
 INT8_INI = os.path.join(ROOT, "examples", "UNetSPDO",
                         "FlapRecSP2O_serve_int8.ini")
 ADAQUANT_STEPS = 250
+# steps of each of the two rounding searches that phase 4 holds bit-equal
+REPRO_STEPS = 10
 TRAIN_INI = os.path.join(ROOT, "examples", "UNetSPDO", "FlapRecSP2O.ini")
 LEGACY_INIS = {  # AutoImplant 2020: with and without the shape prior
     "UNet4_2IC": os.path.join(ROOT, "examples", "autoimplant2020", "UNetSP",
@@ -100,7 +109,7 @@ LEGACY_INIS = {  # AutoImplant 2020: with and without the shape prior
 }
 # kernel launches per volume of the legacy engine
 LEGACY_PER_VOLUME = {"conv3d5_bias_act": 18, "maxpool2": 4, "convt_k2s2": 1,
-                     "convt_k2s2_dual": 3, "conv3d_tc": 18}
+                     "convt_k2s2_dual": 3, "conv3d_tc": 18, "upconv_tc": 4}
 N_TRAIN, N_EVAL = 4, 2  # steps of the training phase (batch 1)
 # K6 launches per step of the 16-conv UNetSP: every conv forward, and every
 # input gradient but the network input's
@@ -173,12 +182,6 @@ def conv_taps(shape, k: int) -> int:
     return math.prod(n * k - p * (p + 1) for n in shape)
 
 
-def upconv_taps(shape2) -> int:
-    """(output voxel, in-bounds tap) pairs of K3 from half-res ``shape2``:
-    2 taps per dimension except one at each face, 4n-2 per dimension."""
-    return math.prod(4 * n - 2 for n in shape2)
-
-
 def bf16_tol(ref) -> float:
     """2 bf16 ulps at the reference's largest magnitude: kernel and plain
     version sum the same bf16 products in f32 in different orders and each
@@ -218,18 +221,15 @@ def record_bf16(entries, failures, name, case, got, ref, ms, plain_ms,
                              bound_by=b_by, library_ms=lib_ms)
 
 
-def check_kernels(sd, device, shape=SHAPE, reps_big: int = 5,
-                  reps_small: int = 50):
-    """K2 and K3 against their plain versions at the UNetSP path's shapes,
-    with the trained weights of the layer that runs at that shape (K1 is
-    ``conv3d_tc``: :func:`check_conv_tc`). Returns ``(entries,
-    failures)``, ``entries`` keyed by wrapper name."""
+def check_kernels(sd, device, shape=SHAPE, reps_big: int = 5):
+    """K2 against its plain version at the UNetSP path's full-resolution
+    pool (K1 is ``conv3d_tc``: :func:`check_conv_tc`; K3 is ``upconv_tc``:
+    :func:`check_upconv_tc`). Returns ``(entries, failures)``, ``entries``
+    keyed by wrapper name."""
     import torch
     import torch.nn.functional as F
 
-    from ctunet_tpu_torch import engine
     from ctunet_tpu_torch.ops.kernels import conv3d as kc
-    from ctunet_tpu_torch.ops.kernels import upconv as ku
 
     gen = torch.Generator(device=device).manual_seed(0)
     bf = torch.bfloat16
@@ -249,41 +249,6 @@ def check_kernels(sd, device, shape=SHAPE, reps_big: int = 5,
            p_ms, l_ms, x.numel() * 2 + got.numel() * 2, 7 * got.numel(), 0.0)
     del x, got, ref
 
-    # K3: u3 (14+14 -> 7, out 224x304x304) and u0 (56 -> 56, out 28x38x38)
-    for j, shp2 in ((3, lv[1]), (0, lv[4])):
-        ca = None if j == 0 else int(
-            sd[f"u_blocks.{j - 1}.block.4.weight"].shape[0])
-        wa, wb, wone, bu = engine.upconv_operands(sd, j, ca, bf, device)
-        a = relu_normal(shp2 + (wa.shape[3],), gen, device)
-        b = None if wb is None else relu_normal(shp2 + (wb.shape[3],), gen,
-                                                device)
-        co = wa.shape[4]
-        cin = wa.shape[3] + (0 if wb is None else wb.shape[3])
-        reps = reps_big if j == 3 else reps_small
-        got = ku.upconv_bn_relu(a, b, wa, wb, wone, bu)
-        ref = ku.upconv_bn_relu_plain(a, b, wa, wb, wone, bu)
-        ms = time_ms(lambda: ku.upconv_bn_relu(a, b, wa, wb, wone, bu), reps,
-                     device)
-        p_ms = time_ms(
-            lambda: ku.upconv_bn_relu_plain(a, b, wa, wb, wone, bu), reps,
-            device)
-        parts = [a, torch.ones_like(a[..., :1])] + ([] if b is None else [b])
-        x_l = torch.cat(parts, -1).permute(3, 0, 1, 2)[None]
-        r_l = torch.cat([wa, wone[..., None, :]] + ([] if wb is None
-                                                    else [wb]), 3)
-        r_l = r_l.permute(3, 4, 0, 1, 2).contiguous()
-        b_l = bu.to(bf)
-        l_ms = time_ms(lambda: F.conv_transpose3d(x_l, r_l, b_l, stride=2,
-                                                  padding=1), reps, device)
-        out_shape = tuple(2 * s for s in shp2)
-        nbytes = (2 * math.prod(shp2) * cin + 2 * math.prod(out_shape) * co
-                  + 2 * (wa.numel() + wone.numel()
-                         + (0 if wb is None else wb.numel())))
-        record("upconv_bn_relu",
-               f"{cin}->{co} {'x'.join(map(str, out_shape))}", got, ref, ms,
-               p_ms, l_ms, nbytes, 2 * (cin + 1) * co * upconv_taps(shp2),
-               bf16_tol(ref))
-        del a, b, got, ref
     return entries, failures
 
 
@@ -347,7 +312,8 @@ def check_conv_tc(device, shape=SHAPE):
     calls (K1 ``conv3d_bn_relu``, K6 ``conv3d_bias_act`` without ReLU, K5
     ``conv3d5_bias_act``); beside it the direct CUDA-core kernel's time
     (the kernel these wrappers launched before, same inputs, same call),
-    cuDNN's bf16 ``F.conv3d`` and the bound. Random normal weights scaled by
+    the plain version's (one run), cuDNN's bf16 ``F.conv3d`` and the bound.
+    Random normal weights scaled by
     their fan-in, f32 biases, ReLU'd normal inputs from a seed. Logs one
     ``TC`` line per shape and each path's sums (time x launches). Returns
     ``(entries, failures)``."""
@@ -389,12 +355,9 @@ def check_conv_tc(device, shape=SHAPE):
             memory_format=torch.channels_last_3d)
         l_ms = time_ms(lambda: F.conv3d(x_l, w_l, b.to(bf), padding=k // 2),
                        2 if big else 20, device)
-        # the plain version's time where an entry of the kernels line needs
-        # it: each wrapper's first shape, and the largest K5 launch
         first = name not in entries
         largest = (k, ci, co, level) == (5, 56, 14, 1)
-        p_ms = (time_ms(lambda: kc.conv3d_tc_plain(x, wt, b, relu), 1,
-                        device) if first or largest else None)
+        p_ms = time_ms(lambda: kc.conv3d_tc_plain(x, wt, b, relu), 1, device)
         nbytes = 2 * math.prod(shp) * (ci + co) + 2 * wt.numel() + 4 * co
         nflops = 2 * ci * co * conv_taps(shp, k)
         b_ms, b_by = bound_ms(nbytes, nflops)
@@ -405,8 +368,9 @@ def check_conv_tc(device, shape=SHAPE):
         per = ", ".join(f"{n} {p}" for p, n in paths.items())
         log(f"  TC {case}: max_abs_err {err:.3e} (tol {tol:.3e}) "
             f"{'ok' if ok else 'FAIL'}; conv3d_tc {ms:.3f} ms "
-            f"({nflops / ms / 1e9:.1f} TFLOP/s), direct {d_ms:.3f} ms, cuDNN "
-            f"{l_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}); launches {per}; "
+            f"({nflops / ms / 1e9:.1f} TFLOP/s), direct {d_ms:.3f} ms, plain "
+            f"{p_ms:.3f} ms, cuDNN {l_ms:.3f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}); launches {per}; "
             f"via {name}")
         if not ok:
             failures.append(f"conv3d_tc [{case}]: err {err} > tol {tol} or "
@@ -430,61 +394,141 @@ def check_conv_tc(device, shape=SHAPE):
     return entries, failures
 
 
-def check_kernels_legacy(device, shape=SHAPE, reps_big: int = 3,
-                         reps_small: int = 20):
-    """K7a/K7b against their plain versions at the legacy engine's shapes
-    (K5 is ``conv3d_tc``: :func:`check_conv_tc`). Random normal weights
-    scaled by their fan-in and ReLU'd normal inputs from a seed. Returns
-    ``(entries, failures)``."""
+def upconv_tc_shapes():
+    """Every bf16 stride-2 upsampling launch of the paths, as ``(wrapper,
+    ca, cb, co, level, path)``: UNetSP's four K3 (decoder block j at
+    half-resolution level 4 - j; the trained weights of block j), and
+    ``UNet4_2IC``'s and ``recAE_v2_fixed``'s K7a (the center output) and
+    three K7b (``cat(block output, skip)``), one launch each per volume."""
+    rows = [("upconv_bn_relu", j, None, None, 4 - j, "UNetSP")
+            for j in (3, 2, 1, 0)]  # ca holds j: the weights fix the widths
+    for mc, f in (("UNet4_2IC", 7), ("recAE_v2_fixed", 8)):
+        rows.append(("convt_k2s2", 16 * f, 0, 16 * f, 4, mc))
+        for lv in (3, 2, 1):
+            c = f * 2 ** lv
+            rows.append(("convt_k2s2_dual", c, c, 2 * c, lv, mc))
+    return rows
+
+
+def check_upconv_tc(sd, device, shape=SHAPE, reps_big: int = 3,
+                    reps_small: int = 20):
+    """``upconv_tc`` against the plain versions within ``bf16_tol`` at
+    every shape of :func:`upconv_tc_shapes`, through the wrapper its path
+    calls (K3 ``upconv_bn_relu`` with UNetSP's trained decoder weights, K7a
+    ``convt_k2s2`` and K7b ``convt_k2s2_dual`` with random normal weights
+    scaled by their fan-in); ReLU'd normal inputs from a seed. Beside it
+    the direct CUDA-core kernel's time (the kernel these wrappers launched
+    before, same inputs, same call), the plain version's, cuDNN's bf16
+    ``F.conv_transpose3d`` of the same function (K3: the k4/s2/p1
+    transposed conv of ``cat(a, ones, b)``) and the bound. Logs one ``UTC``
+    line per shape and each path's sums (time x launches). Returns
+    ``(entries, failures)``: each wrapper's first shape, and under
+    ``upconv_tc`` its largest launch (K7b (14+14)->28)."""
     import torch
     import torch.nn.functional as F
 
+    from ctunet_tpu_torch import engine
     from ctunet_tpu_torch.ops.kernels import convt as kt
+    from ctunet_tpu_torch.ops.kernels import upconv as ku
+    from ctunet_tpu_torch.ops.kernels import upsample_tc as ut
 
     gen = torch.Generator(device=device).manual_seed(3)
     bf = torch.bfloat16
     d, h, w = shape
     lv = [(d >> i, h >> i, w >> i) for i in range(5)]
-    entries, failures = {}, []
-    record = functools.partial(record_bf16, entries, failures)
+    entries, failures, sums = {}, [], {}
 
     def randn(*shp):
         return torch.randn(*shp, generator=gen, device=device)
 
-    # K7a: ublock1's ConvT of the center output; K7b: ublock4's (the
-    # largest output of the engine) and ublock2's, on (block output, skip)
-    for name, ca, cb, co, level in (("convt_k2s2", 112, 0, 112, 4),
-                                    ("convt_k2s2_dual", 14, 14, 28, 1),
-                                    ("convt_k2s2_dual", 56, 56, 112, 3)):
-        shp = lv[level]
-        wt = randn(ca + cb, co, 2, 2, 2) * (ca + cb) ** -0.5
-        bias = randn(co) * 0.1
-        a = relu_normal(shp + (ca,), gen, device)
-        b = relu_normal(shp + (cb,), gen, device) if cb else None
-        wa, wb, bi = kt.convt_weights(wt, bias, ca if cb else None)
-        if cb:
-            run = lambda: kt.convt_k2s2_dual(a, b, wa, wb, bi)  # noqa: E731
+    for name, ca, cb, co, level, path in upconv_tc_shapes():
+        shp2 = lv[level]
+        if name == "upconv_bn_relu":
+            j = ca
+            ca = None if j == 0 else int(
+                sd[f"u_blocks.{j - 1}.block.4.weight"].shape[0])
+            wa, wb, wone, bias = engine.upconv_operands(sd, j, ca, bf, device)
+            ca, co = wa.shape[3], wa.shape[4]
+            cb = 0 if wb is None else wb.shape[3]
+            k3 = True
+            run, direct = ku.upconv_bn_relu, ku.upconv_bn_relu_direct
+            plain = ku.upconv_bn_relu_plain
+            args = lambda: (a, b, wa, wb, wone, bias)  # noqa: E731
+            w_lib = torch.cat([wa, wone[..., None, :]]
+                              + ([] if wb is None else [wb]), 3)
+            w_lib = w_lib.permute(3, 4, 0, 1, 2).contiguous()
         else:
-            run = lambda: kt.convt_k2s2(a, wa, bi)  # noqa: E731
-        got = run()
-        ref = kt.convt_k2s2_plain(a, b, wa, wb, bi)
-        reps = reps_big if level < 2 else reps_small
-        ms = time_ms(run, reps, device)
-        p_ms = time_ms(lambda: kt.convt_k2s2_plain(a, b, wa, wb, bi), reps,
+            k3 = False
+            wt = randn(ca + cb, co, 2, 2, 2) * (ca + cb) ** -0.5
+            bias0 = randn(co) * 0.1
+            wa, wb, bias = kt.convt_weights(wt, bias0, ca if cb else None)
+            wone = None
+            plain = kt.convt_k2s2_plain
+            if cb:
+                run, direct = kt.convt_k2s2_dual, kt.convt_k2s2_dual_direct
+                args = lambda: (a, b, wa, wb, bias)  # noqa: E731
+            else:
+                run, direct = kt.convt_k2s2, kt.convt_k2s2_direct
+                args = lambda: (a, wa, bias)  # noqa: E731
+            w_lib = wt.to(bf)
+        a = relu_normal(shp2 + (ca,), gen, device)
+        b = relu_normal(shp2 + (cb,), gen, device) if cb else None
+        big = level < 2
+        before = ut.upconv_tc.launches
+        got = run(*args())
+        if ut.upconv_tc.launches != before + 1:
+            failures.append(f"{name}: did not launch upconv_tc")
+        ref = (plain(a, b, wa, wb, wone, bias) if k3
+               else plain(a, b, wa, wb, bias))
+        reps = reps_big if big else reps_small
+        ms = time_ms(lambda: run(*args()), reps, device)
+        d_ms = time_ms(lambda: direct(*args()), reps, device)
+        p_ms = time_ms(lambda: plain(a, b, wa, wb, wone, bias) if k3
+                       else plain(a, b, wa, wb, bias), 1 if big else reps,
                        device)
-        cat = a if b is None else torch.cat([a, b], -1)
-        x_l = cat.permute(3, 0, 1, 2)[None]
-        w_l, b_l = wt.to(bf), bias.to(bf)
-        l_ms = time_ms(lambda: F.conv_transpose3d(x_l, w_l, b_l, stride=2),
-                       reps, device)
-        v_in = math.prod(shp)
-        nbytes = (2 * v_in * (ca + cb) + 2 * 8 * v_in * co
-                  + 2 * wt.numel() + 4 * co)
-        out_shp = "x".join(str(2 * s) for s in shp)
-        record(name, f"({ca}+{cb})->{co} to {out_shp}" if cb
-               else f"{ca}->{co} to {out_shp}", got, ref, ms, p_ms, l_ms,
-               nbytes, 2 * 8 * v_in * (ca + cb) * co, bf16_tol(ref))
-        del a, b, got, ref, cat, x_l
+        parts = [a] + ([torch.ones_like(a[..., :1])] if k3 else []) + (
+            [] if b is None else [b])
+        x_l = torch.cat(parts, -1).permute(3, 0, 1, 2)[None]
+        b_l = (bias if k3 else bias0).to(bf)
+        l_ms = time_ms(lambda: F.conv_transpose3d(
+            x_l, w_lib, b_l, stride=2, padding=1 if k3 else 0), reps, device)
+        nbytes, nflops = ut.upconv_tc_work(shp2, ca, cb, co, k3)
+        b_ms, b_by = bound_ms(nbytes, nflops)
+        err = float((got.float() - ref.float()).abs().max())
+        tol = bf16_tol(ref)
+        ok = (bool(torch.isfinite(got.float()).all()) and err <= tol
+              and tuple(got.shape) == tuple(2 * s for s in shp2) + (co,))
+        out_shp = "x".join(str(2 * s) for s in shp2)
+        case = (f"({ca}+{cb})->{co} to {out_shp}" if cb
+                else f"{ca}->{co} to {out_shp}")
+        plan = ut.uptc_plan(shp2, ca, cb, co, k3)
+        log(f"  UTC {name} [{case}] {path}: max_abs_err {err:.3e} (tol "
+            f"{tol:.3e}) {'ok' if ok else 'FAIL'}; upconv_tc {ms:.3f} ms "
+            f"({nflops / ms / 1e9:.1f} TFLOP/s, {nbytes / ms / 1e6:.1f} "
+            f"GB/s), direct {d_ms:.3f} ms, plain {p_ms:.3f} ms, cuDNN "
+            f"{l_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}); plan np={plan.np}"
+            f" mf={plan.mf} nf={plan.nf} tx={1 << plan.tx_log2} "
+            f"cc={plan.cc}")
+        if not ok:
+            failures.append(f"upconv_tc {name} [{case}]: err {err} > tol "
+                            f"{tol}, non-finite or wrong shape")
+        t = sums.setdefault(path, [0.0, 0.0, 0.0, 0])
+        t[0] += ms
+        t[1] += d_ms
+        t[2] += l_ms
+        t[3] += 1
+        entry = dict(case=case, max_abs_err=err, ms=ms, plain_ms=p_ms,
+                     bound_ms=b_ms, bound_by=b_by, library_ms=l_ms,
+                     direct_ms=d_ms)
+        if name not in entries:
+            entries[name] = entry
+        if (name, ca, cb, co, level, path) == (
+                "convt_k2s2_dual", 14, 14, 28, 1, "UNet4_2IC"):
+            entries["upconv_tc"] = entry
+        del a, b, got, ref, x_l
+    for p, (t, t_d, t_l, n) in sums.items():
+        log(f"  UTC sum {p}: {n} launches per volume, upconv_tc {t:.3f} ms, "
+            f"direct {t_d:.3f} ms, cuDNN {t_l:.3f} ms")
     return entries, failures
 
 
@@ -897,6 +941,61 @@ def read_masks(out_dir: str, paths, shape, affine, failures,
     return masks
 
 
+def check_adaquant_repro(sd, x, device, steps: int = REPRO_STEPS):
+    """Two AdaQuant rounding searches (``quant_opt.optimize_rounding``,
+    ``steps`` Adam steps per unit) on the same calibration volume ``x``
+    ``(D, H, W, 2)`` and the same exported scales must give bit-equal
+    integer weights, scales and bias deltas. A third search runs as the
+    search ran before its flags asked for cuDNN's deterministic algorithms
+    (TF32 off only), for its time and whether it lands on the same
+    integers (logged, not checked). Returns ``(seconds of each search,
+    failures)``."""
+    import numpy as np
+    import torch
+
+    from ctunet_tpu_torch import engine_q, quant_opt
+
+    scales = {}
+    engine_q.build_predict_q("UNetSP", sd, x, device=device,
+                             export_scales=scales)
+    deterministic = quant_opt.SEARCH_FLAGS
+    before = tuple(f for f in deterministic if f[1] == "allow_tf32")
+    runs, secs = [], []
+    for flags in (deterministic, deterministic, before):
+        quant_opt.SEARCH_FLAGS = flags
+        try:
+            sync(device)
+            t0 = time.perf_counter()
+            with torch.inference_mode(False), torch.enable_grad():
+                runs.append(quant_opt.optimize_rounding(
+                    "UNetSP", sd, x.float()[None], scales, steps=steps,
+                    device=device))
+            sync(device)
+            secs.append(time.perf_counter() - t0)
+        finally:
+            quant_opt.SEARCH_FLAGS = deterministic
+
+    def differ(r0, r1):
+        return [f"{tag}.{key}" for tag in r0 for key in r0[tag]
+                if not np.array_equal(np.asarray(r0[tag][key]),
+                                      np.asarray(r1[tag][key]))]
+
+    diff, diff_before = differ(runs[0], runs[1]), differ(runs[0], runs[2])
+    n_ints = sum(np.asarray(r["q"]).size for r in runs[0].values())
+    verdict = "bit-equal" if not diff else "DIFFER in " + ", ".join(diff)
+    log(f"  AdaQuant reproducibility: two rounding searches of {steps} steps "
+        f"on the same volume and scales: {len(runs[0])} units, {n_ints} "
+        f"integer weights, {verdict}; {secs[0]:.1f} s and {secs[1]:.1f} s. "
+        f"Without cuDNN's deterministic algorithms: {secs[2]:.1f} s, "
+        f"{len(diff_before)} of {sum(map(len, runs[0].values()))} arrays "
+        f"differ from the first search ({', '.join(diff_before[:6])})")
+    if diff:
+        failures = [f"AdaQuant searches differ between runs: {diff}"]
+    else:
+        failures = []
+    return secs, failures
+
+
 def serve_int8(device, work: str, shape=SHAPE, n_volumes: int = N_VOLUMES,
                adaquant_steps: int = ADAQUANT_STEPS):
     """Serve ``n_volumes`` synthetic volumes through ``Model`` with the
@@ -1007,6 +1106,9 @@ def serve_int8(device, work: str, shape=SHAPE, n_volumes: int = N_VOLUMES,
                            / (1e3 * (m.serve_seconds - build_s)))
     log(f"  device busy share of the Model loop without the build (engine "
         f"ms x volumes / loop time): {stats['busy_share']:.3f}")
+    secs, errs = check_adaquant_repro(sd, xt[0], device)
+    stats["adaquant_repro_s"] = secs
+    failures += errs
     return launches, stats, failures
 
 
@@ -1042,7 +1144,8 @@ def serve(device, work: str, shape=SHAPE, n_volumes: int = N_VOLUMES):
     kernels.reset_launches()
     m = Model(params=params)  # ends with the masks fetched to the host
     want = {"conv3d_bn_relu": 12 * n_volumes, "maxpool2": 4 * n_volumes,
-            "upconv_bn_relu": 4 * n_volumes, "conv3d_tc": 12 * n_volumes}
+            "upconv_bn_relu": 4 * n_volumes, "conv3d_tc": 12 * n_volumes,
+            "upconv_tc": 4 * n_volumes}
     launches = {k: v for k, v in kernels.launches().items() if k in want}
     log(f"  launches over {n_volumes} volumes: {launches} (want {want})")
     if launches != want:
@@ -1164,12 +1267,12 @@ def train(device, work: str, shape=SHAPE, n_train: int = N_TRAIN,
     counts = kernels.launches()
     k6 = n_train * K6_PER_TRAIN_STEP + n_eval * K6_PER_EVAL_STEP
     want = {"conv3d_bias_act": k6, "conv3d_bn_relu": 12, "maxpool2": 4,
-            "upconv_bn_relu": 4, "conv3d_tc": k6 + 12}
+            "upconv_bn_relu": 4, "conv3d_tc": k6 + 12, "upconv_tc": 4}
     launches = {k: counts[k] for k in want}
     log(f"  launches: {launches} (want {want}: {n_train} train steps x "
         f"{K6_PER_TRAIN_STEP} + {n_eval} eval steps x {K6_PER_EVAL_STEP} of "
         "K6, then one served volume; each bf16 K6/K1 launch is a "
-        "conv3d_tc launch)")
+        "conv3d_tc launch, each K3 launch an upconv_tc launch)")
     if launches != want:
         failures.append(f"training launch counts {launches} != {want}")
     losses = [float(v) for v in m.step_losses]
@@ -1497,8 +1600,8 @@ def main() -> int:
              "random weights", lambda: check_conv_tc(device)),
             ("training conv K6 f32 and autograd, random weights",
              lambda: check_kernel_train(device)),
-            ("legacy engine K5 / K7a / K7b, random weights",
-             lambda: check_kernels_legacy(device))):
+            ("bf16 upconv_tc (K3, K7a, K7b) at every shape of the paths",
+             lambda: check_upconv_tc(sd, device))):
         log(f"  -- {label}")
         try:
             got, errs = check()
@@ -1509,7 +1612,7 @@ def main() -> int:
             failures.append(f"phase 2 ({label}) raised")
     log(f"  phase 2: {time.perf_counter() - t0:.1f} s")
 
-    launches, tc_launches = {}, 0
+    launches, shared = {}, {"conv3d_tc": 0, "upconv_tc": 0}
     size = "x".join(map(str, SHAPE))
     for phase, label, fn in (
             (3, f"bf16, {N_VOLUMES} UNetSP volumes {size}", serve),
@@ -1537,10 +1640,12 @@ def main() -> int:
                             f"launched: {got}")
         # a later phase's count of an earlier kernel (phase 5 serves one
         # volume on K1-K3) does not replace the phase that owns it; the
-        # bf16 convs of phases 3, 5 and 6 all launch conv3d_tc
-        tc_launches += got.pop("conv3d_tc", 0)
+        # bf16 convs of phases 3, 5 and 6 all launch conv3d_tc, their K3,
+        # K7a and K7b upconv_tc
+        for k in shared:
+            shared[k] += got.pop(k, 0)
         launches.update({k: v for k, v in got.items() if k not in launches})
-    launches["conv3d_tc"] = tc_launches
+    launches.update(shared)
 
     log(f"== total {time.perf_counter() - t_all:.1f} s")
     if failures:
@@ -1555,7 +1660,9 @@ def main() -> int:
                            "ctunet_tpu/ops/pallas/conv3d.py:1031"),
         "maxpool2": ("ctunet_tpu_torch/csrc/maxpool.cu",
                      "ctunet_tpu/ops/pallas/conv3d.py:1862"),
-        "upconv_bn_relu": ("ctunet_tpu_torch/csrc/upconv.cu",
+        "upconv_tc": ("ctunet_tpu_torch/csrc/upconv_tc.cu",
+                      "ctunet_tpu/ops/pallas/convt.py:146"),
+        "upconv_bn_relu": ("ctunet_tpu_torch/csrc/upconv_tc.cu",
                            "ctunet_tpu/ops/pallas/upconv.py:464"),
         "conv3d_q_requant": ("ctunet_tpu_torch/csrc/conv3d_q.cu",
                              "ctunet_tpu/ops/pallas/conv3d.py:1677"),
@@ -1567,9 +1674,9 @@ def main() -> int:
                             "ctunet_tpu/ops/pallas/conv3d.py:453"),
         "conv3d5_bias_act": ("ctunet_tpu_torch/csrc/conv3d_tc.cu",
                              "ctunet_tpu/ops/pallas/conv3d.py:136"),
-        "convt_k2s2": ("ctunet_tpu_torch/csrc/convt.cu",
+        "convt_k2s2": ("ctunet_tpu_torch/csrc/upconv_tc.cu",
                        "ctunet_tpu/ops/pallas/convt.py:78"),
-        "convt_k2s2_dual": ("ctunet_tpu_torch/csrc/convt.cu",
+        "convt_k2s2_dual": ("ctunet_tpu_torch/csrc/upconv_tc.cu",
                             "ctunet_tpu/ops/pallas/convt.py:146"),
     }
     kernels = []

@@ -57,6 +57,7 @@
 //   rows, so that rows of 7 or 14 channels (14 or 28 bytes a voxel) go out
 //   as contiguous runs.
 #include "common.cuh"
+#include "mma.cuh"
 
 using namespace ctunet;
 
@@ -78,57 +79,6 @@ struct Params {
   int slab_elems, w_elems;  // bf16 elements per stage
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-template <int BYTES>
-__device__ __forceinline__ void cp_async(uint32_t dst, const void* src,
-                                         bool valid) {
-  const int n = valid ? BYTES : 0;
-  if constexpr (BYTES == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-                 "l"(src), "r"(n)
-                 : "memory");
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst),
-                 "l"(src), "n"(BYTES), "r"(n)
-                 : "memory");
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4],
-                                         const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 // A thread's walk over the slab's 16-byte slots (voxel (r, c), channel
 // group g of 8): slot tid first, then every TC_THREADS-th, stepped without
 // divisions.
@@ -142,13 +92,6 @@ __device__ __forceinline__ SlotWalk slot_walk(const Params& p) {
   const int v = threadIdx.x / c8s, dv = TC_THREADS / c8s;
   return {v / p.sx, v % p.sx, static_cast<int>(threadIdx.x) % c8s,
           dv / p.sx, dv % p.sx, TC_THREADS % c8s};
-}
-
-__device__ __forceinline__ uint32_t ld_pair(const uint16_t* s, bool lo_ok,
-                                            bool hi_ok) {
-  const uint32_t lo = lo_ok ? __ldg(s) : 0u;
-  const uint32_t hi = hi_ok ? __ldg(s + 1) : 0u;
-  return lo | hi << 16;
 }
 
 // Stage (dz, chunk) of the block's tile: the halo slab of input plane zi
@@ -280,7 +223,6 @@ conv3d_tc_kernel(const Params p) {
 
   const int a_half = lane >> 4;        // k-group of the lane's A row
   const int b_half = (lane >> 3) & 1;  // k-group of the lane's B row
-  const int b_row = (lane & 7) + ((lane >> 4) << 3);  // n of its B row (x4)
   fetch(0);
   cp_async_commit();
   for (int s = 0; s < n_stages; ++s) {
@@ -300,21 +242,9 @@ conv3d_tc_kernel(const Params p) {
         ldsm_x4(a[f], a_base + 2u * static_cast<uint32_t>(row_off[f] + toff));
       }
       uint32_t b[NF][2];
-      const uint32_t brow =
-          b_base + 16u * static_cast<uint32_t>((2 * ks + b_half) * BN);
-      if constexpr (NF == 1) {
-        ldsm_x2(b[0], brow + 16u * (lane & 7));
-      } else {
-#pragma unroll
-        for (int j = 0; j < NF / 2; ++j) {
-          uint32_t r[4];
-          ldsm_x4(r, brow + 16u * static_cast<uint32_t>(j * 16 + b_row));
-          b[2 * j][0] = r[0];
-          b[2 * j][1] = r[1];
-          b[2 * j + 1][0] = r[2];
-          b[2 * j + 1][1] = r[3];
-        }
-      }
+      load_b<NF>(b, b_base + 16u * static_cast<uint32_t>((2 * ks + b_half) *
+                                                         BN),
+                 lane);
 #pragma unroll
       for (int f = 0; f < MF; ++f)
 #pragma unroll

@@ -1,6 +1,11 @@
 // K7a and K7b: ConvTranspose3d(k2, s2) + bias, depth-to-space, on one
 // operand or on the channel concat of two.
 //
+// The direct route: K7a/K7b run on the tensor cores in upconv_tc.cu; this
+// CUDA-core kernel is reachable as ops/kernels/convt.py::convt_k2s2_direct
+// and ::convt_k2s2_dual_direct, timed beside it, and is the start of their
+// f32 mode (ROADMAP Queue 2 A1).
+//
 // K7a replaces ctunet_tpu/ops/pallas/convt.py::conv_transpose_k2s2 (kernel
 // body _kernel), K7b conv_transpose_k2s2_dual (_kernel_dual): the
 // transposed conv of the legacy k=5 family's decoder blocks, whose input is

@@ -2,6 +2,11 @@
 // Conv3D(k3) + folded BatchNorm + ReLU, evaluated from the half-resolution
 // inputs. bf16 in and out, f32 accumulation.
 //
+// The direct route: K3 runs on the tensor cores in upconv_tc.cu; this
+// CUDA-core kernel is reachable as ops/kernels/upconv.py::
+// upconv_bn_relu_direct, timed beside it, and is the start of K3's f32
+// mode (ROADMAP Queue 2 A1).
+//
 // Replaces ctunet_tpu/ops/pallas/upconv.py::upconv_fused_chain_split
 // (kernel body _upconv_kernel_split). Both linear maps compose into one
 // 4x4x4 response R (built on the host in f64, see

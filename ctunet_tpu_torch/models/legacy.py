@@ -17,7 +17,11 @@ loads with ``load_state_dict``: ``dblock{1..4}`` and ``cblock_center`` are
 ``(conv, bn, relu) x 2`` at ``0..5``; ``ublock{1..4}`` are the ConvT at
 ``0`` then ``(conv, bn, relu) x 2`` at ``1..6``; ``last_conv``
 (``ctunet_tpu/models/torch_port.py:242-265``). Like ``models/unet.py`` the
-modules run channels-last, ``(B, D, H, W, C)``, in f32. The BatchNorm is
+modules run channels-last, ``(B, D, H, W, C)``. :meth:`RecAEv2Fixed.configure`
+sets the compute dtype, as the JAX legacy models' ``dtype=`` does
+(``ctunet_tpu/models/legacy.py:36-37,65-66``): parameters stay f32 and are
+cast per call, each conv adds its bias in the compute dtype, and the head
+and softmax run in it; f32 by default. The BatchNorm is
 the port's own (``models/unet.py::BatchNorm``, flax's statistics), so the
 same module can be trained; training the legacy family is not ported yet.
 """
@@ -33,12 +37,17 @@ from .unet import BatchNorm, ConvTranspose2x, maxpool2
 
 
 class Conv3d5(nn.Conv3d):
-    """Conv3d(k5, padding 2, stride 1, bias) on channels-last f32 tensors."""
+    """Conv3d(k5, padding 2, stride 1, bias) on channels-last tensors in
+    ``compute_dtype``, the bias added after the conv (``PackedConv``,
+    ``ctunet_tpu/models/unet.py:92-136``)."""
+
+    compute_dtype = torch.float32
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv3d(x.float().permute(0, 4, 1, 2, 3), self.weight.float(),
-                     self.bias.float(), padding=2)
-        return y.permute(0, 2, 3, 4, 1).contiguous()
+        dt = self.compute_dtype
+        y = F.conv3d(x.to(dt).permute(0, 4, 1, 2, 3), self.weight.to(dt),
+                     padding=2)
+        return y.permute(0, 2, 3, 4, 1).contiguous() + self.bias.to(dt)
 
 
 def _conv_unit(cin: int, cout: int):
@@ -80,11 +89,29 @@ class RecAEv2Fixed(nn.Module):
             setattr(self, f"ublock{i + 1}", up_block(cin, fms[3 - i]))
             cin = 2 * fms[3 - i]
         self.last_conv = nn.Conv3d(cin, 2, 1)
+        self.compute_dtype = torch.float32
+
+    def configure(self, conv_impl: str = "xla",
+                  compute_dtype: torch.dtype = torch.float32
+                  ) -> "RecAEv2Fixed":
+        """Set the compute dtype of every layer (``UNet.configure``'s
+        signature). The convs run ``F.conv3d`` (``xla``); the hand conv of
+        training (``chain``) is not ported at k=5 yet."""
+        if conv_impl not in ("xla", "xla_dw"):
+            raise NotImplementedError(
+                f"conv_impl {conv_impl!r} on the legacy k=5 family: the k=5 "
+                "training conv is ROADMAP Queue 1 item 16")
+        self.compute_dtype = compute_dtype
+        for m in self.modules():
+            if isinstance(m, (Conv3d5, ConvTranspose2x)):
+                m.compute_dtype = compute_dtype
+        return self
 
     def forward_logits(self, x: torch.Tensor) -> torch.Tensor:
         """(B, D, H, W, C) -> pre-softmax (B, D, H, W, 2)."""
+        dt = self.compute_dtype
         skips = []
-        h = x.float()
+        h = x.to(dt)
         for i in range(4):
             h = getattr(self, f"dblock{i + 1}")(h)
             skips.append(h)
@@ -93,8 +120,8 @@ class RecAEv2Fixed(nn.Module):
         for i in range(4):
             h = torch.cat([getattr(self, f"ublock{i + 1}")(h), skips[3 - i]],
                           -1)
-        k = self.last_conv.weight[:, :, 0, 0, 0].t()  # (C, 2)
-        return h @ k + self.last_conv.bias
+        k = self.last_conv.weight[:, :, 0, 0, 0].t().to(dt)  # (C, 2)
+        return h @ k + self.last_conv.bias.to(dt)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, D, H, W, C) -> (B, D, H, W, 2) softmax probabilities."""

@@ -3,10 +3,13 @@ operand or on the channel concat of two, for Hopper.
 
 Counterpart of ``ctunet_tpu/ops/pallas/convt.py``: ``conv_transpose_k2s2``
 (K7a) and ``conv_transpose_k2s2_dual`` (K7b, the weight-split form that
-never builds the concat). The CUDA source is ``csrc/convt.cu``. The TPU
-kernels emit a W-packed-by-2 layout that ``unpack2`` reshapes; here the
-output is the dense ``(2D, 2H, 2W, Co)`` volume. The function
-(``convt.py:34-62,128-143``, no spatial flip):
+never builds the concat). In bf16 both run the tensor-core kernel
+:func:`~.upsample_tc.upconv_tc` (``csrc/upconv_tc.cu``, shared with K3);
+the CUDA-core kernel ``csrc/convt.cu`` they launched before stays
+reachable as :func:`convt_k2s2_direct` / :func:`convt_k2s2_dual_direct`
+for timing beside it. The TPU kernels emit a W-packed-by-2 layout that
+``unpack2`` reshapes; here the output is the dense ``(2D, 2H, 2W, Co)``
+volume. The function (``convt.py:34-62,128-143``, no spatial flip):
 
 ``out[2z+a, 2y+b, 2x+c, o] = bias[o] + sum_i A[z,y,x,i] Wa[a,b,c,i,o]
 + sum_j B[z,y,x,j] Wb[a,b,c,j,o]``
@@ -17,7 +20,8 @@ conv kernels' (:func:`convt_weights` from the torch layout).
 
 Each wrapper launches its kernel for a CUDA tensor (or raises) and takes
 its plain PyTorch version only for a tensor on the CPU;
-``<wrapper>.launches`` counts kernel launches.
+``<wrapper>.launches`` counts kernel launches (each also counts on
+``upconv_tc``).
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import torch
 
 from . import build
 from .conv3d import _check, _require_cuda
+from .upsample_tc import upconv_tc
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -65,7 +70,8 @@ def convt_k2s2_plain(a: torch.Tensor, b: Optional[torch.Tensor],
     return y.to(a.dtype)
 
 
-def _launch(a, b, wa, wb, bias, what: str) -> torch.Tensor:
+def _launch_direct(a, b, wa, wb, bias, what: str) -> torch.Tensor:
+    """One launch of the CUDA-core kernel ``csrc/convt.cu``."""
     _require_cuda(a, what)
     d, h, w, ca = a.shape
     co = wa.shape[-1]
@@ -100,13 +106,15 @@ def convt_k2s2(a: torch.Tensor, wa: torch.Tensor,
     """K7a: ConvT(k2, s2) + bias of ``a`` ``(D, H, W, Ca)`` bf16 with
     ``wa`` ``(2, 2, 2, Ca, Co)`` bf16 -> ``(2D, 2H, 2W, Co)``.
 
-    CPU tensor: the plain version. CUDA tensor: the ``csrc/convt.cu``
-    kernel on the current stream, or an error.
+    CPU tensor: the plain version. CUDA tensor: the tensor-core kernel
+    :func:`~.upsample_tc.upconv_tc` (``csrc/upconv_tc.cu``) on the current
+    stream, or an error.
     """
     if a.device.type == "cpu":
         return convt_k2s2_plain(a, None, wa, None, bias)
-    out = _launch(a, None, wa, None, bias, "convt_k2s2")
-    convt_k2s2.launches += 1
+    out = upconv_tc(a, None, wa, None, None, bias, k3=False)
+    if out.numel():  # an empty volume launches nothing
+        convt_k2s2.launches += 1
     return out
 
 
@@ -119,14 +127,37 @@ def convt_k2s2_dual(a: torch.Tensor, b: torch.Tensor, wa: torch.Tensor,
     ``(D, H, W, Ca)``, ``b`` ``(D, H, W, Cb)`` bf16, weights split at
     ``Ca`` (:func:`convt_weights`) -> ``(2D, 2H, 2W, Co)``.
 
-    CPU tensor: the plain version. CUDA tensor: the ``csrc/convt.cu``
-    kernel on the current stream, or an error.
+    CPU tensor: the plain version. CUDA tensor: the tensor-core kernel
+    :func:`~.upsample_tc.upconv_tc` (``csrc/upconv_tc.cu``) on the current
+    stream, or an error.
     """
     if a.device.type == "cpu":
         return convt_k2s2_plain(a, b, wa, wb, bias)
-    out = _launch(a, b, wa, wb, bias, "convt_k2s2_dual")
-    convt_k2s2_dual.launches += 1
+    out = upconv_tc(a, b, wa, wb, None, bias, k3=False)
+    if out.numel():  # an empty volume launches nothing
+        convt_k2s2_dual.launches += 1
     return out
 
 
 convt_k2s2_dual.launches = 0
+
+
+def convt_k2s2_direct(a: torch.Tensor, wa: torch.Tensor,
+                      bias: torch.Tensor) -> torch.Tensor:
+    """K7a on the CUDA cores (``csrc/convt.cu``), the kernel
+    :func:`convt_k2s2` launched before ``upconv_tc``: kept for timing
+    beside it; the plain version on CPU tensors. Counts no launches."""
+    if a.device.type == "cpu":
+        return convt_k2s2_plain(a, None, wa, None, bias)
+    return _launch_direct(a, None, wa, None, bias, "convt_k2s2_direct")
+
+
+def convt_k2s2_dual_direct(a: torch.Tensor, b: torch.Tensor,
+                           wa: torch.Tensor, wb: torch.Tensor,
+                           bias: torch.Tensor) -> torch.Tensor:
+    """K7b on the CUDA cores (``csrc/convt.cu``), the kernel
+    :func:`convt_k2s2_dual` launched before ``upconv_tc``: kept for timing
+    beside it; the plain version on CPU tensors. Counts no launches."""
+    if a.device.type == "cpu":
+        return convt_k2s2_plain(a, b, wa, wb, bias)
+    return _launch_direct(a, b, wa, wb, bias, "convt_k2s2_dual_direct")

@@ -13,6 +13,12 @@ exactly. The convT bias rides an input channel that is 1 inside the volume
 and 0 outside (``upconv.py:18-22``), so its contribution near the borders
 depends on position.
 
+In bf16, K3 runs the tensor-core kernel :func:`~.upsample_tc.upconv_tc`
+(``csrc/upconv_tc.cu``, shared with K7a/K7b; each launch also counts on
+``upconv_tc``); the CUDA-core kernel ``csrc/upconv.cu`` it launched before
+stays reachable as :func:`upconv_bn_relu_direct` for timing beside it. K3q
+runs ``csrc/upconv_q.cu``.
+
 Input channels of ``R``: ``[a (ca) | ones | b (cb) | zero]`` as
 :func:`augment_upconv_kernel` lays them out; the zero column (operand b's
 ones lane on the TPU) contributes nothing and is dropped from the operands
@@ -30,6 +36,7 @@ import torch.nn.functional as F
 
 from . import build
 from .conv3d import _check, _require_cuda, fma_requant, fold_bn
+from .upsample_tc import upconv_tc
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -148,12 +155,32 @@ def upconv_bn_relu(a: torch.Tensor, b: Optional[torch.Tensor],
                    wone: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """K3 on half-resolution ``a`` (and skip ``b``) -> full resolution.
 
-    CPU tensor: the plain version. CUDA tensor: the ``csrc/upconv.cu``
-    kernel (bf16 only) on the current stream, or an error.
+    CPU tensor: the plain version. CUDA tensor: the tensor-core kernel
+    :func:`~.upsample_tc.upconv_tc` (``csrc/upconv_tc.cu``, bf16 only) on the
+    current stream, or an error.
     """
     if a.device.type == "cpu":
         return upconv_bn_relu_plain(a, b, wa, wb, wone, bias)
-    _require_cuda(a, "upconv_bn_relu")
+    out = upconv_tc(a, b, wa, wb, wone, bias, k3=True)
+    if out.numel():  # an empty volume launches nothing
+        upconv_bn_relu.launches += 1
+    return out
+
+
+upconv_bn_relu.launches = 0
+
+
+def upconv_bn_relu_direct(a: torch.Tensor, b: Optional[torch.Tensor],
+                          wa: torch.Tensor, wb: Optional[torch.Tensor],
+                          wone: torch.Tensor,
+                          bias: torch.Tensor) -> torch.Tensor:
+    """K3 on the CUDA cores (``csrc/upconv.cu``, bf16), the kernel
+    :func:`upconv_bn_relu` launched before ``upconv_tc``: kept for timing
+    beside it (``chip_smoke.py`` phase 2); the plain version on CPU
+    tensors. Counts no launches."""
+    if a.device.type == "cpu":
+        return upconv_bn_relu_plain(a, b, wa, wb, wone, bias)
+    _require_cuda(a, "upconv_bn_relu_direct")
     d2, h2, w2, ca = a.shape
     co = wa.shape[-1]
     cb = 0 if b is None else b.shape[-1]
@@ -174,12 +201,8 @@ def upconv_bn_relu(a: torch.Tensor, b: Optional[torch.Tensor],
             wa.data_ptr(), None if wb is None else wb.data_ptr(),
             wone.data_ptr(), bias.data_ptr(), out.data_ptr(),
             d2, h2, w2, ca, cb, co, *build.stream_args(a))
-    build.check(rc, "upconv_bn_relu")
-    upconv_bn_relu.launches += 1
+    build.check(rc, "upconv_bn_relu_direct")
     return out
-
-
-upconv_bn_relu.launches = 0
 
 
 # --------------------------------------------------------------------------

@@ -18,8 +18,11 @@ unit's output activation scales (LSQ-style) and returns them through
 ``out_scales`` in the engine's export format.
 
 Autograd runs in f32 on ``F.conv3d`` / ``F.conv_transpose3d`` (the JAX
-package runs XLA's conv there, ``ops/packed_conv.py:102``), with TF32 off
-for cuDNN and matmuls inside :func:`optimize_rounding` and restored after.
+package runs XLA's conv there, ``ops/packed_conv.py:102``). Inside
+:func:`optimize_rounding` (:func:`search_flags`) TF32 is off for cuDNN and
+matmuls, and cuDNN runs deterministic algorithms without benchmarking, so
+that two builds on the same volume give the same integer weights; all four
+flags are restored after.
 Tensors are NCDHW inside this module.
 """
 
@@ -150,17 +153,36 @@ def _adam_best(loss_fn, p0: Dict[str, torch.Tensor], steps: int, lr: float):
     return best_p, l0, best_l
 
 
+# the backend flags the rounding search sets: f32 without TF32 (the JAX
+# package's XLA convs on the CPU), and cuDNN's deterministic algorithms,
+# chosen without benchmarking, so that two searches on the same inputs give
+# the same integers (autotuning may pick another, atomics-based backward
+# algorithm from one run to the next)
+SEARCH_FLAGS = (("cudnn", "allow_tf32", False),
+                ("cuda.matmul", "allow_tf32", False),
+                ("cudnn", "deterministic", True),
+                ("cudnn", "benchmark", False))
+
+
+def _backend(path: str):
+    mod = torch.backends
+    for part in path.split("."):
+        mod = getattr(mod, part)
+    return mod
+
+
 @contextlib.contextmanager
-def _no_tf32():
-    saved = (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+def search_flags():
+    """Set :data:`SEARCH_FLAGS` for the rounding search and restore all
+    four flags afterwards."""
+    saved = [getattr(_backend(m), k) for m, k, _ in SEARCH_FLAGS]
     try:
+        for m, k, v in SEARCH_FLAGS:
+            setattr(_backend(m), k, v)
         yield
     finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = saved
+        for (m, k, _), v in zip(SEARCH_FLAGS, saved):
+            setattr(_backend(m), k, v)
 
 
 def optimize_rounding(
@@ -256,7 +278,7 @@ def optimize_rounding(
         return y_f, y_of(q / k / s_in[:, None], db)
 
     head_units = int(round(max(0.0, min(float(bf16_head), float(n))) * 2))
-    with _no_tf32():
+    with search_flags():
         x_f = x
         x_hat = _fq_in(x, ts["entry"][:-1]) if head_units == 0 else x
         skips_f, skips_hat, skips_float = [], [], []

@@ -81,6 +81,11 @@ _NOT_PORTED = (
     ("distributed", bool, "multi-process runs, ROADMAP Queue 1 item 18"),
     ("mesh_spatial", lambda v: int(v or 1) > 1,
      "depth-sharded serving, ROADMAP Queue 1 item 18"),
+    # parameters are held in float32 (ctunet_tpu/trainer.py:331), the
+    # JAX package's default; another dtype is not served yet
+    ("param_dtype", lambda v: (v or "float32") != "float32",
+     "parameters held in another dtype than float32, ROADMAP Queue 1 "
+     "item 20"),
 )
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -348,8 +353,12 @@ class Model:
         self._interrupted = interrupted
         t0 = time.perf_counter()
         try:
-            self._train_epochs(int(p["n_epochs"]), train_step, eval_step,
-                               interrupted)
+            # debug_nans: autograd's anomaly detection for the training loop
+            # (the reference's detect_anomaly; jax_debug_nans in the JAX
+            # package, ctunet_tpu/trainer.py:184-185)
+            with torch.autograd.set_detect_anomaly(bool(p.get("debug_nans"))):
+                self._train_epochs(int(p["n_epochs"]), train_step, eval_step,
+                                   interrupted)
         finally:
             self.train_seconds = time.perf_counter() - t0
             for sig, h in prev_handlers.items():
@@ -502,20 +511,21 @@ class Model:
 
     def _make_whole_volume_predict(self, atlas=None):
         """``predict(images)`` on ``(B, D, H, W)`` device volumes: stacks the
-        atlas channel on the device and runs the bf16 engine (or, with
-        ``use_engine = False``, the plain f32 model). With ``use_int8`` the
-        int8 engine serves instead, built lazily on the first volume of
-        each shape (``ctunet_tpu/trainer.py:857-999``)."""
+        atlas channel on the device in ``compute_dtype`` and runs the bf16
+        engine (or, with ``use_engine = False``, the plain model in
+        ``compute_dtype``, as ``ctunet_tpu``'s ``steps.make_predict_fn``
+        serves ``model.apply``, ``trainer.py:1001-1003``). With
+        ``use_int8`` the int8 engine serves instead, built lazily on the
+        first volume of each shape (``ctunet_tpu/trainer.py:857-999``)."""
         dtype = self.compute_dtype
         if self.params.get("use_engine", True):
             fwd = engine.build_predict(self.params["model_class"],
                                        self.state_dict, dtype, self.device)
         else:
-            # a plain f32 copy: the trained model keeps its train settings
+            # a copy: the trained model keeps its train settings
             model = build_model(self.params["model_class"])
             model.load_state_dict(self.state_dict)
-            model = model.to(self.device).eval()
-            fwd = lambda x: model(x.float())  # noqa: E731
+            fwd = model.to(self.device).eval().configure("xla", dtype)
         use_q = bool(self.params.get("use_int8")) and self.params.get(
             "use_engine", True)
         q_by_shape = self.int8_engines

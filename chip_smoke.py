@@ -18,7 +18,11 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
    every K7a/K7b shape of both legacy models, beside the CUDA-core
    kernels it replaced; K2 with the stated tolerance; the int8 kernels
    K1q-K3q exactly (on layers quantized from a calibration on one
-   synthetic volume); K6's f32 route (the direct kernel) forward and as
+   synthetic volume): ``conv3d_tc_q`` and ``upconv_tc_q``, the int8
+   tensor-core kernels behind K1q and K3q, at every K1q and K3q shape of
+   the int8 path in zp mode and one each in symmetric mode, beside the
+   CUDA-core kernels they replaced and PyTorch's refusal of int8
+   convolutions; K6's f32 route (the direct kernel) forward and as
    input gradient, and the autograd function's ``dx``/``dw`` against
    autograd through the plain version. Each with the kernel's time beside
    the plain version's, one PyTorch library call's where one exists, and
@@ -35,8 +39,9 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
 4. int8 path: the same volumes through ``Model`` with the settings of
    ``examples/UNetSPDO/FlapRecSP2O_serve_int8.ini`` (calibrated int8 with
    AdaQuant, ``ADAQUANT_STEPS``) on whole volumes; checks the files, the
-   int8 launch counts (12 K1q, 4 K2q, 4 K3q per volume), masks identical to
-   the same int8 engine on the plain versions, and Dice against the plain
+   int8 launch counts (12 K1q, 4 K2q, 4 K3q per volume; each K1q a
+   ``conv3d_tc_q`` and each K3q an ``upconv_tc_q`` launch), masks identical
+   to the same int8 engine on the plain versions, and Dice against the plain
    f32 model of at least 0.98 (skull) and 0.95 (flap). Then two AdaQuant
    rounding searches of ``REPRO_STEPS`` steps on the same volume and scales
    must give bit-equal integers (and a third, without cuDNN's
@@ -645,12 +650,36 @@ def check_kernel_train(device, shape=SHAPE, reps: int = 3):
     return entries, failures
 
 
+def k1q_shapes(widths=(7, 14, 28, 56), cin: int = 2):
+    """The int8 engine's K1q launches per volume as ``{(ci, co, level):
+    (unit tag of its weights, launches)}``: each encoder level's two units,
+    and each decoder block's unit 1 (its unit 0 is fused into K3q), which
+    repeats its level's second encoder shape."""
+    rows = {}
+    for i, w in enumerate(widths):
+        rows[(cin, w, i)] = [f"d{i}.0", 1]
+        rows[(w, w, i)] = [f"d{i}.1", 2]
+        cin = w
+    return rows
+
+
 def check_kernels_q(sd, device, shape=SHAPE, reps_big: int = 5,
                     reps_small: int = 50, reps_plain: int = 1):
-    """K1q, K2q and K3q against their plain versions at the int8 path's
-    shapes, with the layers the int8 engine quantizes (round to nearest)
-    from a calibration on one synthetic volume, on uniform random int8
-    inputs. Exact equality. Returns ``(entries, failures)``."""
+    """K1q, K2q and K3q against their plain versions at every shape of the
+    int8 path (K1q's 8 distinct shapes, K3q's 4), in zp mode, plus one
+    symmetric-mode shape each; with the layers the int8 engine quantizes
+    (round to nearest) from a calibration on one synthetic volume, on
+    uniform random int8 inputs. Exact equality. Each K1q/K3q shape runs
+    through its wrapper (``conv3d_q_requant`` / ``upconv_q_requant``, which
+    launch the tensor-core kernels ``conv3d_tc_q`` / ``upconv_tc_q``) and is
+    timed beside the CUDA-core kernel the wrapper launched before
+    (``*_direct``, same inputs, same call), the plain version and the
+    bound; PyTorch's ``F.conv3d`` / ``F.conv_transpose3d`` are tried on the
+    int8 tensors and their refusal recorded. Logs one ``TCQ``/``UTCQ``
+    line per shape and the per-volume sums (time x launches). Returns
+    ``(entries, failures)``: each wrapper's first shape, and under
+    ``conv3d_tc_q`` / ``upconv_tc_q`` their largest launch (7->7 and
+    (14+14)->7 at full resolution)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -659,6 +688,7 @@ def check_kernels_q(sd, device, shape=SHAPE, reps_big: int = 5,
     from ctunet_tpu_torch.data import spherical_shell
     from ctunet_tpu_torch.ops.kernels import conv3d as kc
     from ctunet_tpu_torch.ops.kernels import upconv as ku
+    from ctunet_tpu_torch.ops.kernels import upsample_tc as ut
 
     gen = torch.Generator(device=device).manual_seed(1)
     d, h, w = shape
@@ -675,45 +705,91 @@ def check_kernels_q(sd, device, shape=SHAPE, reps_big: int = 5,
     # (the same kernels at the same shapes as the AdaQuant build served
     # later; a profile taken after AdaQuant's autograd lost kernel events)
     profile_device(lambda: pq(x_cal[None]), device)
+    del x_cal
     entries, failures = {}, []
 
-    def rand_q(shp):
-        return torch.randint(-128, 128, shp, generator=gen, device=device,
-                             dtype=torch.int8)
+    def rand_q(shp, zp=True):
+        return torch.randint(-128 if zp else 0, 128, shp, generator=gen,
+                             device=device, dtype=torch.int8)
 
-    def record(name, case, got, ref, ms, plain_ms, lib_ms, nbytes, nops):
+    def library(what, fn):
+        """PyTorch's one-call counterpart on the int8 tensors, timed, or
+        None where it refuses int8 (recorded as "refused")."""
+        try:
+            return time_ms(fn, 2, device)
+        except (RuntimeError, NotImplementedError) as e:
+            log(f"  {what} on int8: refused ({str(e).splitlines()[0][:90]})")
+            return None
+
+    def record(name, tc, case, got, ref, ms, d_ms, plain_ms, lib_ms, nbytes,
+               nops, launched, largest):
         err = float((got.int() - ref.int()).abs().max())
         b_ms, b_by = bound_ms(nbytes, nops, INT8_OP_PER_S)
-        lib = "none" if lib_ms is None else f"{lib_ms:.3f} ms"
-        log(f"  {name} [{case}]: max_abs_err {err:.0f} (exact required) "
-            f"{'ok' if err == 0 else 'FAIL'}; kernel {ms:.3f} ms, plain "
+        lib = "refused" if lib_ms is None else f"{lib_ms:.3f} ms"
+        ok = err == 0 and got.dtype == torch.int8 and launched
+        log(f"  {'TCQ' if tc == 'conv3d_tc_q' else 'UTCQ'} {name} [{case}]: "
+            f"max_abs_err {err:.0f} (exact required) {'ok' if ok else 'FAIL'}"
+            f"; {tc} {ms:.3f} ms ({nops / ms / 1e9:.2f} TOP/s, "
+            f"{nbytes / ms / 1e6:.1f} GB/s), direct {d_ms:.3f} ms, plain "
             f"{plain_ms:.3f} ms, library {lib}, bound {b_ms:.4f} ms "
-            f"({b_by}); {nops / ms / 1e9:.2f} TOP/s, "
-            f"{nbytes / ms / 1e6:.1f} GB/s")
-        if err != 0 or got.dtype != torch.int8:
-            failures.append(f"{name} [{case}]: max_abs_err {err} != 0")
+            f"({b_by}); {d_ms / ms:.2f}x the direct kernel")
+        if not ok:
+            failures.append(f"{name} [{case}]: max_abs_err {err} != 0, not "
+                            f"int8, or {tc} not launched")
+        if ms >= d_ms:  # kept with its numbers (PERF.md), not a failure
+            log("    SLOWER than the direct kernel at this shape")
+        entry = dict(case=case, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                     bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                     direct_ms=d_ms)
         if name not in entries:
-            entries[name] = dict(case=case, max_abs_err=err, ms=ms,
-                                 plain_ms=plain_ms, bound_ms=b_ms,
-                                 bound_by=b_by, library_ms=lib_ms)
+            entries[name] = entry
+        if largest:
+            entries[tc] = entry
+        return b_ms
 
-    # K1q: the full-resolution 7->7 conv (d0 unit1) and the 28x38x38
-    # 56->56 conv (d3 unit1); out-of-volume taps read the zero point
-    for blk, shp in ((0, lv[0]), (3, lv[3])):
-        w_, s_, b_ = layers[f"d{blk}.1"]
-        ci, co = w_.shape[3], w_.shape[4]
-        x = rand_q(shp + (ci,))
-        reps = reps_big if blk == 0 else reps_small
-        got = kc.conv3d_q_requant(x, w_, s_, b_)
-        ref = kc.conv3d_q_requant_plain(x, w_, s_, b_)
-        ms = time_ms(lambda: kc.conv3d_q_requant(x, w_, s_, b_), reps, device)
-        p_ms = time_ms(lambda: kc.conv3d_q_requant_plain(x, w_, s_, b_),
-                       reps_plain if blk == 0 else reps, device)
+    # K1q: every distinct shape, zp mode, then 7->7 at full resolution in
+    # symmetric mode (inputs 0..127, the same weights and requant)
+    k1q = [(ci, co, lvl, tag, n, True)
+           for (ci, co, lvl), (tag, n) in k1q_shapes().items()]
+    k1q.append((7, 7, 0, "d0.1", 0, False))
+    sums = [0.0, 0.0, 0.0]
+    for ci, co, lvl, tag, n, zp in k1q:
+        shp = lv[lvl]
+        w_, s_, b_ = layers[tag]
+        assert tuple(w_.shape[3:]) == (ci, co), (tag, w_.shape)
+        x = rand_q(shp + (ci,), zp)
+        big = lvl == 0
+        before = kc.conv3d_tc_q.launches
+        got = kc.conv3d_q_requant(x, w_, s_, b_, zp)
+        launched = kc.conv3d_tc_q.launches == before + 1
+        ref = kc.conv3d_q_requant_plain(x, w_, s_, b_, zp)
+        reps = reps_big if big else reps_small
+        ms = time_ms(lambda: kc.conv3d_q_requant(x, w_, s_, b_, zp), reps,
+                     device)
+        d_ms = time_ms(lambda: kc.conv3d_q_requant_direct(x, w_, s_, b_, zp),
+                       reps, device)
+        p_ms = time_ms(lambda: kc.conv3d_q_requant_plain(x, w_, s_, b_, zp),
+                       reps_plain if big else reps, device)
+        x_l = x.permute(3, 0, 1, 2)[None]
+        w_l = w_.permute(4, 3, 0, 1, 2).contiguous()
+        l_ms = library("F.conv3d", lambda: F.conv3d(x_l, w_l, padding=1))
         nbytes = math.prod(shp) * (ci + co) + w_.numel() + 8 * co
-        record("conv3d_q_requant", f"{ci}->{co} {'x'.join(map(str, shp))}",
-               got, ref, ms, p_ms, None, nbytes,
-               2 * 27 * ci * co * math.prod(shp))
-        del x, got, ref
+        nops = 2 * 27 * ci * co * math.prod(shp)
+        plan = kc.tcq_plan(shp, ci, co)
+        case = (f"{ci}->{co} {'x'.join(map(str, shp))}"
+                f"{'' if zp else ' symmetric'}")
+        b_ms = record("conv3d_q_requant", "conv3d_tc_q", case, got, ref, ms,
+                      d_ms, p_ms, l_ms, nbytes, nops, launched,
+                      (ci, co, lvl, zp) == (7, 7, 0, True))
+        log(f"    plan mf={plan.mf} nf={plan.nf} tx={1 << plan.tx_log2} "
+            f"u={plan.u} cc={plan.cc} chunks={plan.chunks}; {n} launches "
+            "per volume")
+        sums[0] += n * ms
+        sums[1] += n * d_ms
+        sums[2] += n * b_ms
+        del x, got, ref, x_l
+    log(f"  TCQ sum: 12 K1q launches per volume, conv3d_tc_q {sums[0]:.3f} "
+        f"ms, direct {sums[1]:.3f} ms, bound {sums[2]:.4f} ms")
 
     # K2q: the full-resolution pool (d0 output, 7 channels)
     x = rand_q(lv[0] + (7,))
@@ -721,38 +797,74 @@ def check_kernels_q(sd, device, shape=SHAPE, reps_big: int = 5,
     ms = time_ms(lambda: kc.maxpool2_q(x), reps_big * 4, device)
     p_ms = time_ms(lambda: kc.maxpool2_q_plain(x), reps_big * 4, device)
     x_l = x.permute(3, 0, 1, 2)[None]
-    try:  # PyTorch's max pool may refuse int8 on the card
-        l_ms = time_ms(lambda: F.max_pool3d(x_l, 2), reps_big * 4, device)
-    except RuntimeError as e:
-        log(f"  F.max_pool3d on int8: refused ({str(e).splitlines()[0]})")
-        l_ms = None
-    record("maxpool2_q", f"7ch {'x'.join(map(str, lv[0]))}", got, ref, ms,
-           p_ms, l_ms, x.numel() + got.numel(), 7 * got.numel())
-    del x, got, ref
+    l_ms = library("F.max_pool3d", lambda: F.max_pool3d(x_l, 2))
+    err = float((got.int() - ref.int()).abs().max())
+    nbytes = x.numel() + got.numel()
+    b_ms, b_by = bound_ms(nbytes, 7 * got.numel(), INT8_OP_PER_S)
+    log(f"  maxpool2_q [7ch {'x'.join(map(str, lv[0]))}]: max_abs_err "
+        f"{err:.0f} {'ok' if err == 0 else 'FAIL'}; kernel {ms:.3f} ms, "
+        f"plain {p_ms:.3f} ms, library "
+        f"{'refused' if l_ms is None else f'{l_ms:.3f} ms'}, bound "
+        f"{b_ms:.4f} ms ({b_by}); {nbytes / ms / 1e6:.1f} GB/s")
+    if err != 0:
+        failures.append(f"maxpool2_q: max_abs_err {err} != 0")
+    entries["maxpool2_q"] = dict(
+        case=f"7ch {'x'.join(map(str, lv[0]))}", max_abs_err=err, ms=ms,
+        plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=l_ms)
+    del x, got, ref, x_l
 
-    # K3q: u3 (14+14 -> 7, out 224x304x304) and u0 (56 -> 56, out 28x38x38)
-    for j, shp2 in ((3, lv[1]), (0, lv[4])):
+    # K3q: decoder block j from half-resolution level 4 - j, zp mode, then
+    # (14+14)->7 in symmetric mode
+    sums = [0.0, 0.0, 0.0]
+    for j, zp in ((0, True), (1, True), (2, True), (3, True), (3, False)):
+        shp2 = lv[4 - j]
         wa, wb, wone, s_, b_ = layers[f"u{j}.0"]
-        a = rand_q(shp2 + (wa.shape[3],))
-        b = None if wb is None else rand_q(shp2 + (wb.shape[3],))
-        co = wa.shape[4]
-        cin = wa.shape[3] + (0 if wb is None else wb.shape[3])
-        reps = reps_big if j == 3 else reps_small
-        args = (a, b, wa, wb, wone, s_, b_)
+        a = rand_q(shp2 + (wa.shape[3],), zp)
+        b = None if wb is None else rand_q(shp2 + (wb.shape[3],), zp)
+        ca, co = wa.shape[3], wa.shape[4]
+        cb = 0 if wb is None else wb.shape[3]
+        big = j == 3
+        reps = reps_big if big else reps_small
+        args = (a, b, wa, wb, wone, s_, b_, zp)
+        before = ut.upconv_tc_q.launches
         got = ku.upconv_q_requant(*args)
+        launched = ut.upconv_tc_q.launches == before + 1
         ref = ku.upconv_q_requant_plain(*args)
         ms = time_ms(lambda: ku.upconv_q_requant(*args), reps, device)
+        d_ms = time_ms(lambda: ku.upconv_q_requant_direct(*args), reps,
+                       device)
         p_ms = time_ms(lambda: ku.upconv_q_requant_plain(*args),
-                       reps_plain if j == 3 else reps, device)
+                       reps_plain if big else reps, device)
+        parts = [a, torch.full_like(a[..., :1], 127)] + (
+            [] if b is None else [b])
+        x_l = torch.cat(parts, -1).permute(3, 0, 1, 2)[None]
+        w_l = torch.cat([wa, wone[..., None, :]] + ([] if wb is None
+                                                     else [wb]), 3)
+        w_l = w_l.permute(3, 4, 0, 1, 2).contiguous()
+        l_ms = library("F.conv_transpose3d", lambda: F.conv_transpose3d(
+            x_l, w_l, stride=2, padding=1))
         out_shape = tuple(2 * s for s in shp2)
+        cin = ca + cb
         nbytes = (math.prod(shp2) * cin + math.prod(out_shape) * co
                   + wa.numel() + wone.numel() + 36 * co
                   + (0 if wb is None else wb.numel()))
-        record("upconv_q_requant",
-               f"{cin}->{co} {'x'.join(map(str, out_shape))}", got, ref, ms,
-               p_ms, None, nbytes, 2 * 8 * (cin + 1) * co * math.prod(
-                   out_shape))
-        del a, b, got, ref
+        nops = 2 * 8 * (cin + 1) * co * math.prod(out_shape)
+        plan = ut.uptcq_plan(shp2, ca, cb, co)
+        case = (f"({ca}+{cb})->{co}" if cb else f"{ca}->{co}") + (
+            f" to {'x'.join(map(str, out_shape))}"
+            f"{'' if zp else ' symmetric'}")
+        b_ms = record("upconv_q_requant", "upconv_tc_q", case, got, ref, ms,
+                      d_ms, p_ms, l_ms, nbytes, nops, launched,
+                      (j, zp) == (3, True))
+        log(f"    plan np={plan.np} mf={plan.mf} nf={plan.nf} "
+            f"tx={1 << plan.tx_log2} cg={plan.cg} chunks={plan.chunks}")
+        if zp:
+            sums[0] += ms
+            sums[1] += d_ms
+            sums[2] += b_ms
+        del a, b, got, ref, x_l
+    log(f"  UTCQ sum: 4 K3q launches per volume, upconv_tc_q {sums[0]:.3f} "
+        f"ms, direct {sums[1]:.3f} ms, bound {sums[2]:.4f} ms")
     return entries, failures
 
 
@@ -1022,8 +1134,10 @@ def serve_int8(device, work: str, shape=SHAPE, n_volumes: int = N_VOLUMES,
         resume_model=UNETSP_10K, int8_adaquant_steps=adaquant_steps)
     if device.type != "cuda":
         params["device"] = device.type
+    # every K1q and K3q launch runs on the int8 tensor-core kernels
     want = {"conv3d_q_requant": 12 * n_volumes, "maxpool2_q": 4 * n_volumes,
-            "upconv_q_requant": 4 * n_volumes}
+            "upconv_q_requant": 4 * n_volumes,
+            "conv3d_tc_q": 12 * n_volumes, "upconv_tc_q": 4 * n_volumes}
     kernels.reset_launches()
     m = Model(params=params)  # ends with the masks fetched to the host
     counts = kernels.launches()
@@ -1032,6 +1146,11 @@ def serve_int8(device, work: str, shape=SHAPE, n_volumes: int = N_VOLUMES,
         "the bf16 ones are the calibration forward)")
     if launches != want:
         failures.append(f"int8 launch counts {launches} != {want}")
+    for tc, wrapper in (("conv3d_tc_q", "conv3d_q_requant"),
+                        ("upconv_tc_q", "upconv_q_requant")):
+        if counts[tc] != counts[wrapper]:
+            failures.append(f"{tc} launched {counts[tc]} times, "
+                            f"{wrapper} {counts[wrapper]}")
     build_s = m.int8_build_seconds
     stats = dict(volumes=m.n_served, loop_s=m.serve_seconds,
                  build_s=build_s, adaquant_steps=adaquant_steps,
@@ -1664,12 +1783,16 @@ def main() -> int:
                       "ctunet_tpu/ops/pallas/convt.py:146"),
         "upconv_bn_relu": ("ctunet_tpu_torch/csrc/upconv_tc.cu",
                            "ctunet_tpu/ops/pallas/upconv.py:464"),
-        "conv3d_q_requant": ("ctunet_tpu_torch/csrc/conv3d_q.cu",
+        "conv3d_q_requant": ("ctunet_tpu_torch/csrc/conv3d_tc_q.cu",
                              "ctunet_tpu/ops/pallas/conv3d.py:1677"),
         "maxpool2_q": ("ctunet_tpu_torch/csrc/maxpool.cu",
                        "ctunet_tpu/ops/pallas/conv3d.py:1862"),
-        "upconv_q_requant": ("ctunet_tpu_torch/csrc/upconv_q.cu",
+        "upconv_q_requant": ("ctunet_tpu_torch/csrc/upconv_tc_q.cu",
                              "ctunet_tpu/ops/pallas/upconv.py:1015"),
+        "conv3d_tc_q": ("ctunet_tpu_torch/csrc/conv3d_tc_q.cu",
+                        "ctunet_tpu/ops/pallas/conv3d.py:1031"),
+        "upconv_tc_q": ("ctunet_tpu_torch/csrc/upconv_tc_q.cu",
+                        "ctunet_tpu/ops/pallas/upconv.py:464"),
         "conv3d_bias_act": ("ctunet_tpu_torch/csrc/conv3d_tc.cu",
                             "ctunet_tpu/ops/pallas/conv3d.py:453"),
         "conv3d5_bias_act": ("ctunet_tpu_torch/csrc/conv3d_tc.cu",

@@ -55,6 +55,9 @@ __device__ __forceinline__ void imad_cob(int (&acc)[COB], int xv,
   acc[7] += xv * w1.w;
 }
 
+// The shared memory one block of an H100 can opt in to.
+constexpr size_t kMaxSmemPerBlock = 232448;
+
 // Dynamic shared memory above the 48 KB default needs an opt-in per kernel.
 template <typename K>
 inline cudaError_t allow_smem(K kernel, size_t bytes) {
@@ -62,6 +65,55 @@ inline cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
+}
+
+// A thread's walk over a shared-memory slab's cells (row r, column c of
+// `cols`, 16-byte group g of `groups`), as the tensor-core kernels' slab
+// loaders fill it: cell threadIdx.x first, then every THREADS-th, stepped
+// without divisions.
+struct CellWalk {
+  int r, c, g;     // the thread's first cell
+  int dr, dc, dg;  // THREADS cells further on
+  int cols, groups;
+
+  // (r, c, g) to the thread's next cell
+  __device__ __forceinline__ void next(int& r_, int& c_, int& g_) const {
+    g_ += dg;
+    int carry = g_ >= groups;
+    g_ -= carry ? groups : 0;
+    c_ += dc + carry;
+    carry = c_ >= cols;
+    c_ -= carry ? cols : 0;
+    r_ += dr + carry;
+  }
+};
+
+template <int THREADS>
+__device__ __forceinline__ CellWalk cell_walk(int cols, int groups) {
+  const int v = threadIdx.x / groups, dv = THREADS / groups;
+  return {v / cols,  v % cols,  static_cast<int>(threadIdx.x) % groups,
+          dv / cols, dv % cols, THREADS % groups,
+          cols,      groups};
+}
+
+// The int8 requant of an exact int32 sum: r = relu(fma(f32(acc), s, b))
+// (__int2float_rn, one __fmaf_rn), clamped to 255 and less 128 in
+// zero-point mode, to 127 otherwise, rounded half to even. K1q subtracts
+// 128 in f32 before it rounds (conv3d_chain_q's epilogue); K3q rounds,
+// then subtracts as an integer (upconv_fused_chain's, ROUND_FIRST). The
+// two orders part where r - 128 rounds in f32 (r < 64), so each keeps its
+// own.
+template <bool ROUND_FIRST>
+__device__ __forceinline__ int8_t requant_s8(int acc, float s, float b,
+                                             int zp) {
+  const float r = fmaxf(__fmaf_rn(__int2float_rn(acc), s, b), 0.f);
+  if constexpr (ROUND_FIRST) {
+    const int q = __float2int_rn(fminf(r, zp ? 255.f : 127.f));
+    return static_cast<int8_t>(zp ? q - 128 : q);
+  } else {
+    return static_cast<int8_t>(__float2int_rn(
+        zp ? __fsub_rn(fminf(r, 255.f), 128.f) : fminf(r, 127.f)));
+  }
 }
 
 }  // namespace ctunet

@@ -101,10 +101,7 @@ conv3d_q_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   for (int j = 0; j < COB; ++j) {
     const int co = co0 + j;
     if (co >= Co) continue;
-    float r = fmaxf(__fmaf_rn(__int2float_rn(acc[j]), scale[co], bias[co]),
-                    0.f);
-    r = zp ? __fsub_rn(fminf(r, 255.f), 128.f) : fminf(r, 127.f);
-    op[co] = static_cast<int8_t>(__float2int_rn(r));
+    op[co] = requant_s8<false>(acc[j], scale[co], bias[co], zp);
   }
 }
 

@@ -65,8 +65,6 @@ namespace {
 
 constexpr int TC_WARPS = 4;
 constexpr int TC_THREADS = 32 * TC_WARPS;
-// the shared memory one block of an H100 can opt in to
-constexpr size_t kMaxSmemPerBlock = 232448;
 
 struct Params {
   const __nv_bfloat16* x;  // (D, H, W, Ci)

@@ -1,6 +1,8 @@
 // Tensor-core building blocks of the port's implicit-GEMM kernels
-// (conv3d_tc.cu, upconv_tc.cu): cp.async copies into shared memory with
-// zero-fill, ldmatrix fragment loads and mma.sync.m16n8k16 bf16 -> f32.
+// (conv3d_tc.cu, upconv_tc.cu and their int8 forms conv3d_tc_q.cu,
+// upconv_tc_q.cu): cp.async copies into shared memory with zero-fill,
+// ldmatrix fragment loads, mma.sync.m16n8k16 bf16 -> f32 and
+// mma.sync.m16n8k32 s8 -> s32.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -59,6 +61,62 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The int8 product: A 16x32 and B 32x8 bytes, int32 sums. A 16-byte
+// ldmatrix row holds 16 int8 values of K where it holds 8 bf16 ones, so
+// the fragments load exactly as mma_bf16's do: ldsm_x4 on four 8x16-byte
+// tiles (rows 0-7 / 8-15, bytes 0-15 / 16-31 of K) for A, and load_b on
+// [n][16 bytes] rows for B (bytes 0-15, then 16-31).
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
+                                       const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// 16 bytes of `base` from byte offset off (any alignment), as aligned word
+// loads through the read-only path; words at or past byte `total` read as
+// 0, so a group that runs past the tensor's end stays inside it. base
+// must be 16-byte aligned.
+__device__ __forceinline__ uint4 ld_bytes16(const int8_t* base, int64_t off,
+                                            int64_t total) {
+  if ((off & 15) == 0 && off + 16 <= total) {
+    return __ldg(reinterpret_cast<const uint4*>(base + off));
+  }
+  if ((off & 7) == 0 && off + 16 <= total) {
+    const uint2 lo = __ldg(reinterpret_cast<const uint2*>(base + off));
+    const uint2 hi = __ldg(reinterpret_cast<const uint2*>(base + off + 8));
+    return make_uint4(lo.x, lo.y, hi.x, hi.y);
+  }
+  const uint32_t* p = reinterpret_cast<const uint32_t*>(base);
+  const int64_t w0 = off >> 2, nw = (total + 3) >> 2;
+  const int sh = static_cast<int>(off & 3) * 8;
+  uint32_t v[5];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) v[i] = w0 + i < nw ? __ldg(p + w0 + i) : 0u;
+  return make_uint4(__funnelshift_r(v[0], v[1], sh),
+                    __funnelshift_r(v[1], v[2], sh),
+                    __funnelshift_r(v[2], v[3], sh),
+                    __funnelshift_r(v[3], v[4], sh));
+}
+
+// 8 bytes of `base` from byte offset off (any alignment), as ld_bytes16.
+__device__ __forceinline__ uint2 ld_bytes8(const int8_t* base, int64_t off,
+                                           int64_t total) {
+  if ((off & 7) == 0 && off + 8 <= total) {
+    return __ldg(reinterpret_cast<const uint2*>(base + off));
+  }
+  const uint32_t* p = reinterpret_cast<const uint32_t*>(base);
+  const int64_t w0 = off >> 2, nw = (total + 3) >> 2;
+  const int sh = static_cast<int>(off & 3) * 8;
+  uint32_t v[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) v[i] = w0 + i < nw ? __ldg(p + w0 + i) : 0u;
+  return make_uint2(__funnelshift_r(v[0], v[1], sh),
+                    __funnelshift_r(v[1], v[2], sh));
 }
 
 __device__ __forceinline__ uint32_t ld_pair(const uint16_t* s, bool lo_ok,

@@ -122,10 +122,7 @@ upconv_q_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
   for (int j = 0; j < COB; ++j) {
     const int co = co0 + j;
     if (co >= Co) continue;
-    const float r =
-        fmaxf(__fmaf_rn(__int2float_rn(acc[j]), scale[co], brow[co]), 0.f);
-    const int q = __float2int_rn(fminf(r, zp ? 255.f : 127.f));
-    out[o + co] = static_cast<int8_t>(zp ? q - 128 : q);
+    out[o + co] = requant_s8<true>(acc[j], scale[co], brow[co], zp);
   }
 }
 

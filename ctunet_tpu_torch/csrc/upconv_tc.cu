@@ -70,8 +70,6 @@ namespace {
 
 constexpr int UT_WARPS = 4;
 constexpr int UT_THREADS = 32 * UT_WARPS;
-// the shared memory one block of an H100 can opt in to
-constexpr size_t kMaxSmemPerBlock = 232448;
 
 struct Params {
   const __nv_bfloat16* a;  // (D2, H2, W2, Ca)

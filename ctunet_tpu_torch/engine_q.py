@@ -19,6 +19,9 @@ channels-last tensors and the port's kernels:
   the entry quantization, the dequant/quant affines of the mixed-precision
   splits and the head are plain torch on the device, as the JAX package
   computes them in XLA outside Pallas.
+- K1q runs ``conv3d_tc_q`` and K3q ``upconv_tc_q``, the int8 tensor-core
+  kernels, at every ``split_taps`` and ``sparse`` setting: the JAX forms
+  these select compute the same integers.
 
 The JAX chain layout carries a ones lane in every tensor (q = 127 inside
 the volume, the -128 fill outside); here it exists only inside K3q, whose
@@ -266,7 +269,10 @@ def build_predict_q(
     :param round_opt: AdaQuant overrides (:mod:`quant_opt`), by unit tag.
     :param export_scales: filled with the scales used, JAX export format.
     :param import_scales: scales in that format; skips the calibration.
-    :param sparse: the JAX constant-region skip; only 0 is served.
+    :param sparse: the JAX engine's constant-region skip (``sparse_gh`` of
+        ``conv3d_chain_q``, ``ctunet_tpu/engine_q.py:343-344``): a TPU
+        scheduling choice that changes no integer, so every value serves
+        as 0 does.
     :param split_taps: a TPU packing choice (split vs full 27-tap MXU
         matrices, ``conv3d_chain_split`` vs ``conv3d_chain_q``); both give
         the same integers, and the same K1q/K3q kernels serve either value.
@@ -275,10 +281,6 @@ def build_predict_q(
         head) or ``(B, D, H, W, 3)``. It carries ``scales`` (the export
         dict), ``round_opt`` and ``layers`` (each unit tag's int8 operands).
     """
-    if sparse:
-        raise NotImplementedError(
-            "sparse != 0 (the constant-region skip of conv3d_chain_q) is not "
-            "ported: ROADMAP Queue 2 K6")
     if model_class in engine.NOT_PORTED:
         raise NotImplementedError(
             f"{model_class} is not served by the PyTorch port yet: "
@@ -288,7 +290,7 @@ def build_predict_q(
         # build_predict_q raises a ValueError too): Model serves it in bf16
         raise Unsupported(f"int8 engine: no generic-family config for "
                           f"{model_class}")
-    del split_taps  # both forms compute the same integers
+    del split_taps, sparse  # each form computes the same integers
     cfg = engine.ENGINE_CONFIGS[model_class]
     device = resolve_device(device)
     if device.type == "cuda" and not plain and compute_dtype != torch.bfloat16:

@@ -7,12 +7,16 @@ TC     ``conv3d.conv3d_tc``           ``csrc/conv3d_tc.cu`` (bf16 k3/k5,
 UTC    ``upsample_tc.upconv_tc``      ``csrc/upconv_tc.cu`` (bf16 stride-2
                                       upsampling, tensor cores: K3, K7a,
                                       K7b)
+TCQ    ``conv3d.conv3d_tc_q``         ``csrc/conv3d_tc_q.cu`` (int8 k3 conv,
+                                      int8 tensor cores: K1q, K4a)
+UTCQ   ``upsample_tc.upconv_tc_q``    ``csrc/upconv_tc_q.cu`` (int8 K3,
+                                      int8 tensor cores: K3q, K4b)
 K1     ``conv3d.conv3d_bn_relu``      ``csrc/conv3d_tc.cu``
 K2     ``conv3d.maxpool2``            ``csrc/maxpool.cu``
 K3     ``upconv.upconv_bn_relu``      ``csrc/upconv_tc.cu``
-K1q    ``conv3d.conv3d_q_requant``    ``csrc/conv3d_q.cu``
+K1q    ``conv3d.conv3d_q_requant``    ``csrc/conv3d_tc_q.cu``
 K2q    ``conv3d.maxpool2_q``          ``csrc/maxpool.cu`` (int8)
-K3q    ``upconv.upconv_q_requant``    ``csrc/upconv_q.cu``
+K3q    ``upconv.upconv_q_requant``    ``csrc/upconv_tc_q.cu``
 K6     ``conv3d.conv3d_bias_act``     bf16: ``csrc/conv3d_tc.cu``; f32:
                                       ``csrc/conv3d.cu`` (ReLU flag)
 K5     ``conv3d.conv3d5_bias_act``    bf16: ``csrc/conv3d_tc.cu``; f32:
@@ -22,7 +26,8 @@ K7b    ``convt.convt_k2s2_dual``      ``csrc/upconv_tc.cu`` (concat of two)
 =====  ============================  ==================================
 
 The CUDA-core kernels that K1/K6/K5 (``conv3d.cu``, ``conv3d_k5.cu``), K3
-(``upconv.cu``) and K7a/K7b (``convt.cu``) launched in bf16 before the
+(``upconv.cu``) and K7a/K7b (``convt.cu``) launched in bf16, and K1q
+(``conv3d_q.cu``) and K3q (``upconv_q.cu``) in int8, before the
 tensor-core kernels stay reachable as ``*_direct`` functions, which count
 no launches.
 
@@ -35,10 +40,11 @@ from __future__ import annotations
 from typing import Dict
 
 from .conv3d import (conv3d5_bias_act, conv3d_bias_act, conv3d_bn_relu,
-                     conv3d_q_requant, conv3d_tc, maxpool2, maxpool2_q)
+                     conv3d_q_requant, conv3d_tc, conv3d_tc_q, maxpool2,
+                     maxpool2_q)
 from .convt import convt_k2s2, convt_k2s2_dual
 from .upconv import upconv_bn_relu, upconv_q_requant
-from .upsample_tc import upconv_tc
+from .upsample_tc import upconv_tc, upconv_tc_q
 
 WRAPPERS = {
     "conv3d_bn_relu": conv3d_bn_relu,
@@ -53,6 +59,8 @@ WRAPPERS = {
     "convt_k2s2_dual": convt_k2s2_dual,
     "conv3d_tc": conv3d_tc,
     "upconv_tc": upconv_tc,
+    "conv3d_tc_q": conv3d_tc_q,
+    "upconv_tc_q": upconv_tc_q,
 }
 
 

@@ -18,13 +18,17 @@ In bf16, K1, K6 and K5 are one kernel, :func:`conv3d_tc`
 :func:`pack_tc_weights` lays out once per weight tensor. In f32, K6 and K5
 run the direct kernels ``csrc/conv3d.cu`` and ``csrc/conv3d_k5.cu`` (the
 tensor cores' f32 mode is TF32); their bf16 forms are kept as
-``*_direct`` functions for timing beside the new kernel. The int8 kernels
-are ``csrc/conv3d_q.cu`` and ``csrc/maxpool.cu``.
+``*_direct`` functions for timing beside the new kernel. K1q runs the int8
+tensor-core kernel :func:`conv3d_tc_q` (``csrc/conv3d_tc_q.cu``, plan
+:func:`tcq_plan`, weights :func:`pack_tcq_weights`); the CUDA-core kernel
+``csrc/conv3d_q.cu`` it launched before stays reachable as
+:func:`conv3d_q_requant_direct`. K2q is ``csrc/maxpool.cu``.
 
 Each wrapper launches its kernel for a CUDA tensor (or raises) and takes
 its plain PyTorch version only for a tensor on the CPU. ``<wrapper>.launches``
 counts kernel launches, so a run can show that its path went through the
-kernels; a bf16 K1/K6/K5 call counts on its wrapper and on ``conv3d_tc``.
+kernels; a bf16 K1/K6/K5 call counts on its wrapper and on ``conv3d_tc``,
+a K1q call on its wrapper and on ``conv3d_tc_q``.
 """
 
 from __future__ import annotations
@@ -539,6 +543,18 @@ def conv3d_q_requant_plain(x: torch.Tensor, w: torch.Tensor,
     return torch.round(res).to(torch.int8)
 
 
+def _q_checks(x, w, scale, bias, what: str):
+    """Check K1q's operands and return ``(D, H, W, Ci, Co)``."""
+    _require_cuda(x, what)
+    d, h, wd, ci = x.shape
+    co = w.shape[-1]
+    _check(x, "x", torch.int8)
+    _check(w, "w", torch.int8, (3, 3, 3, ci, co), x.device)
+    _check(scale, "scale", torch.float32, (co,), x.device)
+    _check(bias, "bias", torch.float32, (co,), x.device)
+    return d, h, wd, ci, co
+
+
 def conv3d_q_requant(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                      bias: torch.Tensor, zp: bool = True) -> torch.Tensor:
     """K1q on int8 ``x`` ``(D, H, W, Ci)`` with int8 ``w``
@@ -547,18 +563,32 @@ def conv3d_q_requant(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     - 128)`` in ``zp`` mode (out-of-volume taps read -128), else
     ``round(min(relu(.), 127))`` (they read 0).
 
-    CPU tensor: the plain version. CUDA tensor: the ``csrc/conv3d_q.cu``
-    kernel on the current stream, or an error.
+    CPU tensor: the plain version. CUDA tensor: the int8 tensor-core
+    kernel :func:`conv3d_tc_q` (``csrc/conv3d_tc_q.cu``) on the current
+    stream, or an error.
     """
     if x.device.type == "cpu":
         return conv3d_q_requant_plain(x, w, scale, bias, zp)
-    _require_cuda(x, "conv3d_q_requant")
-    d, h, wd, ci = x.shape
-    co = w.shape[-1]
-    _check(x, "x", torch.int8)
-    _check(w, "w", torch.int8, (3, 3, 3, ci, co), x.device)
-    _check(scale, "scale", torch.float32, (co,), x.device)
-    _check(bias, "bias", torch.float32, (co,), x.device)
+    _q_checks(x, w, scale, bias, "conv3d_q_requant")
+    out = conv3d_tc_q(x, w, scale, bias, zp)
+    if out.numel():  # an empty volume launches nothing
+        conv3d_q_requant.launches += 1
+    return out
+
+
+conv3d_q_requant.launches = 0
+
+
+def conv3d_q_requant_direct(x: torch.Tensor, w: torch.Tensor,
+                            scale: torch.Tensor, bias: torch.Tensor,
+                            zp: bool = True) -> torch.Tensor:
+    """K1q on the CUDA cores (``csrc/conv3d_q.cu``), the kernel
+    :func:`conv3d_q_requant` launched before ``conv3d_tc_q``: kept for
+    timing beside it (``chip_smoke.py`` phase 2); the plain version on CPU
+    tensors. Counts no launches."""
+    if x.device.type == "cpu":
+        return conv3d_q_requant_plain(x, w, scale, bias, zp)
+    d, h, wd, ci, co = _q_checks(x, w, scale, bias, "conv3d_q_requant_direct")
     out = torch.empty((d, h, wd, co), dtype=torch.int8, device=x.device)
     if out.numel() == 0:
         return out
@@ -566,12 +596,207 @@ def conv3d_q_requant(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                         [_P] * 5 + [_I] * 7 + [_P])
     rc = fn(x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
             out.data_ptr(), d, h, wd, ci, co, int(zp), *build.stream_args(x))
-    build.check(rc, "conv3d_q_requant")
-    conv3d_q_requant.launches += 1
+    build.check(rc, "conv3d_q_requant_direct")
     return out
 
 
-conv3d_q_requant.launches = 0
+# --------------------------------------------------------------------------
+# conv3d_tc_q: int8 Conv3D(k3, SAME) + requant on the int8 tensor cores,
+# the kernel of K1q (and K4a)
+# --------------------------------------------------------------------------
+
+
+# z-march (a block over several output planes, one slab load a plane):
+# the most shared memory its resident weights, three slabs and the output
+# tile may take, and the most planes a block takes
+TCQ_ZM_BYTES = 48 * 1024
+TCQ_ZB_MAX = 8
+
+
+class TcqPlan(NamedTuple):
+    """Launch parameters of ``csrc/conv3d_tc_q.cu`` for one layer at one
+    shape: ``mf`` m16 fragments per warp (4 warps: ``64 * mf`` voxels a
+    tile, ``1 << tx_log2`` of them along W); ``nf`` n8 tiles per block;
+    ``u`` the bytes a voxel takes in a 16-byte k-group (4 or 8: ``16 //
+    u`` neighbours along x share a group, for Ci <= u; 16: a group holds 16
+    channels of one voxel); ``cc`` input channels per stage (``u``, or a
+    multiple of 16), ``chunks`` stages per input plane; ``zb`` output
+    planes a block marches over (one chunk only), 0 for one plane through
+    the two-stage ring."""
+
+    mf: int
+    nf: int
+    tx_log2: int
+    u: int
+    cc: int
+    chunks: int
+    zb: int = 0
+
+    @property
+    def tile(self):
+        """(TY, TX): the output tile of one block in one z plane."""
+        tx = 1 << self.tx_log2
+        return 64 * self.mf // tx, tx
+
+    def n_tiles(self, co: int) -> int:
+        return -(-co // (8 * self.nf))
+
+    @property
+    def g(self) -> int:
+        """Voxels along x in one slab slot (one k-group)."""
+        return 16 // self.u
+
+    @property
+    def nx(self) -> int:
+        """k-groups along x per (dz, dy): taps dx = xg * g .. + g - 1."""
+        return -(-3 // self.g)
+
+    @property
+    def c16s(self) -> int:
+        """16-byte channel groups of one slot."""
+        return self.cc // 16 if self.u == 16 else 1
+
+    @property
+    def cs(self) -> int:
+        """Bytes of one slab slot: an odd number of 16-byte words."""
+        return 16 * (self.c16s if self.c16s % 2 else self.c16s + 1)
+
+    def groups(self) -> int:
+        """k-groups of one stage (3 dy x nx x c16s), rounded up to even
+        (one k32 product takes two)."""
+        return (3 * self.nx * self.c16s + 1) // 2 * 2
+
+    def smem(self, zb: int) -> int:
+        """Shared memory of one block: the tap table, then the z-march's
+        output tile, resident weights and three slabs (``zb`` > 0) or the
+        two-stage ring (which the output tile reuses)."""
+        ty, tx = self.tile
+        stage = ((ty + 2) * (tx + 2) * self.cs
+                 + self.groups() * 8 * self.nf * 16)
+        tile = 64 * self.mf * 8 * self.nf
+        tab = (self.groups() * 4 + 15) // 16 * 16
+        return tab + (tile + 3 * stage if zb else max(2 * stage, tile))
+
+
+def tcq_channels(ci: int, nf: int):
+    """``(u, cc, chunks)`` of a ``ci``-channel int8 input: ``u`` = 4 or 8
+    where ``ci`` fits (one chunk); else 16-byte channel groups, the fewest
+    padded channels, then the widest chunk whose stage fits
+    ``TC_STAGE_BYTES`` at the largest halo slab of ``TC_TILES``."""
+    if ci <= 8:
+        u = 4 if ci <= 4 else 8
+        return u, u, 1
+    slab = max((64 * mf // (1 << t) + 2) * ((1 << t) + 2)
+               for mf, t in TC_TILES)
+    best = None
+    for cc in range(16, -(-ci // 16) * 16 + 1, 16):
+        plan = TcqPlan(4, nf, 3, 16, cc, 1)
+        stage = slab * plan.cs + plan.groups() * 8 * nf * 16
+        if cc > 16 and stage > TC_STAGE_BYTES:
+            continue
+        chunks = -(-ci // cc)
+        key = (chunks * cc, -cc)
+        if best is None or key < best[0]:
+            best = (key, cc, chunks)
+    return 16, best[1], best[2]
+
+
+def tcq_plan(shape, ci: int, co: int) -> TcqPlan:
+    """The tile plan of an int8 k3 conv ``ci -> co`` over a ``(D, H, W)``
+    volume: ``nf`` and the M tile as :func:`tc_plan` chooses them, the
+    groups by :func:`tcq_channels`; the z-march where the input is one
+    chunk and its shared memory fits ``TCQ_ZM_BYTES``, with as many planes
+    a block (up to ``TCQ_ZB_MAX``) as keep four blocks for each SM."""
+    bf = tc_plan(shape, 16, co, 3)  # the M and N tiles depend on shape, co
+    plan = TcqPlan(bf.mf, bf.nf, bf.tx_log2, *tcq_channels(ci, bf.nf))
+    if plan.chunks > 1 or plan.smem(1) > TCQ_ZM_BYTES:
+        return plan
+    d, h, w = shape
+    ty, tx = plan.tile
+    per_plane = -(-h // ty) * -(-w // tx) * plan.n_tiles(co)
+    zb = max(1, min(TCQ_ZB_MAX, d * per_plane // (4 * TC_SMS)))
+    return plan._replace(zb=zb)
+
+
+def tcq_blocks(shape, co: int, plan: TcqPlan):
+    """The output planes and tiles of the kernel's grid, with its index
+    arithmetic: ``(z, y0, x0, n0, vy, vx, ncol)`` for each plane ``z`` a
+    block computes (``zb`` consecutive planes from ``blockIdx.y * zb``, or
+    plane ``blockIdx.y``)."""
+    d = shape[0]
+    step = plan.zb or 1
+    for zblk in range(-(-d // step)):  # blockIdx.y
+        for blk in tc_blocks((1,) + tuple(shape[1:]), co, plan):
+            for z in range(zblk * step, min(zblk * step + step, d)):
+                yield (z,) + blk[1:]
+
+
+def pack_tcq_weights(w: torch.Tensor, plan: TcqPlan) -> torch.Tensor:
+    """int8 ``(3, 3, 3, Ci, Co)`` weights -> the kernel's B operand
+    ``(n_tiles, 3, chunks, groups, 8 * nf, 16)``: per N tile, input plane
+    dz and channel chunk, one stage's k-groups (group ``(dy * nx + xg) *
+    c16s + c16``), each ``[n][16 bytes]``; byte ``j * unit + i`` of a group
+    is input channel ``chunk * cc + 16 * c16 + i`` of tap ``dx = xg * g +
+    j`` (``unit`` = ``u``, and ``g`` = 1 where ``u`` = 16). Zeros pad the
+    channels, the taps past dx = 2, Co and an odd group count."""
+    ci, co = w.shape[3], w.shape[4]
+    bn, nt = 8 * plan.nf, plan.n_tiles(co)
+    g, nx, c16s = plan.g, plan.nx, plan.c16s
+    unit = 16 if plan.u == 16 else plan.u
+    wz = w.new_zeros((3, 3, nx * g, plan.chunks * c16s * unit, nt * bn))
+    wz[:, :, :3, :ci, :co] = w
+    t = wz.reshape(3, 3, nx, g, plan.chunks, c16s, unit, nt, bn)
+    # (nt, dz, chunk, dy, xg, c16, n, voxel of the group, byte)
+    t = t.permute(7, 0, 4, 1, 2, 5, 8, 3, 6).reshape(
+        nt, 3, plan.chunks, 3 * nx * c16s, bn, 16)
+    return F.pad(t, (0, 0, 0, 0, 0, plan.groups() - 3 * nx * c16s)
+                 ).contiguous()
+
+
+def tcq_packed(w: torch.Tensor, plan: TcqPlan) -> torch.Tensor:
+    """:func:`pack_tcq_weights`, once per weight tensor (as
+    :func:`tc_packed`)."""
+    key = (plan.nf, plan.u, plan.cc, plan.chunks,
+           None if w.is_inference() else w._version)
+    hit = getattr(w, "_tcq_packed", None)
+    if hit is None or hit[0] != key:
+        hit = (key, pack_tcq_weights(w, plan))
+        w._tcq_packed = hit
+    return hit[1]
+
+
+def conv3d_tc_q(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                bias: torch.Tensor, zp: bool = True) -> torch.Tensor:
+    """The int8 tensor-core conv: K1q's function (:func:`conv3d_q_requant`)
+    on int8 ``x`` ``(D, H, W, Ci)``, ``w`` ``(3, 3, 3, Ci, Co)``, f32
+    ``scale``/``bias`` ``(Co,)``.
+
+    CPU tensor: the plain version. CUDA tensor: the ``csrc/conv3d_tc_q.cu``
+    kernel on the current stream with :func:`tcq_plan`'s tiles and
+    :func:`tcq_packed` weights, or an error.
+    """
+    if x.device.type == "cpu":
+        return conv3d_q_requant_plain(x, w, scale, bias, zp)
+    d, h, wd, ci, co = _q_checks(x, w, scale, bias, "conv3d_tc_q")
+    if x.data_ptr() % 16:
+        raise ValueError("conv3d_tc_q: x must start on a 16-byte boundary")
+    out = torch.empty((d, h, wd, co), dtype=torch.int8, device=x.device)
+    if out.numel() == 0:
+        return out
+    plan = tcq_plan((d, h, wd), ci, co)
+    wp = tcq_packed(w, plan)
+    fn = build.function("conv3d_tc_q", "ctunet_conv3d_tc_q",
+                        [_P] * 5 + [_I] * 14 + [_P])
+    rc = fn(x.data_ptr(), wp.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), d, h, wd, ci, co, int(bool(zp)), plan.mf,
+            plan.nf, plan.tx_log2, plan.u, plan.cc, plan.chunks, plan.zb,
+            *build.stream_args(x))
+    build.check(rc, "conv3d_tc_q")
+    conv3d_tc_q.launches += 1
+    return out
+
+
+conv3d_tc_q.launches = 0
 
 
 # --------------------------------------------------------------------------

@@ -17,7 +17,10 @@ In bf16, K3 runs the tensor-core kernel :func:`~.upsample_tc.upconv_tc`
 (``csrc/upconv_tc.cu``, shared with K7a/K7b; each launch also counts on
 ``upconv_tc``); the CUDA-core kernel ``csrc/upconv.cu`` it launched before
 stays reachable as :func:`upconv_bn_relu_direct` for timing beside it. K3q
-runs ``csrc/upconv_q.cu``.
+runs the int8 tensor-core kernel :func:`~.upsample_tc.upconv_tc_q`
+(``csrc/upconv_tc_q.cu``, each launch also counting on ``upconv_tc_q``);
+the CUDA-core kernel ``csrc/upconv_q.cu`` it launched before stays
+reachable as :func:`upconv_q_requant_direct`.
 
 Input channels of ``R``: ``[a (ca) | ones | b (cb) | zero]`` as
 :func:`augment_upconv_kernel` lays them out; the zero column (operand b's
@@ -36,7 +39,7 @@ import torch.nn.functional as F
 
 from . import build
 from .conv3d import _check, _require_cuda, fma_requant, fold_bn
-from .upsample_tc import upconv_tc
+from .upsample_tc import upconv_tc, upconv_tc_q
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -251,19 +254,9 @@ def upconv_q_requant_plain(a: torch.Tensor, b: Optional[torch.Tensor],
     return torch.round(torch.clamp_max(res, 127.0)).to(torch.int8)
 
 
-def upconv_q_requant(a: torch.Tensor, b: Optional[torch.Tensor],
-                     wa: torch.Tensor, wb: Optional[torch.Tensor],
-                     wone: torch.Tensor, scale: torch.Tensor,
-                     bias: torch.Tensor, zp: bool = True) -> torch.Tensor:
-    """K3q on int8 half-resolution ``a`` (and skip ``b``) -> int8 full
-    resolution (arguments as :func:`upconv_q_requant_plain`).
-
-    CPU tensor: the plain version. CUDA tensor: the ``csrc/upconv_q.cu``
-    kernel on the current stream, or an error.
-    """
-    if a.device.type == "cpu":
-        return upconv_q_requant_plain(a, b, wa, wb, wone, scale, bias, zp)
-    _require_cuda(a, "upconv_q_requant")
+def upconv_q_checks(a, b, wa, wb, wone, scale, bias, what: str):
+    """Check K3q's operands and return ``(D2, H2, W2, Ca, Cb, Co)``."""
+    _require_cuda(a, what)
     d2, h2, w2, ca = a.shape
     co = wa.shape[-1]
     cb = 0 if b is None else b.shape[-1]
@@ -275,6 +268,45 @@ def upconv_q_requant(a: torch.Tensor, b: Optional[torch.Tensor],
     if b is not None:
         _check(b, "b", torch.int8, (d2, h2, w2, cb), a.device)
         _check(wb, "wb", torch.int8, (4, 4, 4, cb, co), a.device)
+    return d2, h2, w2, ca, cb, co
+
+
+def upconv_q_requant(a: torch.Tensor, b: Optional[torch.Tensor],
+                     wa: torch.Tensor, wb: Optional[torch.Tensor],
+                     wone: torch.Tensor, scale: torch.Tensor,
+                     bias: torch.Tensor, zp: bool = True) -> torch.Tensor:
+    """K3q on int8 half-resolution ``a`` (and skip ``b``) -> int8 full
+    resolution (arguments as :func:`upconv_q_requant_plain`).
+
+    CPU tensor: the plain version. CUDA tensor: the int8 tensor-core
+    kernel :func:`~.upsample_tc.upconv_tc_q` (``csrc/upconv_tc_q.cu``) on
+    the current stream, or an error.
+    """
+    if a.device.type == "cpu":
+        return upconv_q_requant_plain(a, b, wa, wb, wone, scale, bias, zp)
+    upconv_q_checks(a, b, wa, wb, wone, scale, bias, "upconv_q_requant")
+    out = upconv_tc_q(a, b, wa, wb, wone, scale, bias, zp)
+    if out.numel():  # an empty volume launches nothing
+        upconv_q_requant.launches += 1
+    return out
+
+
+upconv_q_requant.launches = 0
+
+
+def upconv_q_requant_direct(a: torch.Tensor, b: Optional[torch.Tensor],
+                            wa: torch.Tensor, wb: Optional[torch.Tensor],
+                            wone: torch.Tensor, scale: torch.Tensor,
+                            bias: torch.Tensor,
+                            zp: bool = True) -> torch.Tensor:
+    """K3q on the CUDA cores (``csrc/upconv_q.cu``), the kernel
+    :func:`upconv_q_requant` launched before ``upconv_tc_q``: kept for
+    timing beside it (``chip_smoke.py`` phase 2); the plain version on CPU
+    tensors. Counts no launches."""
+    if a.device.type == "cpu":
+        return upconv_q_requant_plain(a, b, wa, wb, wone, scale, bias, zp)
+    d2, h2, w2, ca, cb, co = upconv_q_checks(a, b, wa, wb, wone, scale,
+                                             bias, "upconv_q_requant_direct")
     out = torch.empty((2 * d2, 2 * h2, 2 * w2, co), dtype=torch.int8,
                       device=a.device)
     if out.numel() == 0:
@@ -286,9 +318,5 @@ def upconv_q_requant(a: torch.Tensor, b: Optional[torch.Tensor],
             wone.data_ptr(), scale.data_ptr(), bias.data_ptr(),
             out.data_ptr(), d2, h2, w2, ca, cb, co, int(zp),
             *build.stream_args(a))
-    build.check(rc, "upconv_q_requant")
-    upconv_q_requant.launches += 1
+    build.check(rc, "upconv_q_requant_direct")
     return out
-
-
-upconv_q_requant.launches = 0

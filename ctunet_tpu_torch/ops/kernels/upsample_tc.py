@@ -20,6 +20,13 @@ kernel's grid arithmetic. :func:`upconv_tc` launches the kernel for bf16
 CUDA tensors (or raises) and runs the plain version of K3 or K7 for a CPU
 tensor; ``upconv_tc.launches`` counts kernel launches, and equals on every
 path the launches of the K3, K7a and K7b wrappers, which call it.
+
+K3q, the int8 mode of K3, has a kernel of its own on the int8 tensor cores,
+:func:`upconv_tc_q` (``csrc/upconv_tc_q.cu``), with the same tiles and slot
+enumeration: :func:`uptcq_plan` adds the int8 channel groups (the ones
+lane rides operand a's padding), :func:`pack_weights_q` the packing;
+``upconv_tc_q.launches`` equals on every path the launches of
+``upconv.upconv_q_requant``, which calls it.
 """
 
 from __future__ import annotations
@@ -355,3 +362,161 @@ def upconv_tc_work(shape2, ca: int, cb: int, co: int, k3: bool):
               + 2 * (64 if k3 else 8) * (ca + cb + (1 if k3 else 0)) * co
               + 4 * co)
     return nbytes, 2 * (ca + cb) * co * taps
+
+
+# --------------------------------------------------------------------------
+# upconv_tc_q: K3q (int8 K3, requant) on the int8 tensor cores
+# --------------------------------------------------------------------------
+
+
+class UpqPlan(NamedTuple):
+    """Launch parameters of ``csrc/upconv_tc_q.cu`` for one K3q layer at
+    one shape: ``np``, ``mf``, ``nf``, ``tx_log2`` as :class:`UpPlan`'s
+    (K3); the input lanes as 16-byte groups, ``ga`` of operand a with the
+    ones lane (``ceil((Ca + 1) / 16)``) then ``gb`` of b, walked in
+    ``chunks`` stages of ``cg`` groups (even: a k32 step takes two) per
+    input plane."""
+
+    np: int
+    mf: int
+    nf: int
+    tx_log2: int
+    cg: int
+    chunks: int
+    ga: int
+    gb: int
+
+    @property
+    def geometry(self) -> UpPlan:
+        """The K3 :class:`UpPlan` of the same tiles: its grid
+        (:func:`uptc_blocks`), planes and slots (:func:`slot_table`) are
+        this kernel's."""
+        return UpPlan(True, self.np, self.mf, self.nf, self.tx_log2, 16, 1,
+                      0)
+
+    @property
+    def tile(self):
+        return self.geometry.tile
+
+    def n_tiles(self, co: int) -> int:
+        return -(-co // (8 * self.nf))
+
+
+def uptcq_groups(ca: int, cb: int, np_: int, nf: int):
+    """``(cg, chunks, ga, gb)``: the fewest padded groups (``chunks *
+    cg``), then the widest even chunk whose stage (slab of ``16 * (cg + 1)``
+    bytes a voxel, ``4 * np_`` weight slots) fits ``UT_STAGE_BYTES`` at the
+    largest slab of ``UT_TILES``."""
+    ga, gb = -(-(ca + 1) // 16), -(-cb // 16)
+    gt = ga + gb
+    slab = max((64 * mf // (1 << t) + 2) * ((1 << t) + 2)
+               for mf, t in UT_TILES)
+    best = None
+    for cg in range(2, gt + gt % 2 + 1, 2):
+        stage = slab * 16 * (cg + 1) + 4 * np_ * cg * 8 * nf * 16
+        if cg > 2 and stage > UT_STAGE_BYTES:
+            continue
+        chunks = -(-gt // cg)
+        key = (chunks * cg, -cg)
+        if best is None or key < best[0]:
+            best = (key, cg, chunks)
+    return best[1], best[2], ga, gb
+
+
+def uptcq_plan(shape2, ca: int, cb: int, co: int) -> UpqPlan:
+    """The tile plan of K3q from half-resolution operands of ``ca`` (and
+    ``cb``) int8 channels over ``shape2`` to ``co`` channels: the tiles
+    :func:`uptc_plan` picks for K3 (its estimate counts bytes of shared
+    memory per k step, the same in int8), the groups by
+    :func:`uptcq_groups`."""
+    bf = uptc_plan(shape2, ca, cb, co, True)
+    return UpqPlan(bf.np, bf.mf, bf.nf, bf.tx_log2,
+                   *uptcq_groups(ca, cb, bf.np, bf.nf))
+
+
+def pack_weights_q(wa: torch.Tensor, wb: Optional[torch.Tensor],
+                   wone: torch.Tensor, plan: UpqPlan) -> torch.Tensor:
+    """K3q's int8 weights -> the kernel's operand ``(n_pg, n_tiles, n_dz,
+    chunks, slots, cg, 8 * nf, 16)``: the composite's rows as the kernel's
+    lanes, ``[wa | wone]`` padded to ``16 * ga`` then ``wb`` padded to ``16
+    * gb``, per (parity, tap) ``R[3 - p - 2t]``, laid out per parity group,
+    N tile, input plane and chunk as the stage's slots of
+    :func:`slot_table`, each ``[group][n][16 bytes]``; zeros pad the lanes,
+    ``Co`` and the slots a plane does not use."""
+    co = wa.shape[-1]
+    bn, nt = 8 * plan.nf, plan.n_tiles(co)
+    geo = plan.geometry
+    wa1 = torch.cat([wa, wone[..., None, :]], 3)
+    parts = [F.pad(_tap_weights(wa1, True),
+                   (0, 0, 0, 16 * plan.ga - wa1.shape[3]))]
+    if plan.gb:
+        parts.append(F.pad(_tap_weights(wb, True),
+                           (0, 0, 0, 16 * plan.gb - wb.shape[3])))
+    wt = torch.cat(parts, 1)
+    wt = F.pad(wt, (0, nt * bn - co,
+                    0, 16 * plan.chunks * plan.cg - wt.shape[1]))
+    wz = torch.cat([wt, wt.new_zeros((1,) + wt.shape[1:])])
+    idx = torch.full((geo.n_pg, geo.n_dz, geo.slots), wt.shape[0])
+    for pg in range(geo.n_pg):
+        for dzi, row in enumerate(slot_table(geo, pg)):
+            for s, (_, _, p, t) in enumerate(row):
+                idx[pg, dzi, s] = p * 8 + t
+    g = wz[idx].reshape(geo.n_pg, geo.n_dz, geo.slots, plan.chunks, plan.cg,
+                        16, nt, bn)
+    return g.permute(0, 6, 1, 3, 2, 4, 7, 5).contiguous()
+
+
+def uptcq_packed(wa: torch.Tensor, wb: Optional[torch.Tensor],
+                 wone: torch.Tensor, plan: UpqPlan) -> torch.Tensor:
+    """:func:`pack_weights_q`, once per weight tensor (as
+    :func:`uptc_packed`)."""
+    def ver(t):
+        return None if t is None or t.is_inference() else (id(t), t._version)
+
+    key = (plan.np, plan.nf, plan.cg, plan.chunks, ver(wa), ver(wb),
+           ver(wone), id(wb), id(wone))
+    hit = getattr(wa, "_uptcq_packed", None)
+    if hit is None or hit[0] != key:
+        hit = (key, pack_weights_q(wa, wb, wone, plan))
+        wa._uptcq_packed = hit
+    return hit[1]
+
+
+def upconv_tc_q(a: torch.Tensor, b: Optional[torch.Tensor],
+                wa: torch.Tensor, wb: Optional[torch.Tensor],
+                wone: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                zp: bool = True) -> torch.Tensor:
+    """K3q's function (:func:`~.upconv.upconv_q_requant`, same arguments)
+    on the int8 tensor cores.
+
+    CPU tensor: the plain version. CUDA tensor: the ``csrc/upconv_tc_q.cu``
+    kernel on the current stream with :func:`uptcq_plan`'s tiles and
+    :func:`uptcq_packed` weights, or an error.
+    """
+    from .upconv import upconv_q_checks, upconv_q_requant_plain
+
+    if a.device.type == "cpu":
+        return upconv_q_requant_plain(a, b, wa, wb, wone, scale, bias, zp)
+    d2, h2, w2, ca, cb, co = upconv_q_checks(a, b, wa, wb, wone, scale,
+                                             bias, "upconv_tc_q")
+    if a.data_ptr() % 16 or (b is not None and b.data_ptr() % 16):
+        raise ValueError("upconv_tc_q: a and b must start on a 16-byte "
+                         "boundary")
+    out = torch.empty((2 * d2, 2 * h2, 2 * w2, co), dtype=torch.int8,
+                      device=a.device)
+    if out.numel() == 0:
+        return out
+    plan = uptcq_plan((d2, h2, w2), ca, cb, co)
+    wp = uptcq_packed(wa, wb, wone, plan)
+    fn = build.function("upconv_tc_q", "ctunet_upconv_tc_q",
+                        [_P] * 6 + [_I] * 14 + [_P])
+    rc = fn(a.data_ptr(), None if b is None else b.data_ptr(), wp.data_ptr(),
+            scale.data_ptr(), bias.data_ptr(), out.data_ptr(), d2, h2, w2,
+            ca, cb, co, int(bool(zp)), plan.np, plan.mf, plan.nf,
+            plan.tx_log2, plan.cg, plan.chunks, *build.stream_args(a))
+    build.check(rc, "upconv_tc_q")
+    upconv_tc_q.launches += 1
+    return out
+
+
+upconv_tc_q.launches = 0

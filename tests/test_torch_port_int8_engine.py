@@ -7,7 +7,7 @@ record the same per-channel maxima up to bf16 rounding (2 bf16 ulps,
 relative). Given the JAX scales (``import_scales``), the int8 activations
 are exact integers on both sides, so the masks are equal and the f32 head
 differs only in summation order (probabilities within 1e-5), for both
-``split_taps`` forms of the JAX build.
+``split_taps`` forms of the JAX build and for its ``sparse`` skip.
 """
 
 import os
@@ -133,11 +133,31 @@ def test_quantile_calibration_close_to_jax(net):
     assert worst <= QUANTILE_RTOL
 
 
+def test_engine_serves_sparse_as_dense(net, jax_split):
+    """``sparse = 2`` (the JAX engine's constant-region skip, ``sparse_gh``
+    of ``conv3d_chain_q``) changes no integer: the port's sparse engine
+    equals its dense one bit for bit, and the JAX engine built with the
+    same ``sparse`` (full taps, interpret mode), given the same scales, at
+    16x16x16, the smallest shape with even extents at every pool level
+    (scales are per channel, not per shape)."""
+    vs, sd, _ = net
+    scales, _ = jax_split
+    x = skull_and_atlas((16, 16, 16))
+    want = [np.asarray(o, np.float32) for o in jq.build_predict_q(
+        "UNetSP", vs, jnp.asarray(x[0]), compute_dtype=jnp.float32,
+        interpret=True, import_scales=scales, sparse=2)(jnp.asarray(x))]
+    xt = torch.from_numpy(x)
+    got, dense = (tq.build_predict_q("UNetSP", sd, xt[0], torch.float32,
+                                     device="cpu", import_scales=scales,
+                                     sparse=sp)(xt) for sp in (2, 0))
+    for g, d in zip(got, dense):
+        assert torch.equal(g, d)
+    assert_outputs_match(got, want)
+
+
 def test_engine_refuses_what_it_does_not_serve(net):
     _, sd, x = net
     xt = torch.from_numpy(x[0])
-    with pytest.raises(NotImplementedError, match="K6"):
-        tq.build_predict_q("UNetSP", sd, xt, device="cpu", sparse=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tq.build_predict_q("UNetSPSmall", sd, xt, device="cpu")
     with pytest.raises(tq.Unsupported):

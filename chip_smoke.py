@@ -24,9 +24,13 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
    CUDA-core kernels they replaced and PyTorch's refusal of int8
    convolutions; K6's f32 route (the direct kernel) forward and as
    input gradient, and the autograd function's ``dx``/``dw`` against
-   autograd through the plain version. Each with the kernel's time beside
-   the plain version's, one PyTorch library call's where one exists, and
-   the card's bound.
+   autograd through the plain version; the f32 kernels of the f32 serving
+   paths (``conv3d_f32`` behind K1, ``conv3d5_f32`` behind K5,
+   ``maxpool2_f32`` behind K2, ``upconv_f32`` behind K3, ``convt_f32``
+   behind K7a/K7b) within ``f32_tol`` at every f32 shape of the paths
+   (``f32_shapes``). Each with the kernel's time beside the plain
+   version's, one PyTorch library call's where one exists (cuDNN, TF32
+   off), and the card's bound.
 3. bf16 path: serves synthetic broken skulls (``spherical_shell`` with a
    hole punched; atlas ``spherical_shell(radius_frac=0.42)``) through the
    ``Model`` test path with the committed ``unetsp_10k`` weights, checks
@@ -76,6 +80,23 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
    CUDA events. Then one volume of
    ``recAE_v2_fixed`` (``AutoImplant2020_woShapePrior.ini``, ``FlapRec``, 1
    input channel) with the same checks.
+7. f32 serving: ``Model`` with ``compute_dtype = float32`` through every
+   entry point that serves: phase 3's volumes through UNetSP, one
+   ``UNet4_2IC`` and one ``recAE_v2_fixed`` volume from phase 6's seeded
+   weights, one int8 volume with the first encoder block in f32
+   (``int8_bf16_head = 1``, round to nearest), and an f32 training run
+   (``conv_impl = chain``, ``N_TRAIN_F32`` train steps and one eval step
+   at full size) that then serves one volume from its weights. Checks:
+   every float launch on the f32 kernels, ``conv3d_tc`` and ``upconv_tc``
+   at 0 (the int8 engine's calibration forward, bf16 as in the JAX
+   package, aside); the f32 engines' probabilities within atol 5e-4 /
+   rtol 1e-3 of the plain f32 model over the whole volume and their masks
+   equal to its masks wherever it decides by more than ``2 * F32_ATOL``;
+   the int8 masks against the same engine on the plain versions (Dice >=
+   0.999 over decided voxels); finite losses, the checkpoint and the
+   files; each engine's ms per volume and loop's volumes/s beside phases 3
+   and 6, the legacy f32 launches timed by CUDA events, the training
+   run's peak memory.
 
 The last two lines of output are one JSON object ``{"kernels": [...]}``
 and ``{"ok": true, "device": {...}}``. Any failure exits non-zero and
@@ -116,6 +137,10 @@ LEGACY_INIS = {  # AutoImplant 2020: with and without the shape prior
 LEGACY_PER_VOLUME = {"conv3d5_bias_act": 18, "maxpool2": 4, "convt_k2s2": 1,
                      "convt_k2s2_dual": 3, "conv3d_tc": 18, "upconv_tc": 4}
 N_TRAIN, N_EVAL = 4, 2  # steps of the training phase (batch 1)
+N_TRAIN_F32 = 2  # train steps of phase 7's f32 training run (1 eval step)
+# f32 engine vs the plain f32 model: the JAX engine tests' tolerance
+# (tests/test_engine.py: atol 5e-4, rtol 1e-3)
+F32_ATOL, F32_RTOL = 5e-4, 1e-3
 # K6 launches per step of the 16-conv UNetSP: every conv forward, and every
 # input gradient but the network input's
 K6_PER_TRAIN_STEP, K6_PER_EVAL_STEP = 16 + 15, 16
@@ -607,6 +632,9 @@ def check_kernel_train(device, shape=SHAPE, reps: int = 3):
             if not ok:
                 failures.append(f"conv3d_bias_act [{case}]: err {err} > tol "
                                 f"{tol} or non-finite")
+            entries.setdefault("conv3d_bias_act_f32", dict(
+                case=case, max_abs_err=err, ms=ms, plain_ms=p_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=l_ms))
             del x, k, got, ref, x_l, k_l
 
     # the autograd function at the full-resolution 7->7 layer, bf16
@@ -647,6 +675,216 @@ def check_kernel_train(device, shape=SHAPE, reps: int = 3):
         f"27 tap-shifted matmuls wgrad {wgrad_ms:.3f} ms; library (cuDNN "
         f"through torch.autograd.grad) dgrad {lib['dgrad']:.3f} ms, wgrad "
         f"{lib['wgrad']:.3f} ms")
+    return entries, failures
+
+
+def f32_shapes():
+    """Every f32 launch of the f32 serving paths, ``{(wrapper, *shape key):
+    {path: launches per volume}}``: K1 per UNetSP volume (``(ci, co,
+    level)``), K2 per UNetSP, ``UNet4_2IC`` and ``recAE_v2_fixed`` volume
+    (``(c, level)`` of the pooled input), K5 per legacy volume, and K3 /
+    K7a / K7b as :func:`upconv_tc_shapes` lists them."""
+    rows = {}
+
+    def add(key, path, n=1):
+        rows.setdefault(key, {}).setdefault(path, 0)
+        rows[key][path] += n
+
+    for ci, co, lv, served in unetsp_convs():
+        if served:
+            add(("conv3d_bn_relu", ci, co, lv), "UNetSP")
+    for mc, i_size, cin in (("UNetSP", 7, 2), ("UNet4_2IC", 7, 2),
+                            ("recAE_v2_fixed", 8, 1)):
+        for lv in range(4):
+            add(("maxpool2", i_size * 2 ** lv, lv), mc)
+        if mc != "UNetSP":
+            for ci, co, lv in legacy_convs(i_size, cin):
+                add(("conv3d5_bias_act", ci, co, lv), mc)
+    for name, ca, cb, co, lv, path in upconv_tc_shapes():
+        add((name, ca, cb, co, lv), path)
+    return rows
+
+
+def check_kernels_f32(sd, device, shape=SHAPE, reps_big: int = 2,
+                      reps_small: int = 10):
+    """The f32 kernels of the f32 serving paths against their plain
+    versions, within ``f32_tol`` (the max pool exactly), at every shape of
+    :func:`f32_shapes`, through the wrapper each path calls: K1
+    ``conv3d_bn_relu`` and K5 ``conv3d5_bias_act`` (the direct kernels
+    ``conv3d_f32`` / ``conv3d5_f32``), K2 ``maxpool2`` (``maxpool2_f32``),
+    K3 ``upconv_bn_relu`` with UNetSP's trained decoder weights
+    (``upconv_f32``), K7a ``convt_k2s2`` and K7b ``convt_k2s2_dual``
+    (``convt_f32``); each call must count on its f32 kernel and on neither
+    tensor-core kernel. Random normal weights scaled by their fan-in, f32
+    biases, ReLU'd normal inputs from a seed. Beside each: the plain
+    version's time, one cuDNN call of the same function in f32 with TF32
+    off (K3: ConvT, then the folded conv and the ReLU) and the bound
+    (bytes / HBM rate or flops / ``F32_FLOP_PER_S``). Logs one ``F32`` line
+    per shape and each path's sums (time x launches). Returns ``(entries,
+    failures)``, entries keyed ``<wrapper>_f32`` (its first shape)."""
+    import torch
+    import torch.nn.functional as F
+
+    from ctunet_tpu_torch import engine
+    from ctunet_tpu_torch.ops import kernels
+    from ctunet_tpu_torch.ops.kernels import conv3d as kc
+    from ctunet_tpu_torch.ops.kernels import convt as kt
+    from ctunet_tpu_torch.ops.kernels import upconv as ku
+    from ctunet_tpu_torch.ops.kernels.upsample_tc import upconv_tc_work
+
+    gen = torch.Generator(device=device).manual_seed(6)
+    f32 = torch.float32
+    d, h, w = shape
+    lv = [(d >> i, h >> i, w >> i) for i in range(5)]
+    entries, failures, sums = {}, [], {}
+    kernel_of = {"conv3d_bn_relu": "conv3d_f32",
+                 "conv3d5_bias_act": "conv3d5_f32",
+                 "maxpool2": "maxpool2_f32", "upconv_bn_relu": "upconv_f32",
+                 "convt_k2s2": "convt_f32", "convt_k2s2_dual": "convt_f32"}
+
+    def randn(*shp):
+        return torch.randn(*shp, generator=gen, device=device)
+
+    def relu_in(*shp):
+        return torch.relu(randn(*shp))
+
+    def cl(t):  # channels-last (..., C) -> NCDHW view for cuDNN
+        return t.permute(3, 0, 1, 2)[None]
+
+    for key, paths in f32_shapes().items():
+        name = key[0]
+        if name in ("conv3d_bn_relu", "conv3d5_bias_act"):
+            _, ci, co, level = key
+            k = 3 if name == "conv3d_bn_relu" else 5
+            shp = lv[level]
+            wt = randn(k, k, k, ci, co) * (k ** 3 * ci) ** -0.5
+            b = randn(co) * 0.1
+            x = relu_in(*shp, ci)
+            args = (x, wt, b)
+            run = getattr(kc, name)
+            plain = functools.partial(kc.conv3d_tc_plain, relu=True)
+            w_l = wt.permute(4, 3, 0, 1, 2).contiguous(
+                memory_format=torch.channels_last_3d)
+            lib = functools.partial(F.conv3d, cl(x), w_l, b, padding=k // 2)
+            n_terms = k ** 3 * ci
+            nbytes = 4 * (math.prod(shp) * (ci + co) + wt.numel() + co)
+            nflops = 2 * ci * co * conv_taps(shp, k)
+            case = f"k{k} {ci}->{co} {'x'.join(map(str, shp))}"
+        elif name == "maxpool2":
+            _, c, level = key
+            shp = lv[level]
+            x = randn(*shp, c)
+            args = (x,)
+            run, plain = kc.maxpool2, kc.maxpool2_plain
+            lib = functools.partial(F.max_pool3d, cl(x), 2)
+            n_terms = 0  # the max is exact
+            nbytes = 4 * x.numel() * 9 // 8
+            nflops = 7 * x.numel() // 8
+            case = f"{c}ch {'x'.join(map(str, shp))}"
+        elif name == "upconv_bn_relu":
+            _, j, _, _, level = key
+            shp = lv[level]
+            ca = None if j == 0 else int(
+                sd[f"u_blocks.{j - 1}.block.4.weight"].shape[0])
+            wa, wb, wone, bias = engine.upconv_operands(sd, j, ca, f32,
+                                                        device)
+            ca, co = wa.shape[3], wa.shape[4]
+            cb = 0 if wb is None else wb.shape[3]
+            a = relu_in(*shp, ca)
+            bb = relu_in(*shp, cb) if cb else None
+            args = (a, bb, wa, wb, wone, bias)
+            run, plain = ku.upconv_bn_relu, ku.upconv_bn_relu_plain
+            p = f"u_blocks.{j}.block"
+            w1, b1 = kc.fold_conv_unit(
+                sd[f"{p}.1.weight"], sd.get(f"{p}.1.bias"),
+                sd[f"{p}.2.weight"], sd[f"{p}.2.bias"],
+                sd[f"{p}.2.running_mean"], sd[f"{p}.2.running_var"], f32)
+            up_w = sd[f"{p}.0.weight"].to(device, f32)
+            up_b = sd[f"{p}.0.bias"].to(device, f32)
+            w1 = w1.permute(4, 3, 0, 1, 2).to(device).contiguous(
+                memory_format=torch.channels_last_3d)
+            b1 = b1.to(device)
+            x_l = cl(a if bb is None else torch.cat([a, bb], -1))
+
+            def lib(x_l=x_l, up_w=up_w, up_b=up_b, w1=w1, b1=b1):
+                up = F.conv_transpose3d(x_l, up_w, up_b, stride=2)
+                return torch.relu(F.conv3d(up, w1, b1, padding=1))
+
+            n_terms = 8 * (ca + cb + 1)
+            nb16, nflops = upconv_tc_work(shp, ca, cb, co, True)
+            nbytes = 2 * nb16 - 4 * co  # every bf16 term twice, f32 bias
+            out_shp = tuple(2 * s for s in shp)
+            case = (f"({ca}+{cb})->{co}" if cb else f"{ca}->{co}") + (
+                f" to {'x'.join(map(str, out_shp))}")
+        else:  # convt_k2s2(_dual)
+            _, ca, cb, co, level = key
+            shp = lv[level]
+            wt = randn(ca + cb, co, 2, 2, 2) * (ca + cb) ** -0.5
+            bias0 = randn(co) * 0.1
+            wa, wb, bias = kt.convt_weights(wt, bias0, ca if cb else None,
+                                            f32)
+            a = relu_in(*shp, ca)
+            bb = relu_in(*shp, cb) if cb else None
+            if cb:
+                args = (a, bb, wa, wb, bias)
+                run = kt.convt_k2s2_dual
+            else:
+                args = (a, wa, bias)
+                run = kt.convt_k2s2
+            plain = (lambda a, *r: kt.convt_k2s2_plain(a, None, r[0], None,
+                                                       r[1])) if not cb \
+                else kt.convt_k2s2_plain
+            x_l = cl(a if bb is None else torch.cat([a, bb], -1))
+            lib = functools.partial(F.conv_transpose3d, x_l, wt, bias0,
+                                    stride=2)
+            n_terms = ca + cb
+            nb16, nflops = upconv_tc_work(shp, ca, cb, co, False)
+            nbytes = 2 * nb16 - 4 * co
+            out_shp = tuple(2 * s for s in shp)
+            case = (f"({ca}+{cb})->{co}" if cb else f"{ca}->{co}") + (
+                f" to {'x'.join(map(str, out_shp))}")
+        big = key[-1] < 2
+        counter = kernel_of[name]
+        before = kernels.launches()
+        got = run(*args)
+        after = kernels.launches()
+        launched = (after[counter] == before[counter] + 1
+                    and after["conv3d_tc"] == before["conv3d_tc"]
+                    and after["upconv_tc"] == before["upconv_tc"])
+        ref = plain(*args)
+        sync(device)
+        tol = f32_tol(ref, n_terms) if n_terms else 0.0
+        err = float((got - ref).abs().max())
+        ok = (launched and got.dtype == f32 and err <= tol
+              and bool(torch.isfinite(got).all()))
+        reps = reps_big if big else reps_small
+        ms = time_ms(lambda: run(*args), reps, device)
+        p_ms = time_ms(lambda: plain(*args), 1 if big else reps, device)
+        l_ms = time_ms(lib, reps, device)
+        b_ms, b_by = bound_ms(nbytes, nflops, F32_FLOP_PER_S)
+        per = ", ".join(f"{n} {p}" for p, n in paths.items())
+        log(f"  F32 {name} [{case}]: max_abs_err {err:.3e} (tol {tol:.3e}) "
+            f"{'ok' if ok else 'FAIL'}; {counter} {ms:.3f} ms "
+            f"({nflops / ms / 1e9:.2f} TFLOP/s, {nbytes / ms / 1e6:.1f} "
+            f"GB/s), plain {p_ms:.3f} ms, cuDNN f32 {l_ms:.3f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}), {ms / b_ms:.1f}x it; launches {per}")
+        if not ok:
+            failures.append(f"{counter} via {name} [{case}]: err {err} > tol "
+                            f"{tol}, non-finite, not f32, or not launched on "
+                            f"{counter} alone")
+        for p, n in paths.items():
+            t = sums.setdefault((p, name), [0.0, 0.0, 0.0, 0])
+            t[0] += n * ms
+            t[1] += n * b_ms
+            t[2] += n * l_ms
+            t[3] += n
+        entries.setdefault(f"{name}_f32", dict(
+            case=case, max_abs_err=err, ms=ms, plain_ms=p_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=l_ms))
+        del args, got, ref
+    for (p, name), (t, t_b, t_l, n) in sums.items():
+        log(f"  F32 sum {p} {name}: {n} launches per volume, {t:.3f} ms "
+            f"(bound {t_b:.4f} ms, cuDNN f32 {t_l:.3f} ms)")
     return entries, failures
 
 
@@ -918,14 +1156,14 @@ def profile_device(fn, device, rows: int = 12, what: str = "one volume"):
     return by_name
 
 
-def launch_breakdown(model_class: str, sd, x, device):
+def launch_breakdown(model_class: str, sd, x, device, dtype=None):
     """Each kernel launch of one pass of a legacy engine over ``x``, in
     launch order, timed by CUDA events recorded around its wrapper call
     (the host clock off the card); the rest of the pass (head, softmax,
-    casts) is the pass's time less the launches'. A fresh engine is built
-    and run, after a warm-up pass, with the wrappers wrapped. Logs the
-    launches and returns ``{wrapper name: ms}`` with ``"rest"`` and
-    ``"engine"``."""
+    casts) is the pass's time less the launches'. A fresh engine (in
+    ``dtype``, bf16 by default) is built and run, after a warm-up pass, with
+    the wrappers wrapped. Logs the launches and returns ``{wrapper name:
+    ms}`` with ``"rest"`` and ``"engine"``."""
     import torch
 
     from ctunet_tpu_torch import engine
@@ -968,7 +1206,8 @@ def launch_breakdown(model_class: str, sd, x, device):
     try:
         for m, n, fn in wrapped:
             setattr(m, n, timed(n, fn))
-        pred = engine.build_predict(model_class, sd, device=device)
+        pred_dtype = dtype or torch.bfloat16
+        pred = engine.build_predict(model_class, sd, pred_dtype, device)
         pred(x)
         calls.clear()
         t0 = stamp()
@@ -979,7 +1218,8 @@ def launch_breakdown(model_class: str, sd, x, device):
         for m, n, fn in wrapped:
             setattr(m, n, fn)
     by_name = {}
-    log(f"  {model_class}: each kernel launch of one volume, in order "
+    log(f"  {model_class} ({str(pred_dtype)[6:]}): each kernel launch of "
+        "one volume, in order "
         "(CUDA events around the wrapper call), ms:")
     for label, name, a, b in calls:
         ms = span(a, b)
@@ -1672,6 +1912,298 @@ def serve_legacy(device, work: str, shape=SHAPE, n_volumes: int = N_VOLUMES):
     return main_launches, stats, failures
 
 
+def prob_check(what, got, ref, failures):
+    """The f32 engine's probabilities ``got`` against the plain f32 model's
+    ``ref`` over the whole volume: ``|got - ref| <= F32_ATOL + F32_RTOL *
+    |ref|`` everywhere (the JAX engine tests' tolerance). Returns
+    ``(max |got - ref|, worst error over its allowance)``."""
+    import torch
+
+    diff = (got - ref).abs()
+    err = float(diff.max())
+    worst = float((diff / (F32_ATOL + F32_RTOL * ref.abs())).max())
+    if not (bool(torch.isfinite(got).all()) and worst <= 1.0):
+        failures.append(f"{what}: f32 engine vs plain f32 model: max abs "
+                        f"err {err}, worst err / (atol + rtol |ref|) {worst}")
+    return err, worst
+
+
+def mask_check(what, p_got, p_ref, file_mask, failures):
+    """Masks (argmax of two class probabilities ``(..., 2)``) of the f32
+    engine against the plain f32 model's at every voxel whose reference
+    probabilities lie more than ``F32_ATOL`` from the tie (``|p1 - p0| > 2
+    F32_ATOL``), and the engine's mask against the file ``Model`` wrote.
+    Returns ``(voxels differing among the decided, undecided voxels)``."""
+    import numpy as np
+    import torch
+
+    m_got = torch.argmax(p_got, -1)
+    m_ref = torch.argmax(p_ref, -1)
+    decided = (p_ref[..., 1] - p_ref[..., 0]).abs() > 2 * F32_ATOL
+    n_diff = int(((m_got != m_ref) & decided).sum())
+    n_open = int((~decided).sum())
+    if n_diff:
+        failures.append(f"{what}: {n_diff} decided voxels differ from the "
+                        "plain f32 model's mask")
+    if file_mask is not None and not np.array_equal(
+            file_mask, m_got.to(torch.uint8).cpu().numpy()):
+        failures.append(f"{what}: Model's file differs from the engine")
+    return n_diff, n_open
+
+
+def serve_f32(device, work: str, shape=SHAPE, n_volumes: int = N_VOLUMES,
+              n_train: int = N_TRAIN_F32, bf16=None):
+    """Phase 7, f32 serving through ``Model`` (``compute_dtype =
+    float32``): UNetSP on ``n_volumes`` volumes, one ``UNet4_2IC`` and one
+    ``recAE_v2_fixed`` volume from phase 6's seeded weights, one int8 volume
+    with the first encoder block in f32 (``int8_bf16_head = 1``, round to
+    nearest), and an f32 training run (``conv_impl = chain``, ``n_train``
+    train steps and one eval step) serving one volume from the trained
+    weights. Checks the files, the launch counts (every float launch on the
+    f32 kernels, none on ``conv3d_tc`` / ``upconv_tc`` outside the int8
+    engine's bf16 calibration forward), the f32 engines' probabilities and
+    masks against the plain f32 model (TF32 off), the int8 masks against the
+    same engine on the plain versions, finite losses. ``bf16``: phases 3
+    and 6's stats, printed beside. Returns ``(launches, stats,
+    failures)``."""
+    import numpy as np
+    import torch
+
+    from ctunet_tpu_torch import (Model, default_params, engine, engine_q,
+                                  load_params)
+    from ctunet_tpu_torch.checkpoint import UNETSP_10K, load_any
+    from ctunet_tpu_torch.data import make_dataset
+    from ctunet_tpu_torch.models import build_model
+    from ctunet_tpu_torch.ops import kernels
+
+    f32 = torch.float32
+    bf16 = bf16 or {}
+    failures, stats = [], {}
+    data, paths, csv, atlas, affine = write_volumes(work, shape, n_volumes)
+    csv1 = os.path.join(data, "first.csv")
+    with open(csv1, "w") as f:
+        f.write(f"image,mask\n{paths[0]},\n")
+    vol0 = nifti_data(paths[0])
+    base = os.path.basename(paths[0]).replace(".nii.gz", "")
+    xt = torch.from_numpy(np.stack([vol0, atlas], -1)[None]).to(device)
+    runs = {}  # each Model run's launch counts
+
+    def run_model(params, want, label, n):
+        """``Model`` on ``params``; the launch counts against ``want`` (per
+        volume, times ``n``)."""
+        if device.type != "cuda":
+            params["device"] = device.type
+        kernels.reset_launches()
+        m = Model(params=params)  # ends with the masks fetched to the host
+        counts = kernels.launches()
+        want = {k: v * n for k, v in want.items()}
+        got = {k: counts[k] for k in want}
+        log(f"  {label} launches over {n} volume(s): {got} (want {want})")
+        if got != want:
+            failures.append(f"{label} launch counts {got} != {want}")
+        return m, counts
+
+    def loop_stats(m, label, engine_ms, bf16_st):
+        st = dict(volumes=m.n_served, loop_s=m.serve_seconds,
+                  vol_per_s=m.n_served / m.serve_seconds, engine_ms=engine_ms)
+        log(f"  {label} f32: engine {engine_ms:.2f} ms/volume (CUDA events), "
+            f"Model loop {st['vol_per_s']:.3f} volumes/s; bf16 "
+            f"(this run's phases 3/6): engine "
+            f"{bf16_st.get('engine_ms', float('nan')):.2f} ms, loop "
+            f"{bf16_st.get('vol_per_s', float('nan')):.3f} volumes/s")
+        return st
+
+    # ---- UNetSP, n_volumes volumes ---------------------------------------
+    per_vol = {"conv3d_bn_relu": 12, "maxpool2": 4, "upconv_bn_relu": 4,
+               "conv3d_f32": 12, "maxpool2_f32": 4, "upconv_f32": 4,
+               "conv3d_tc": 0, "upconv_tc": 0}
+    m, counts = run_model(dict(
+        test_flag=True, name="chip_smoke_f32", model_class="UNetSP",
+        problem_handler="FlapRecWithShapePriorDoubleOut", device=device.type,
+        workspace_path=os.path.join(work, "ws"), test_files_csv=csv,
+        resume_model=UNETSP_10K, n_workers=2, prefetch_depth=2,
+        compute_dtype="float32"), per_vol, "UNetSP f32", n_volumes)
+    runs["UNetSP"] = counts
+    masks = read_masks(os.path.join(data, "pred_chip_smoke_f32"), paths,
+                       shape, affine, failures)
+    sd = load_any(UNETSP_10K)
+    k_pred = engine.build_predict("UNetSP", sd, f32, device)
+    model = build_model("UNetSP").to(device).eval()
+    model.load_state_dict(sd)
+    model.configure("xla", f32)
+    with torch.inference_mode():
+        got, ref = k_pred(xt), model(xt)
+    st = {}
+    for i, sfx in enumerate(("sk", "fl")):
+        g, r = got[i][0], ref[i][0]
+        err, worst = prob_check(f"UNetSP {sfx}", g, r, failures)
+        n_diff, n_open = mask_check(f"UNetSP {sfx}", g, r,
+                                    masks.get((base, sfx)), failures)
+        log(f"  UNetSP f32 {sfx}: max |p - p_plain f32 model| {err:.3e} "
+            f"(worst / allowance {worst:.3f}); masks: {n_diff} decided "
+            f"voxels differ, {n_open} within {2 * F32_ATOL:g} of the tie "
+            "left out")
+        st.update({f"{sfx}_max_err": err, f"{sfx}_worst": worst,
+                   f"{sfx}_undecided": n_open})
+    del got, ref, model
+    st.update(loop_stats(m, "UNetSP", time_ms(lambda: k_pred(xt), 3, device),
+                         bf16.get(3, {})))
+    profile_device(lambda: k_pred(xt), device, what="one UNetSP f32 volume")
+    stats["UNetSP"] = st
+    del k_pred
+
+    # ---- the legacy models, one volume each -------------------------------
+    for mc in ("UNet4_2IC", "recAE_v2_fixed"):
+        cin = 2 if mc == "UNet4_2IC" else 1
+        x = xt[..., :cin].contiguous()
+        w, model, share = legacy_weights(mc, x, seed=17)
+        model.configure("xla", f32)
+        pt = os.path.join(work, f"{mc}.pt")
+        torch.save(w, pt)
+        params = load_params(LEGACY_INIS[mc], default_params())
+        params.update(train_flag=False, test_flag=True,
+                      name=f"chip_smoke_f32_{mc}",
+                      workspace_path=os.path.join(work, "ws"),
+                      test_files_csv=csv1, resume_model=pt, n_workers=2,
+                      compute_dtype="float32")
+        want = {"conv3d5_bias_act": 18, "maxpool2": 4, "convt_k2s2": 1,
+                "convt_k2s2_dual": 3, "conv3d5_f32": 18, "maxpool2_f32": 4,
+                "convt_f32": 4, "conv3d_tc": 0, "upconv_tc": 0}
+        m, counts = run_model(params, want, f"{mc} f32", 1)
+        runs[mc] = counts
+        masks = read_masks(os.path.join(data, f"pred_chip_smoke_f32_{mc}"),
+                           paths[:1], shape, affine, failures,
+                           sfxs=("fl", "i"))
+        k_pred = engine.build_predict(mc, w, f32, device)
+        with torch.inference_mode():
+            g, r = k_pred(x)[0], model(x)[0]
+        err, worst = prob_check(mc, g, r, failures)
+        n_diff, n_open = mask_check(mc, g, r, masks.get((base, "fl")),
+                                    failures)
+        log(f"  {mc} f32 (class-1 share {share:.4f}): max |p - p_plain f32 "
+            f"model| {err:.3e} (worst / allowance {worst:.3f}); masks: "
+            f"{n_diff} decided voxels differ, {n_open} within "
+            f"{2 * F32_ATOL:g} of the tie left out")
+        st = dict(max_err=err, worst=worst, undecided=n_open)
+        del g, r, model
+        st.update(loop_stats(m, mc, time_ms(lambda: k_pred(x), 3, device),
+                             bf16.get(6, {}).get(mc, {})))
+        st["breakdown_ms"] = launch_breakdown(mc, w, x, device, f32)
+        stats[mc] = st
+        del k_pred
+
+    # ---- int8 with its first encoder block in f32, one volume -------------
+    params = load_params(INT8_INI, default_params())
+    params.update(name="chip_smoke_f32_int8", fg_crop=False, serve_scan=1,
+                  workspace_path=os.path.join(work, "ws"),
+                  test_files_csv=csv1, resume_model=UNETSP_10K,
+                  int8_adaquant=False, int8_bf16_head=1,
+                  compute_dtype="float32")
+    # the calibration forward runs the bf16 engine, as the JAX package's
+    # does: 12 conv3d_tc and 4 upconv_tc launches, then the served volume
+    want = {"conv3d_f32": 2, "maxpool2_f32": 0, "upconv_f32": 0,
+            "conv3d_q_requant": 10, "maxpool2_q": 4, "upconv_q_requant": 4,
+            "conv3d_tc_q": 10, "upconv_tc_q": 4, "conv3d_tc": 12,
+            "upconv_tc": 4}
+    m, counts = run_model(params, want, "int8 f32 head", 1)
+    runs["int8"] = counts
+    masks = read_masks(os.path.join(data, "pred_chip_smoke_f32_int8"),
+                       paths[:1], shape, affine, failures)
+    qfn = m.int8_engines.get(shape + (2,))
+    st = {}
+    if qfn is None:
+        failures.append(f"no int8 engine was built: {m.int8_engines}")
+    else:
+        plain_q = engine_q.build_predict_q(
+            "UNetSP", sd, xt[0], f32, device, plain=True, bf16_head=1,
+            import_scales=qfn.scales, round_opt=qfn.round_opt)
+        with torch.inference_mode():
+            got, ref = qfn(xt), plain_q(xt)
+        for i, sfx in enumerate(("sk", "fl")):
+            g, r = got[i][0].float(), ref[i][0].float()
+            decided = (((g[..., 1] - g[..., 0]).abs() > DECIDED)
+                       & ((r[..., 1] - r[..., 0]).abs() > DECIDED))
+            mg = torch.argmax(g, -1).to(torch.uint8).cpu().numpy()
+            mr = torch.argmax(r, -1).to(torch.uint8).cpu().numpy()
+            dec = decided.cpu().numpy()
+            d = dice(mg[dec], mr[dec])
+            file_mask = masks.get((base, sfx))
+            if file_mask is None or not np.array_equal(file_mask, mg):
+                failures.append(f"int8 f32 {sfx}: Model's file differs from "
+                                "the engine")
+            if not (bool(torch.isfinite(g).all()) and d >= 0.999):
+                failures.append(f"int8 f32 {sfx}: Dice on decided voxels "
+                                f"{d} < 0.999 or non-finite")
+            log(f"  int8 f32 head {sfx}: Dice vs the same engine on the "
+                f"plain versions {d:.6f} over the {int(dec.sum())} voxels "
+                f"both decide ({int((~dec).sum())} left out), raw "
+                f"{dice(mg, mr):.6f}; max |p - p_plain| "
+                f"{float((g - r).abs().max()):.3e}")
+            st[f"dice_{sfx}"] = d
+        st["engine_ms"] = time_ms(lambda: qfn(xt), 3, device)
+        log(f"  int8 f32 head engine {st['engine_ms']:.2f} ms/volume")
+        del got, ref, plain_q
+    stats["int8_f32_head"] = st
+    del qfn, m
+
+    # ---- f32 training, then one volume served from it ---------------------
+    train_csv = make_dataset(os.path.join(work, "train"), n=n_train,
+                             shape=shape, seed=40)
+    val_csv = make_dataset(os.path.join(work, "val"), n=1, shape=shape,
+                           seed=80)
+    params = load_params(TRAIN_INI, default_params())
+    params.update(
+        name="chip_smoke_f32_train", conv_impl="chain", n_epochs=1,
+        autosave_epochs=0, workspace_path=os.path.join(work, "ws"),
+        train_files_csv=train_csv, validation_files_csv=val_csv,
+        test_files_csv=csv1, resume_model="", log_every=1,
+        compute_dtype="float32")
+    k6 = n_train * K6_PER_TRAIN_STEP + K6_PER_EVAL_STEP
+    want = {"conv3d_bias_act": k6, "conv3d_f32": k6 + 12,
+            "conv3d_bn_relu": 12, "maxpool2": 4, "maxpool2_f32": 4,
+            "upconv_bn_relu": 4, "upconv_f32": 4, "conv3d_tc": 0,
+            "upconv_tc": 0}
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    m, counts = run_model(params, want, "f32 training", 1)
+    wall = time.perf_counter() - t0
+    runs["train"] = counts
+    losses = [float(v) for v in m.step_losses]
+    hist = {k: v[-1][1] for k, v in m.writer.history.items()}
+    if len(losses) != n_train or not all(map(math.isfinite, losses)) or not \
+            all(math.isfinite(v) for v in hist.values()):
+        failures.append(f"f32 training: losses not finite: {losses} {hist}")
+    if not os.path.isfile(m.params["model_path"]):
+        failures.append("f32 training: no checkpoint "
+                        f"{m.params['model_path']}")
+    read_masks(os.path.join(data, "pred_chip_smoke_f32_train"), paths[:1],
+               shape, affine, failures)
+    st = dict(losses=losses, model_wall_s=wall, train_loop_s=m.train_seconds)
+    if device.type == "cuda":
+        st["peak_mem_gb"] = torch.cuda.max_memory_allocated(device) / 2**30
+    log(f"  f32 training: losses {losses}, epoch scalars {json.dumps(hist)}; "
+        f"Model train + eval + test {wall:.1f} s; peak device memory "
+        f"{st.get('peak_mem_gb', float('nan')):.2f} GiB")
+    stats["train_f32"] = st
+
+    def total(key):
+        return sum(c[key] for c in runs.values())
+
+    # per wrapper in f32 (K1 and K6 share conv3d_f32; only training runs K6)
+    launches = {
+        "conv3d_bn_relu_f32": total("conv3d_f32") - total("conv3d_bias_act"),
+        "conv3d_bias_act_f32": total("conv3d_bias_act"),
+        "maxpool2_f32": total("maxpool2_f32"),
+        "upconv_bn_relu_f32": total("upconv_f32"),
+        "conv3d5_bias_act_f32": total("conv3d5_f32"),
+        "convt_k2s2_f32": total("convt_k2s2"),
+        "convt_k2s2_dual_f32": total("convt_k2s2_dual"),
+    }
+    log(f"  f32 launches of phase 7 by wrapper: {launches}")
+    return launches, stats, failures
+
+
 def main() -> int:
     import torch
 
@@ -1720,7 +2252,9 @@ def main() -> int:
             ("training conv K6 f32 and autograd, random weights",
              lambda: check_kernel_train(device)),
             ("bf16 upconv_tc (K3, K7a, K7b) at every shape of the paths",
-             lambda: check_upconv_tc(sd, device))):
+             lambda: check_upconv_tc(sd, device)),
+            ("f32 kernels (K1, K2, K3, K5, K7a, K7b) at every f32 shape of "
+             "the paths", lambda: check_kernels_f32(sd, device))):
         log(f"  -- {label}")
         try:
             got, errs = check()
@@ -1733,6 +2267,7 @@ def main() -> int:
 
     launches, shared = {}, {"conv3d_tc": 0, "upconv_tc": 0}
     size = "x".join(map(str, SHAPE))
+    phase_stats = {}
     for phase, label, fn in (
             (3, f"bf16, {N_VOLUMES} UNetSP volumes {size}", serve),
             (4, f"int8 + AdaQuant ({ADAQUANT_STEPS} steps), {N_VOLUMES} "
@@ -1740,7 +2275,12 @@ def main() -> int:
             (5, f"training, UNetSP {size} bf16 conv_impl=chain, {N_TRAIN} "
                 f"train + {N_EVAL} eval steps, save, serve 1 volume", train),
             (6, f"legacy k=5 serving, {N_VOLUMES} UNet4_2IC volumes {size} "
-                "+ 1 recAE_v2_fixed volume", serve_legacy)):
+                "+ 1 recAE_v2_fixed volume", serve_legacy),
+            (7, f"f32 serving, {N_VOLUMES} UNetSP volumes {size}, 1 "
+                "UNet4_2IC + 1 recAE_v2_fixed volume, 1 int8 volume with an "
+                f"f32 head, f32 training ({N_TRAIN_F32} + 1 steps) and 1 "
+                "volume served from it",
+             lambda device, work: serve_f32(device, work, bf16=phase_stats))):
         log(f"== phase {phase}: main path, {label}, through Model")
         t0 = time.perf_counter()
         got = {}
@@ -1748,6 +2288,7 @@ def main() -> int:
             with tempfile.TemporaryDirectory(prefix=".smoke_",
                                              dir=ROOT) as work:
                 got, stats, errs = fn(device, work)
+            phase_stats[phase] = stats
             failures += errs
             log("  stats: " + json.dumps(stats))
         except Exception:  # noqa: BLE001  report, then fail the run below
@@ -1801,6 +2342,21 @@ def main() -> int:
                        "ctunet_tpu/ops/pallas/convt.py:78"),
         "convt_k2s2_dual": ("ctunet_tpu_torch/csrc/upconv_tc.cu",
                             "ctunet_tpu/ops/pallas/convt.py:146"),
+        # the f32 paths (phase 7) on the CUDA-core kernels
+        "conv3d_bn_relu_f32": ("ctunet_tpu_torch/csrc/conv3d.cu",
+                               "ctunet_tpu/ops/pallas/conv3d.py:1031"),
+        "conv3d_bias_act_f32": ("ctunet_tpu_torch/csrc/conv3d.cu",
+                                "ctunet_tpu/ops/pallas/conv3d.py:453"),
+        "conv3d5_bias_act_f32": ("ctunet_tpu_torch/csrc/conv3d_k5.cu",
+                                 "ctunet_tpu/ops/pallas/conv3d.py:136"),
+        "maxpool2_f32": ("ctunet_tpu_torch/csrc/maxpool.cu",
+                         "ctunet_tpu/ops/pallas/conv3d.py:1862"),
+        "upconv_bn_relu_f32": ("ctunet_tpu_torch/csrc/upconv.cu",
+                               "ctunet_tpu/ops/pallas/upconv.py:464"),
+        "convt_k2s2_f32": ("ctunet_tpu_torch/csrc/convt.cu",
+                           "ctunet_tpu/ops/pallas/convt.py:78"),
+        "convt_k2s2_dual_f32": ("ctunet_tpu_torch/csrc/convt.cu",
+                                "ctunet_tpu/ops/pallas/convt.py:146"),
     }
     kernels = []
     for name, (src, repl) in sources.items():

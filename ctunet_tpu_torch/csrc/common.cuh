@@ -4,7 +4,9 @@
 // Layout: every activation is a dense channels-last volume (D, H, W, C),
 // C fastest; weights are tap-major (taps..., Cin, Cout). The bf16 kernels
 // take bf16 weights and f32 biases, accumulate in f32 and store bf16 (round
-// to nearest even, as PyTorch's cast does); the int8 kernels take int8
+// to nearest even, as PyTorch's cast does); their f32 forms take f32
+// tensors and weights and round nowhere but in the f32 sums; the int8
+// kernels take int8
 // activations and weights, accumulate in int32 and requantize with f32
 // scale and bias.
 #pragma once
@@ -23,6 +25,16 @@ constexpr int THREADS = 256;
 __device__ __forceinline__ float bf(const __nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+
+// Loads and stores of the kernels templated on the element type T (bf16 or
+// f32): values widen to f32 for the arithmetic; a bf16 store rounds to
+// nearest even once, an f32 store keeps every bit.
+__device__ __forceinline__ float ld(const __nv_bfloat16 v) { return bf(v); }
+__device__ __forceinline__ float ld(const float v) { return v; }
+__device__ __forceinline__ void st(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+__device__ __forceinline__ void st(float* p, float v) { *p = v; }
 
 // acc[0..COB) += xv * w[0..COB): w is 16-byte aligned shared memory.
 __device__ __forceinline__ void fma_cob(float (&acc)[COB], float xv,

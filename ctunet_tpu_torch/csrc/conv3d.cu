@@ -1,12 +1,13 @@
 // K1 and K6: Conv3D(k3, SAME, stride 1) + bias + optional ReLU, the
-// direct kernel. On the paths it runs the f32 convs (K6 in f32 training);
-// bf16 convs run conv3d_tc.cu on the tensor cores, and this kernel's bf16
-// form is kept for timing beside it (ops/kernels/conv3d.py
-// conv3d_bias_act_direct).
+// direct kernel. On the paths it runs every f32 k=3 conv: K1 of the f32
+// serving engines (and of the int8 engine's float units) and K6 in f32
+// training (ops/kernels/conv3d.py::conv3d_f32). bf16 convs run
+// conv3d_tc.cu on the tensor cores, and this kernel's bf16 form is kept for
+// timing beside it (conv3d_bias_act_direct).
 //
 // K1 replaces ctunet_tpu/ops/pallas/conv3d.py::conv3d_chain_split (kernel
-// body _chain_kernel_ring_split), bf16 mode, with the BatchNorm folded into
-// the weights and the bias and the ReLU on. K6 replaces
+// body _chain_kernel_ring_split), bf16 and f32 modes, with the BatchNorm
+// folded into the weights and the bias and the ReLU on. K6 replaces
 // ctunet_tpu/ops/pallas/conv3d.py::conv3d_chain (the 27-tap ring kernel):
 // the same function with the ReLU chosen by a flag and bf16 or f32 tensors;
 // training calls it with a zero bias and no ReLU, forward and (on flipped,
@@ -41,13 +42,6 @@
 #include "common.cuh"
 
 using namespace ctunet;
-
-__device__ __forceinline__ float ld(const __nv_bfloat16 v) { return bf(v); }
-__device__ __forceinline__ float ld(const float v) { return v; }
-__device__ __forceinline__ void st(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-__device__ __forceinline__ void st(float* p, float v) { *p = v; }
 
 template <typename T, bool RELU>
 __global__ void __launch_bounds__(THREADS)
@@ -123,19 +117,26 @@ static int launch(const void* x, const void* w, const void* bias, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K6: is_f32 selects f32 tensors (else bf16), relu the activation.
+// K6 (and K1 with relu = 1) on bf16 tensors: the direct form that
+// conv3d_tc.cu replaced, kept for timing beside it.
 extern "C" int ctunet_conv3d_bias_act(const void* x, const void* w,
                                       const void* bias, void* out, int D,
-                                      int H, int W, int Ci, int Co, int is_f32,
-                                      int relu, int device, void* stream) {
-  if (is_f32) {
-    return relu ? launch<float, true>(x, w, bias, out, D, H, W, Ci, Co,
-                                      device, stream)
-                : launch<float, false>(x, w, bias, out, D, H, W, Ci, Co,
-                                       device, stream);
-  }
+                                      int H, int W, int Ci, int Co, int relu,
+                                      int device, void* stream) {
   return relu ? launch<__nv_bfloat16, true>(x, w, bias, out, D, H, W, Ci, Co,
                                             device, stream)
               : launch<__nv_bfloat16, false>(x, w, bias, out, D, H, W, Ci, Co,
                                              device, stream);
+}
+
+// K1 (relu = 1) and K6 in f32: every f32 k=3 conv of the paths.
+extern "C" int ctunet_conv3d_bias_act_f32(const void* x, const void* w,
+                                          const void* bias, void* out, int D,
+                                          int H, int W, int Ci, int Co,
+                                          int relu, int device,
+                                          void* stream) {
+  return relu ? launch<float, true>(x, w, bias, out, D, H, W, Ci, Co, device,
+                                    stream)
+              : launch<float, false>(x, w, bias, out, D, H, W, Ci, Co, device,
+                                     stream);
 }

@@ -1,7 +1,8 @@
 // K5: Conv3D(k5, SAME, stride 1) + bias + optional ReLU, the direct
-// kernel. On the paths it runs the f32 convs; bf16 convs run conv3d_tc.cu
-// on the tensor cores, and this kernel's bf16 form is kept for timing
-// beside it (ops/kernels/conv3d.py conv3d5_bias_act_direct).
+// kernel. On the paths it runs every conv of the legacy f32 engine
+// (ops/kernels/conv3d.py::conv3d5_f32); bf16 convs run conv3d_tc.cu on the
+// tensor cores, and this kernel's bf16 form is kept for timing beside it
+// (conv3d5_bias_act_direct).
 //
 // Replaces ctunet_tpu/ops/pallas/conv3d.py::conv3d_fused (kernel body
 // _kernel) at k = 5, the conv of the legacy k=5 family (recAE_v2_fixed,
@@ -41,13 +42,6 @@
 using namespace ctunet;
 
 namespace {
-
-__device__ __forceinline__ float ld(const __nv_bfloat16 v) { return bf(v); }
-__device__ __forceinline__ float ld(const float v) { return v; }
-__device__ __forceinline__ void st(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-__device__ __forceinline__ void st(float* p, float v) { *p = v; }
 
 template <int K, typename T, bool RELU>
 __global__ void __launch_bounds__(THREADS)
@@ -130,20 +124,26 @@ int launch(const void* x, const void* w, const void* bias, void* out, int D,
 
 }  // namespace
 
-// K5: k = 5; is_f32 selects f32 tensors (else bf16), relu the activation.
+// K5 on bf16 tensors: the direct form that conv3d_tc.cu replaced, kept for
+// timing beside it.
 extern "C" int ctunet_conv3d5_bias_act(const void* x, const void* w,
                                        const void* bias, void* out, int D,
-                                       int H, int W, int Ci, int Co,
-                                       int is_f32, int relu, int device,
-                                       void* stream) {
-  if (is_f32) {
-    return relu ? launch<5, float, true>(x, w, bias, out, D, H, W, Ci, Co,
-                                         device, stream)
-                : launch<5, float, false>(x, w, bias, out, D, H, W, Ci, Co,
-                                          device, stream);
-  }
+                                       int H, int W, int Ci, int Co, int relu,
+                                       int device, void* stream) {
   return relu ? launch<5, __nv_bfloat16, true>(x, w, bias, out, D, H, W, Ci,
                                                Co, device, stream)
               : launch<5, __nv_bfloat16, false>(x, w, bias, out, D, H, W,
                                                 Ci, Co, device, stream);
+}
+
+// K5 in f32: every conv of the legacy f32 engine.
+extern "C" int ctunet_conv3d5_bias_act_f32(const void* x, const void* w,
+                                           const void* bias, void* out, int D,
+                                           int H, int W, int Ci, int Co,
+                                           int relu, int device,
+                                           void* stream) {
+  return relu ? launch<5, float, true>(x, w, bias, out, D, H, W, Ci, Co,
+                                       device, stream)
+              : launch<5, float, false>(x, w, bias, out, D, H, W, Ci, Co,
+                                        device, stream);
 }

@@ -1,18 +1,20 @@
 // K3: ConvTranspose(k2, s2) + bias over cat(a, b), composed with the next
 // Conv3D(k3) + folded BatchNorm + ReLU, evaluated from the half-resolution
-// inputs. bf16 in and out, f32 accumulation.
+// inputs. bf16 or f32 in and out (T), f32 accumulation.
 //
-// The direct route: K3 runs on the tensor cores in upconv_tc.cu; this
-// CUDA-core kernel is reachable as ops/kernels/upconv.py::
-// upconv_bn_relu_direct, timed beside it, and is the start of K3's f32
-// mode (ROADMAP Queue 2 A1).
+// The direct route. In f32 it is K3's kernel on the paths (the f32 serving
+// engine and the int8 engine's float tail: ops/kernels/upconv.py::
+// upconv_f32); a bf16 K3 runs on the tensor cores in upconv_tc.cu, and this
+// kernel's bf16 form is reachable as upconv_bn_relu_direct, timed beside
+// it. The f32 form rounds nowhere but in its f32 sums: the composite R is
+// built in f64 and rounded once to f32 on the host.
 //
 // Replaces ctunet_tpu/ops/pallas/upconv.py::upconv_fused_chain_split
 // (kernel body _upconv_kernel_split). Both linear maps compose into one
 // 4x4x4 response R (built on the host in f64, see
 // ops/kernels/upconv.py::composite_response), and
 //
-//   out[v,o] = bf16(relu(bias[o] + sum_u sum_i R[v-2u+1, i, o] in[u, i]))
+//   out[v,o] = T(relu(bias[o] + sum_u sum_i R[v-2u+1, i, o] in[u, i]))
 //
 // over the half-resolution neighbours u with 0 <= v-2u+1 <= 3: per
 // dimension and output parity p exactly two taps, u = m+p-1+t with
@@ -29,28 +31,31 @@
 // that layout is for the MXU and is not carried over.
 //
 // What bounds it on an H100: 16*(Ca+Cb)*Co flops per output voxel against
-// (Ca+Cb)/8*2 + 2*Co bytes; at the full-resolution level (14+14 -> 7)
-// 65 GFLOP over 0.43 GB, i.e. ~150 flop/B, bound by f32 FMA issue on the
-// CUDA cores in this direct form.
+// (Ca+Cb)/8*sizeof(T) + sizeof(T)*Co bytes; at the full-resolution level
+// (14+14 -> 7) 65 GFLOP over 0.43 GB in bf16 (0.86 GB in f32), i.e. ~75-150
+// flop/B. In f32 the card's bound is the operations: 65 GFLOP at the 67
+// TFLOP/s of its f32 CUDA cores is 0.97 ms, the bytes 0.26 ms.
 //
 // Design: grid.z is the output parity class (8), grid.y the block of COB=8
 // output channels, grid.x the half-resolution voxel; each thread computes
 // one output voxel of its parity, so a block needs only its parity's 8
 // taps of R, staged once in shared memory as f32 (8*(Ca+Cb+1)*COB
-// floats, 29 KB at 56+56 channels). Tensor-core tiling is later work.
+// floats, 29 KB at 56+56 channels, either T). The ones channel's taps are
+// skipped with the operands' where u lies outside, so the bias term is
+// exact at every face. Making the f32 form fast is later work.
 #include "common.cuh"
 
 using namespace ctunet;
 
+namespace {
+
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-upconv_bn_relu_kernel(const __nv_bfloat16* __restrict__ a,
-                      const __nv_bfloat16* __restrict__ b,
-                      const __nv_bfloat16* __restrict__ wa,
-                      const __nv_bfloat16* __restrict__ wb,
-                      const __nv_bfloat16* __restrict__ wone,
-                      const float* __restrict__ bias,
-                      __nv_bfloat16* __restrict__ out, int D2, int H2, int W2,
-                      int Ca, int Cb, int Co) {
+upconv_bn_relu_kernel(const T* __restrict__ a, const T* __restrict__ b,
+                      const T* __restrict__ wa, const T* __restrict__ wb,
+                      const T* __restrict__ wone,
+                      const float* __restrict__ bias, T* __restrict__ out,
+                      int D2, int H2, int W2, int Ca, int Cb, int Co) {
   extern __shared__ __align__(16) float ws[];  // [8 taps][Ca+Cb+1][COB]
   const int par = blockIdx.z;
   const int pz = par >> 2, py = (par >> 1) & 1, px = par & 1;
@@ -66,11 +71,11 @@ upconv_bn_relu_kernel(const __nv_bfloat16* __restrict__ a,
     float val = 0.f;
     if (co < Co) {
       if (c < Ca)
-        val = bf(wa[(static_cast<int64_t>(k) * Ca + c) * Co + co]);
+        val = ld(wa[(static_cast<int64_t>(k) * Ca + c) * Co + co]);
       else if (c < Ca + Cb)
-        val = bf(wb[(static_cast<int64_t>(k) * Cb + (c - Ca)) * Co + co]);
+        val = ld(wb[(static_cast<int64_t>(k) * Cb + (c - Ca)) * Co + co]);
       else
-        val = bf(wone[k * Co + co]);
+        val = ld(wone[k * Co + co]);
     }
     ws[i] = val;
   }
@@ -97,10 +102,10 @@ upconv_bn_relu_kernel(const __nv_bfloat16* __restrict__ a,
       continue;
     const int64_t u = (static_cast<int64_t>(uz) * H2 + uy) * W2 + ux;
     const float* wp = ws + tap * ct * COB;
-    const __nv_bfloat16* ap = a + u * Ca;
-    for (int c = 0; c < Ca; ++c) fma_cob(acc, bf(ap[c]), wp + c * COB);
-    const __nv_bfloat16* bp = b + u * Cb;
-    for (int c = 0; c < Cb; ++c) fma_cob(acc, bf(bp[c]), wp + (Ca + c) * COB);
+    const T* ap = a + u * Ca;
+    for (int c = 0; c < Ca; ++c) fma_cob(acc, ld(ap[c]), wp + c * COB);
+    const T* bp = b + u * Cb;
+    for (int c = 0; c < Cb; ++c) fma_cob(acc, ld(bp[c]), wp + (Ca + c) * COB);
     fma_cob(acc, 1.f, wp + (Ca + Cb) * COB);  // the ones channel
   }
 
@@ -109,33 +114,52 @@ upconv_bn_relu_kernel(const __nv_bfloat16* __restrict__ a,
 #pragma unroll
   for (int j = 0; j < COB; ++j) {
     const int co = co0 + j;
-    if (co < Co) out[o + co] = __float2bfloat16(fmaxf(acc[j] + bias[co], 0.f));
+    if (co < Co) st(out + o + co, fmaxf(acc[j] + bias[co], 0.f));
   }
 }
 
+template <typename T>
+int launch(const void* a, const void* b, const void* wa, const void* wb,
+           const void* wone, const void* bias, void* out, int D2, int H2,
+           int W2, int Ca, int Cb, int Co, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem =
+      static_cast<size_t>(8) * (Ca + Cb + 1) * COB * sizeof(float);
+  err = allow_smem(upconv_bn_relu_kernel<T>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t n2 = static_cast<int64_t>(D2) * H2 * W2;
+  const dim3 grid(static_cast<unsigned>((n2 + THREADS - 1) / THREADS),
+                  (Co + COB - 1) / COB, 8);
+  upconv_bn_relu_kernel<T><<<grid, THREADS, smem,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(a), static_cast<const T*>(b),
+      static_cast<const T*>(wa), static_cast<const T*>(wb),
+      static_cast<const T*>(wone), static_cast<const float*>(bias),
+      static_cast<T*>(out), D2, H2, W2, Ca, Cb, Co);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// K3 on bf16 tensors (timing beside upconv_tc.cu); b and wb null when Cb = 0.
 extern "C" int ctunet_upconv_bn_relu(const void* a, const void* b,
                                      const void* wa, const void* wb,
                                      const void* wone, const void* bias,
                                      void* out, int D2, int H2, int W2,
                                      int Ca, int Cb, int Co, int device,
                                      void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem =
-      static_cast<size_t>(8) * (Ca + Cb + 1) * COB * sizeof(float);
-  err = allow_smem(upconv_bn_relu_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t n2 = static_cast<int64_t>(D2) * H2 * W2;
-  const dim3 grid(static_cast<unsigned>((n2 + THREADS - 1) / THREADS),
-                  (Co + COB - 1) / COB, 8);
-  upconv_bn_relu_kernel<<<grid, THREADS, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(a),
-      static_cast<const __nv_bfloat16*>(b),
-      static_cast<const __nv_bfloat16*>(wa),
-      static_cast<const __nv_bfloat16*>(wb),
-      static_cast<const __nv_bfloat16*>(wone),
-      static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(out), D2,
-      H2, W2, Ca, Cb, Co);
-  return static_cast<int>(cudaGetLastError());
+  return launch<__nv_bfloat16>(a, b, wa, wb, wone, bias, out, D2, H2, W2, Ca,
+                               Cb, Co, device, stream);
+}
+
+// K3 in f32.
+extern "C" int ctunet_upconv_bn_relu_f32(const void* a, const void* b,
+                                         const void* wa, const void* wb,
+                                         const void* wone, const void* bias,
+                                         void* out, int D2, int H2, int W2,
+                                         int Ca, int Cb, int Co, int device,
+                                         void* stream) {
+  return launch<float>(a, b, wa, wb, wone, bias, out, D2, H2, W2, Ca, Cb, Co,
+                       device, stream);
 }

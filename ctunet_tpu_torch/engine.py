@@ -1,4 +1,5 @@
-"""bf16 serving engine: the U-Net forward on the port's Hopper kernels.
+"""Serving engine: the U-Net forward on the port's Hopper kernels, in bf16
+or f32 (``compute_dtype``).
 
 Counterpart of ``ctunet_tpu/engine.py::build_predict`` (``:279-636``) for
 the generic 4-block family and ``_build_legacy_predict`` (``:766-828``) for
@@ -16,7 +17,7 @@ Generic family (UNetSP, UNetDO, UNet4b2i3o, UNet4b1i3o):
 
 For UNetSP at 224x304x304 that is 12 K1, 4 K2 and 4 K3 launches per
 volume; the upconv composite is built in f64, rounded to f32 and then to
-bf16.
+the compute dtype.
 
 Legacy family (recAE_v2_fixed, UNet4_2IC; :func:`build_legacy_predict`):
 
@@ -30,8 +31,16 @@ Legacy family (recAE_v2_fixed, UNet4_2IC; :func:`build_legacy_predict`):
 
 That is 18 K5, 4 K2, 1 K7a and 3 K7b launches per volume. Weight rounding
 follows the JAX engine: conv weights are folded with BN in f32 and then
-rounded to bf16, biases (``conv_bias * scale + bn_shift`` where the conv
-has a bias) stay f32; ConvT weights are rounded once to bf16.
+cast to the compute dtype, biases (``conv_bias * scale + bn_shift`` where
+the conv has a bias) stay f32; ConvT weights are cast once.
+
+Both dtypes run on the card, as the JAX engine runs its Pallas kernels in
+``compute_dtype``: in bf16 the convs and upsamplings launch the
+tensor-core kernels (``conv3d_tc``, ``upconv_tc``); in f32 the CUDA-core
+kernels ``conv3d_f32`` (K1), ``conv3d5_f32`` (K5), ``maxpool2_f32`` (K2),
+``upconv_f32`` (K3) and ``convt_f32`` (K7a/K7b), which round nowhere but
+in their f32 sums. The heads' matmuls run in the compute dtype through
+``torch.matmul``.
 
 The code is the same on both devices. For CUDA tensors each kernel wrapper
 launches its kernel or raises; for CPU tensors it runs its plain PyTorch
@@ -132,10 +141,6 @@ def build_predict(
             f"{NOT_PORTED[model_class]}")
     cfg = ENGINE_CONFIGS[model_class]
     device = resolve_device(device)
-    if device.type == "cuda" and not plain and compute_dtype != torch.bfloat16:
-        raise NotImplementedError(
-            f"the Hopper kernels compute in bfloat16, not {compute_dtype}; "
-            "other engine dtypes on the card are not ported")
     if cfg["family"] == "legacy":
         if record is not None or sparse:
             raise NotImplementedError(
@@ -171,6 +176,9 @@ def build_predict(
     b_flap = torch.tensor(B_FLAP, device=device)
 
     def head(a, b):
+        # in f32 these are full-f32 GEMMs on the card as long as the
+        # caller leaves torch.backends.cuda.matmul.allow_tf32 at its
+        # default (False); the engine sets no global flag
         lc = a @ lka + b @ lkb + lb
         out = torch.sigmoid(lc.float())
         if cfg["head"] is None:
@@ -273,7 +281,7 @@ def build_legacy_predict(state_dict: Dict[str, torch.Tensor],
             a = (up1 if b is None else up2)(a, b, wa, wb, bu)
             a = conv(conv(a, w0, b0), w1, b1)
             b = skips[3 - i]
-        lc = a @ lka + b @ lkb + lb
+        lc = a @ lka + b @ lkb + lb  # full f32 in f32, as the generic head
         return torch.softmax(lc.float(), -1).to(compute_dtype)
 
     @torch.inference_mode()

@@ -21,7 +21,10 @@ channels-last tensors and the port's kernels:
   computes them in XLA outside Pallas.
 - K1q runs ``conv3d_tc_q`` and K3q ``upconv_tc_q``, the int8 tensor-core
   kernels, at every ``split_taps`` and ``sparse`` setting: the JAX forms
-  these select compute the same integers.
+  these select compute the same integers. The float units of the
+  mixed-precision splits (``bf16_head``, ``bf16_tail``) run K1/K2/K3 in
+  ``compute_dtype``: the tensor-core kernels in bf16, the CUDA-core f32
+  kernels in f32 (``engine.py``).
 
 The JAX chain layout carries a ones lane in every tensor (q = 127 inside
 the volume, the -128 fill outside); here it exists only inside K3q, whose
@@ -258,13 +261,16 @@ def build_predict_q(
     """Build the int8 ``predict(images)`` for ``(B, D, H, W, C)`` inputs of
     ``calib_volume``'s spatial shape (``engine_q.build_predict_q``).
 
-    :param calib_volume: ``(D, H, W, C)`` on the engine's device; calibrated with :func:`calibrate` unless
+    :param calib_volume: ``(D, H, W, C)`` on the engine's device;
+        calibrated with :func:`calibrate` (one bf16 engine forward in
+        every ``compute_dtype``, as the JAX package calibrates) unless
         ``import_scales`` is given.
     :param plain: run the plain PyTorch versions of every kernel.
-    :param bf16_tail: final decoder blocks served in ``compute_dtype`` on the
-        bf16 kernels (``.5``: the last int8 block's unit 1 only).
+    :param bf16_tail: final decoder blocks served in ``compute_dtype`` (bf16
+        or f32) on the float kernels (``.5``: the last int8 block's unit 1
+        only).
     :param bf16_head: leading encoder blocks served in ``compute_dtype``
-        (``.5``: the first unit only); a fully-bf16 block's skip reaches
+        (``.5``: the first unit only); a fully-float block's skip reaches
         the head unquantized.
     :param round_opt: AdaQuant overrides (:mod:`quant_opt`), by unit tag.
     :param export_scales: filled with the scales used, JAX export format.
@@ -293,10 +299,6 @@ def build_predict_q(
     del split_taps, sparse  # each form computes the same integers
     cfg = engine.ENGINE_CONFIGS[model_class]
     device = resolve_device(device)
-    if device.type == "cuda" and not plain and compute_dtype != torch.bfloat16:
-        raise NotImplementedError(
-            f"the Hopper kernels' float parts compute in bfloat16, not "
-            f"{compute_dtype}")
     n = cfg["n_blocks"]
     shape = tuple(int(s) for s in calib_volume.shape[-4:-1])
     cin0 = int(calib_volume.shape[-1])

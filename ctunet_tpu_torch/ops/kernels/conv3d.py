@@ -15,20 +15,24 @@ volumes.
 In bf16, K1, K6 and K5 are one kernel, :func:`conv3d_tc`
 (``csrc/conv3d_tc.cu``): an implicit GEMM on the tensor cores whose tiles
 :func:`tc_plan` chooses per layer and shape and whose weights
-:func:`pack_tc_weights` lays out once per weight tensor. In f32, K6 and K5
-run the direct kernels ``csrc/conv3d.cu`` and ``csrc/conv3d_k5.cu`` (the
-tensor cores' f32 mode is TF32); their bf16 forms are kept as
-``*_direct`` functions for timing beside the new kernel. K1q runs the int8
-tensor-core kernel :func:`conv3d_tc_q` (``csrc/conv3d_tc_q.cu``, plan
-:func:`tcq_plan`, weights :func:`pack_tcq_weights`); the CUDA-core kernel
-``csrc/conv3d_q.cu`` it launched before stays reachable as
-:func:`conv3d_q_requant_direct`. K2q is ``csrc/maxpool.cu``.
+:func:`pack_tc_weights` lays out once per weight tensor. In f32, K1 and K6
+run the direct kernel :func:`conv3d_f32` (``csrc/conv3d.cu``) and K5
+:func:`conv3d5_f32` (``csrc/conv3d_k5.cu``), on the CUDA cores in full f32
+(the tensor cores' f32 mode is TF32); their bf16 forms are kept as
+``*_direct`` functions for timing beside the tensor-core kernel. K2 runs
+``csrc/maxpool.cu`` in bf16, and in f32 as :func:`maxpool2_f32`. K1q runs
+the int8 tensor-core kernel :func:`conv3d_tc_q` (``csrc/conv3d_tc_q.cu``,
+plan :func:`tcq_plan`, weights :func:`pack_tcq_weights`); the CUDA-core
+kernel ``csrc/conv3d_q.cu`` it launched before stays reachable as
+:func:`conv3d_q_requant_direct`. K2q is ``csrc/maxpool.cu`` in int8.
 
 Each wrapper launches its kernel for a CUDA tensor (or raises) and takes
 its plain PyTorch version only for a tensor on the CPU. ``<wrapper>.launches``
 counts kernel launches, so a run can show that its path went through the
 kernels; a bf16 K1/K6/K5 call counts on its wrapper and on ``conv3d_tc``,
-a K1q call on its wrapper and on ``conv3d_tc_q``.
+an f32 K1/K6 call on its wrapper and on ``conv3d_f32``, an f32 K5 call on
+``conv3d5_f32``, an f32 K2 call on ``maxpool2_f32``, a K1q call on its
+wrapper and on ``conv3d_tc_q``.
 """
 
 from __future__ import annotations
@@ -311,7 +315,8 @@ def launch_tc(x: torch.Tensor, wp: torch.Tensor, bias: torch.Tensor,
 # --------------------------------------------------------------------------
 # The direct kernels (csrc/conv3d.cu at k3, csrc/conv3d_k5.cu at k5): one
 # thread per voxel x 8 output channels on the CUDA cores. They run the f32
-# convs; in bf16 only phase 2 of chip_smoke.py times them.
+# convs (conv3d_f32, conv3d5_f32); in bf16 only phase 2 of chip_smoke.py
+# times them.
 # --------------------------------------------------------------------------
 
 # dz-plane staging holds 25*Ci*8 f32 weights in one block's shared memory
@@ -330,26 +335,71 @@ def _direct(x, w, bias, relu, k: int, what: str):
         return out
     lib, sym = (("conv3d", "ctunet_conv3d_bias_act") if k == 3 else
                 ("conv3d_k5", "ctunet_conv3d5_bias_act"))
-    fn = build.function(lib, sym, [_P] * 4 + [_I] * 8 + [_P])
+    if x.dtype == torch.float32:
+        sym += "_f32"
+    fn = build.function(lib, sym, [_P] * 4 + [_I] * 7 + [_P])
     rc = fn(x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            d, h, wd, ci, co, int(x.dtype == torch.float32), int(bool(relu)),
-            *build.stream_args(x))
+            d, h, wd, ci, co, int(bool(relu)), *build.stream_args(x))
     build.check(rc, what)
     return out
 
 
 def conv3d_bias_act_direct(x, w, bias, relu: bool) -> torch.Tensor:
     """The direct k=3 kernel (``csrc/conv3d.cu``) on CUDA tensors, bf16 or
-    f32 (:func:`conv3d_bias_act`'s f32 route); the plain version on CPU
-    tensors."""
+    f32, for timing; the plain version on CPU tensors. Counts no
+    launches."""
     return _direct(x, w, bias, relu, 3, "conv3d_bias_act_direct")
 
 
 def conv3d5_bias_act_direct(x, w, bias, relu: bool = True) -> torch.Tensor:
     """The direct k=5 kernel (``csrc/conv3d_k5.cu``) on CUDA tensors, bf16
-    or f32 with ``Ci <= K5_MAX_CI`` (:func:`conv3d5_bias_act`'s f32 route);
-    the plain version on CPU tensors."""
+    or f32 with ``Ci <= K5_MAX_CI``, for timing; the plain version on CPU
+    tensors. Counts no launches."""
     return _direct(x, w, bias, relu, 5, "conv3d5_bias_act_direct")
+
+
+def _f32_direct(x, w, bias, relu, k: int, fn):
+    """An f32 conv on the direct kernel at ``k``, counted on ``fn``."""
+    if x.device.type == "cpu":
+        return conv3d_tc_plain(x, w, bias, relu)
+    _require_cuda(x, fn.__name__)
+    if x.dtype != torch.float32:
+        raise TypeError(f"{fn.__name__}: float32 only, got {x.dtype}")
+    out = _direct(x, w, bias, relu, k, fn.__name__)
+    if out.numel():  # an empty volume launches nothing
+        fn.launches += 1
+    return out
+
+
+def conv3d_f32(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+               relu: bool) -> torch.Tensor:
+    """The f32 k=3 conv, the kernel of K1 and K6 in f32: f32 ``x``
+    ``(D, H, W, Ci)``, ``w`` ``(3, 3, 3, Ci, Co)`` and ``bias`` ``(Co,)`` ->
+    ``act(conv(x, w) + bias)`` summed in f32, ``act`` the ReLU when
+    ``relu``.
+
+    CPU tensor: the plain version. CUDA tensor: ``csrc/conv3d.cu``
+    (``ctunet_conv3d_bias_act_f32``) on the current stream, or an error.
+    """
+    return _f32_direct(x, w, bias, relu, 3, conv3d_f32)
+
+
+conv3d_f32.launches = 0
+
+
+def conv3d5_f32(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                relu: bool = True) -> torch.Tensor:
+    """The f32 k=5 conv, the kernel of K5 in f32 (arguments as
+    :func:`conv3d_f32` with ``w`` ``(5, 5, 5, Ci, Co)``, ``Ci <=
+    K5_MAX_CI``).
+
+    CPU tensor: the plain version. CUDA tensor: ``csrc/conv3d_k5.cu``
+    (``ctunet_conv3d5_bias_act_f32``) on the current stream, or an error.
+    """
+    return _f32_direct(x, w, bias, relu, 5, conv3d5_f32)
+
+
+conv3d5_f32.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -368,13 +418,14 @@ def conv3d_bn_relu(x: torch.Tensor, w: torch.Tensor,
     """K1 on ``x`` ``(D, H, W, Ci)`` with folded ``w`` ``(3, 3, 3, Ci, Co)``
     and f32 ``bias`` ``(Co,)`` -> ``(D, H, W, Co)``.
 
-    CPU tensor: the plain version. CUDA tensor: :func:`conv3d_tc` (bf16
-    only), or an error.
+    CPU tensor: the plain version. CUDA tensor: :func:`conv3d_tc` in bf16,
+    the direct kernel :func:`conv3d_f32` in f32, or an error.
     """
     if x.device.type == "cpu":
         return conv3d_bn_relu_plain(x, w, bias)
     _conv_checks(x, w, bias, 3, "conv3d_bn_relu")
-    out = conv3d_tc(x, w, bias, True)
+    conv = conv3d_tc if x.dtype == torch.bfloat16 else conv3d_f32
+    out = conv(x, w, bias, True)
     if out.numel():  # an empty volume launches nothing
         conv3d_bn_relu.launches += 1
     return out
@@ -406,15 +457,13 @@ def conv3d_bias_act(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     the ReLU when ``relu`` else the identity.
 
     CPU tensor: the plain version. CUDA tensor: :func:`conv3d_tc` in bf16,
-    the direct ``csrc/conv3d.cu`` kernel in f32, or an error.
+    the direct kernel :func:`conv3d_f32` in f32, or an error.
     """
     if x.device.type == "cpu":
         return conv3d_bias_act_plain(x, w, bias, relu)
     _conv_checks(x, w, bias, 3, "conv3d_bias_act")
-    if x.dtype == torch.bfloat16:
-        out = conv3d_tc(x, w, bias, relu)
-    else:
-        out = conv3d_bias_act_direct(x, w, bias, relu)
+    conv = conv3d_tc if x.dtype == torch.bfloat16 else conv3d_f32
+    out = conv(x, w, bias, relu)
     if out.numel():  # an empty volume launches nothing
         conv3d_bias_act.launches += 1
     return out
@@ -449,16 +498,14 @@ def conv3d5_bias_act(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     identity.
 
     CPU tensor: the plain version. CUDA tensor: :func:`conv3d_tc` in bf16,
-    the direct ``csrc/conv3d_k5.cu`` kernel in f32 (``Ci <= K5_MAX_CI``),
-    or an error.
+    the direct kernel :func:`conv3d5_f32` in f32 (``Ci <= K5_MAX_CI``), or
+    an error.
     """
     if x.device.type == "cpu":
         return conv3d5_bias_act_plain(x, w, bias, relu)
     _conv_checks(x, w, bias, 5, "conv3d5_bias_act")
-    if x.dtype == torch.bfloat16:
-        out = conv3d_tc(x, w, bias, relu)
-    else:
-        out = conv3d5_bias_act_direct(x, w, bias, relu)
+    conv = conv3d_tc if x.dtype == torch.bfloat16 else conv3d5_f32
+    out = conv(x, w, bias, relu)
     if out.numel():  # an empty volume launches nothing
         conv3d5_bias_act.launches += 1
     return out
@@ -479,30 +526,60 @@ def maxpool2_plain(x: torch.Tensor) -> torch.Tensor:
     return y[0].permute(1, 2, 3, 0).contiguous()
 
 
-def maxpool2(x: torch.Tensor) -> torch.Tensor:
-    """K2 on ``(D, H, W, C)`` -> ``(D//2, H//2, W//2, C)``.
-
-    CPU tensor: the plain version. CUDA tensor: the ``csrc/maxpool.cu``
-    kernel (bf16 only) on the current stream, or an error.
-    """
-    if x.device.type == "cpu":
-        return maxpool2_plain(x)
-    _require_cuda(x, "maxpool2")
+def _launch_pool(x: torch.Tensor, dtype, symbol: str,
+                 what: str) -> torch.Tensor:
+    """One launch of ``csrc/maxpool.cu``'s ``symbol`` on a ``dtype`` volume
+    (none for an empty output)."""
+    _require_cuda(x, what)
     d, h, w, c = x.shape
-    _check(x, "x", torch.bfloat16)
-    out = torch.empty((d // 2, h // 2, w // 2, c), dtype=torch.bfloat16,
+    _check(x, "x", dtype)
+    out = torch.empty((d // 2, h // 2, w // 2, c), dtype=dtype,
                       device=x.device)
     if out.numel() == 0:
         return out
-    fn = build.function("maxpool", "ctunet_maxpool2",
-                        [_P, _P, _I, _I, _I, _I, _I, _P])
+    fn = build.function("maxpool", symbol, [_P, _P, _I, _I, _I, _I, _I, _P])
     rc = fn(x.data_ptr(), out.data_ptr(), d, h, w, c, *build.stream_args(x))
-    build.check(rc, "maxpool2")
-    maxpool2.launches += 1
+    build.check(rc, what)
+    return out
+
+
+def maxpool2(x: torch.Tensor) -> torch.Tensor:
+    """K2 on bf16 or f32 ``(D, H, W, C)`` -> ``(D//2, H//2, W//2, C)``.
+
+    CPU tensor: the plain version. CUDA tensor: the ``csrc/maxpool.cu``
+    kernel on the current stream (f32: :func:`maxpool2_f32`), or an error.
+    """
+    if x.device.type == "cpu":
+        return maxpool2_plain(x)
+    if x.dtype == torch.float32:
+        out = maxpool2_f32(x)
+    else:
+        out = _launch_pool(x, torch.bfloat16, "ctunet_maxpool2", "maxpool2")
+    if out.numel():  # an empty volume launches nothing
+        maxpool2.launches += 1
     return out
 
 
 maxpool2.launches = 0
+
+
+def maxpool2_f32(x: torch.Tensor) -> torch.Tensor:
+    """K2's f32 kernel on ``(D, H, W, C)``: the f32 instantiation of
+    ``csrc/maxpool.cu`` (16-byte loads where ``C % 4 == 0``).
+
+    CPU tensor: the plain version. CUDA tensor: the kernel on the current
+    stream, or an error.
+    """
+    if x.device.type == "cpu":
+        return maxpool2_plain(x)
+    out = _launch_pool(x, torch.float32, "ctunet_maxpool2_f32",
+                       "maxpool2_f32")
+    if out.numel():
+        maxpool2_f32.launches += 1
+    return out
+
+
+maxpool2_f32.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -822,18 +899,9 @@ def maxpool2_q(x: torch.Tensor) -> torch.Tensor:
     """
     if x.device.type == "cpu":
         return maxpool2_q_plain(x)
-    _require_cuda(x, "maxpool2_q")
-    d, h, w, c = x.shape
-    _check(x, "x", torch.int8)
-    out = torch.empty((d // 2, h // 2, w // 2, c), dtype=torch.int8,
-                      device=x.device)
-    if out.numel() == 0:
-        return out
-    fn = build.function("maxpool", "ctunet_maxpool2_q",
-                        [_P, _P, _I, _I, _I, _I, _I, _P])
-    rc = fn(x.data_ptr(), out.data_ptr(), d, h, w, c, *build.stream_args(x))
-    build.check(rc, "maxpool2_q")
-    maxpool2_q.launches += 1
+    out = _launch_pool(x, torch.int8, "ctunet_maxpool2_q", "maxpool2_q")
+    if out.numel():
+        maxpool2_q.launches += 1
     return out
 
 

@@ -16,7 +16,9 @@ depends on position.
 In bf16, K3 runs the tensor-core kernel :func:`~.upsample_tc.upconv_tc`
 (``csrc/upconv_tc.cu``, shared with K7a/K7b; each launch also counts on
 ``upconv_tc``); the CUDA-core kernel ``csrc/upconv.cu`` it launched before
-stays reachable as :func:`upconv_bn_relu_direct` for timing beside it. K3q
+stays reachable as :func:`upconv_bn_relu_direct` for timing beside it. In
+f32, K3 runs that CUDA-core kernel's f32 form, :func:`upconv_f32` (each
+launch also counting on ``upconv_f32``). K3q
 runs the int8 tensor-core kernel :func:`~.upsample_tc.upconv_tc_q`
 (``csrc/upconv_tc_q.cu``, each launch also counting on ``upconv_tc_q``);
 the CUDA-core kernel ``csrc/upconv_q.cu`` it launched before stays
@@ -156,15 +158,20 @@ def upconv_bn_relu_plain(a: torch.Tensor, b: Optional[torch.Tensor],
 def upconv_bn_relu(a: torch.Tensor, b: Optional[torch.Tensor],
                    wa: torch.Tensor, wb: Optional[torch.Tensor],
                    wone: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """K3 on half-resolution ``a`` (and skip ``b``) -> full resolution.
+    """K3 on half-resolution ``a`` (and skip ``b``) -> full resolution, in
+    ``a``'s dtype (bf16 or f32; weights of the same dtype, f32 ``bias``).
 
     CPU tensor: the plain version. CUDA tensor: the tensor-core kernel
-    :func:`~.upsample_tc.upconv_tc` (``csrc/upconv_tc.cu``, bf16 only) on the
+    :func:`~.upsample_tc.upconv_tc` (``csrc/upconv_tc.cu``) in bf16, the
+    CUDA-core kernel :func:`upconv_f32` (``csrc/upconv.cu``) in f32, on the
     current stream, or an error.
     """
     if a.device.type == "cpu":
         return upconv_bn_relu_plain(a, b, wa, wb, wone, bias)
-    out = upconv_tc(a, b, wa, wb, wone, bias, k3=True)
+    if a.dtype == torch.float32:
+        out = upconv_f32(a, b, wa, wb, wone, bias)
+    else:
+        out = upconv_tc(a, b, wa, wb, wone, bias, k3=True)
     if out.numel():  # an empty volume launches nothing
         upconv_bn_relu.launches += 1
     return out
@@ -173,39 +180,73 @@ def upconv_bn_relu(a: torch.Tensor, b: Optional[torch.Tensor],
 upconv_bn_relu.launches = 0
 
 
-def upconv_bn_relu_direct(a: torch.Tensor, b: Optional[torch.Tensor],
-                          wa: torch.Tensor, wb: Optional[torch.Tensor],
-                          wone: torch.Tensor,
-                          bias: torch.Tensor) -> torch.Tensor:
-    """K3 on the CUDA cores (``csrc/upconv.cu``, bf16), the kernel
-    :func:`upconv_bn_relu` launched before ``upconv_tc``: kept for timing
-    beside it (``chip_smoke.py`` phase 2); the plain version on CPU
-    tensors. Counts no launches."""
-    if a.device.type == "cpu":
-        return upconv_bn_relu_plain(a, b, wa, wb, wone, bias)
-    _require_cuda(a, "upconv_bn_relu_direct")
+def _launch_direct(a, b, wa, wb, wone, bias, what: str) -> torch.Tensor:
+    """One launch of the CUDA-core kernel ``csrc/upconv.cu`` on bf16 or f32
+    operands (``ctunet_upconv_bn_relu`` / ``_f32``)."""
+    _require_cuda(a, what)
+    dt = a.dtype
+    if dt not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{what}: expected bfloat16 or float32, got {dt}")
     d2, h2, w2, ca = a.shape
     co = wa.shape[-1]
     cb = 0 if b is None else b.shape[-1]
-    _check(a, "a", torch.bfloat16)
-    _check(wa, "wa", torch.bfloat16, (4, 4, 4, ca, co), a.device)
-    _check(wone, "wone", torch.bfloat16, (4, 4, 4, co), a.device)
+    _check(a, "a", dt)
+    _check(wa, "wa", dt, (4, 4, 4, ca, co), a.device)
+    _check(wone, "wone", dt, (4, 4, 4, co), a.device)
     _check(bias, "bias", torch.float32, (co,), a.device)
     if b is not None:
-        _check(b, "b", torch.bfloat16, (d2, h2, w2, cb), a.device)
-        _check(wb, "wb", torch.bfloat16, (4, 4, 4, cb, co), a.device)
-    out = torch.empty((2 * d2, 2 * h2, 2 * w2, co), dtype=torch.bfloat16,
+        _check(b, "b", dt, (d2, h2, w2, cb), a.device)
+        _check(wb, "wb", dt, (4, 4, 4, cb, co), a.device)
+    out = torch.empty((2 * d2, 2 * h2, 2 * w2, co), dtype=dt,
                       device=a.device)
     if out.numel() == 0:
         return out
-    fn = build.function("upconv", "ctunet_upconv_bn_relu",
-                        [_P] * 7 + [_I] * 7 + [_P])
+    sym = "ctunet_upconv_bn_relu" + ("_f32" if dt == torch.float32 else "")
+    fn = build.function("upconv", sym, [_P] * 7 + [_I] * 7 + [_P])
     rc = fn(a.data_ptr(), None if b is None else b.data_ptr(),
             wa.data_ptr(), None if wb is None else wb.data_ptr(),
             wone.data_ptr(), bias.data_ptr(), out.data_ptr(),
             d2, h2, w2, ca, cb, co, *build.stream_args(a))
-    build.check(rc, "upconv_bn_relu_direct")
+    build.check(rc, what)
     return out
+
+
+def upconv_bn_relu_direct(a: torch.Tensor, b: Optional[torch.Tensor],
+                          wa: torch.Tensor, wb: Optional[torch.Tensor],
+                          wone: torch.Tensor,
+                          bias: torch.Tensor) -> torch.Tensor:
+    """K3 on the CUDA cores (``csrc/upconv.cu``, bf16 or f32), the kernel
+    :func:`upconv_bn_relu` launched in bf16 before ``upconv_tc``: kept for
+    timing beside it (``chip_smoke.py`` phase 2); the plain version on CPU
+    tensors. Counts no launches."""
+    if a.device.type == "cpu":
+        return upconv_bn_relu_plain(a, b, wa, wb, wone, bias)
+    return _launch_direct(a, b, wa, wb, wone, bias, "upconv_bn_relu_direct")
+
+
+def upconv_f32(a: torch.Tensor, b: Optional[torch.Tensor], wa: torch.Tensor,
+               wb: Optional[torch.Tensor], wone: torch.Tensor,
+               bias: torch.Tensor) -> torch.Tensor:
+    """K3's f32 kernel: f32 half-resolution ``a`` ``(D2, H2, W2, Ca)`` and
+    ``b`` ``(D2, H2, W2, Cb)`` or None, f32 ``wa``/``wb`` ``(4, 4, 4, C,
+    Co)``, ``wone`` ``(4, 4, 4, Co)`` and ``bias`` ``(Co,)`` -> f32
+    ``(2*D2, 2*H2, 2*W2, Co)``, summed in f32 with no rounding to bf16.
+
+    CPU tensor: the plain version. CUDA tensor: ``csrc/upconv.cu``
+    (``ctunet_upconv_bn_relu_f32``) on the current stream, or an error.
+    """
+    if a.device.type == "cpu":
+        return upconv_bn_relu_plain(a, b, wa, wb, wone, bias)
+    _require_cuda(a, "upconv_f32")
+    if a.dtype != torch.float32:
+        raise TypeError(f"upconv_f32: float32 only, got {a.dtype}")
+    out = _launch_direct(a, b, wa, wb, wone, bias, "upconv_f32")
+    if out.numel():  # an empty volume launches nothing
+        upconv_f32.launches += 1
+    return out
+
+
+upconv_f32.launches = 0
 
 
 # --------------------------------------------------------------------------

@@ -19,7 +19,8 @@ keeps the packing on the weight tensor, and :func:`uptc_blocks` is the
 kernel's grid arithmetic. :func:`upconv_tc` launches the kernel for bf16
 CUDA tensors (or raises) and runs the plain version of K3 or K7 for a CPU
 tensor; ``upconv_tc.launches`` counts kernel launches, and equals on every
-path the launches of the K3, K7a and K7b wrappers, which call it.
+bf16 path the launches of the K3, K7a and K7b wrappers, which call it (in
+f32 they call the CUDA-core kernels ``upconv_f32`` and ``convt_f32``).
 
 K3q, the int8 mode of K3, has a kernel of its own on the int8 tensor cores,
 :func:`upconv_tc_q` (``csrc/upconv_tc_q.cu``), with the same tiles and slot

@@ -19,13 +19,14 @@ and/or tests according to the flags. CLI: ``ctunet-tpu-torch <cfg.ini>`` /
   the hand-written conv kernel forward and dgrad, ``xla`` a library conv.
   ``b_packed_train`` and ``b_remat`` are TPU memory-layout choices of the
   JAX package: they are accepted and the same dense graph runs.
-- ``test_flag``: every test volume whole through the bf16 engine
-  (``engine.py``), or with ``use_int8`` the calibrated int8 engine
+- ``test_flag``: every test volume whole through the engine in
+  ``compute_dtype`` (``engine.py``: bf16 or f32 on the card), or with
+  ``use_int8`` the calibrated int8 engine
   (``engine_q.py``), writing ``pred_<name>/<file>_{sk,fl,i}`` NIfTI files
   (``<file>_{fl,i}`` for the single-output handlers ``FlapRec`` and
   ``FlapRecWithShapePrior``). The legacy k=5 models (``recAE_v2_fixed``,
-  ``UNet4_2IC``) are served by the bf16 engine in every case: they have no
-  int8 path, as in ``ctunet_tpu``.
+  ``UNet4_2IC``) are served by the float engine in every case: they have
+  no int8 path, as in ``ctunet_tpu``.
 
 It runs on the CUDA card: ``s_device`` ``tpu``, ``gpu``, ``cuda`` or unset
 all mean the card, and a missing card is an error. ``device = cpu`` runs
@@ -511,8 +512,8 @@ class Model:
 
     def _make_whole_volume_predict(self, atlas=None):
         """``predict(images)`` on ``(B, D, H, W)`` device volumes: stacks the
-        atlas channel on the device in ``compute_dtype`` and runs the bf16
-        engine (or, with ``use_engine = False``, the plain model in
+        atlas channel on the device in ``compute_dtype`` and runs the engine
+        in that dtype (or, with ``use_engine = False``, the plain model in
         ``compute_dtype``, as ``ctunet_tpu``'s ``steps.make_predict_fn``
         serves ``model.apply``, ``trainer.py:1001-1003``). With
         ``use_int8`` the int8 engine serves instead, built lazily on the
@@ -553,7 +554,8 @@ class Model:
         """The int8 engine calibrated on ``x0`` ``(D, H, W, C)``: AdaQuant
         first (``int8_adaquant``), then plain int8. Only
         ``engine_q.Unsupported``, raised while planning before any launch,
-        moves on to the next mode; ``None`` means the bf16 engine serves.
+        moves on to the next mode; ``None`` means the float engine serves
+        (in ``compute_dtype``).
         A failing kernel build or launch is never caught here."""
         from . import engine_q
 
@@ -587,7 +589,7 @@ class Model:
             print(f"serving: calibrated {label} engine for "
                   f"{tuple(x0.shape)} in {time.perf_counter() - t0:.1f} s")
             return qfn
-        print("serving the bf16 engine.")
+        print("serving the float engine.")
         return None
 
     def _forward_pass_test(self) -> None:

@@ -22,15 +22,19 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
    tensor-core kernels behind K1q and K3q, at every K1q and K3q shape of
    the int8 path in zp mode and one each in symmetric mode, beside the
    CUDA-core kernels they replaced and PyTorch's refusal of int8
-   convolutions; K6's f32 route (the direct kernel) forward and as
-   input gradient, and the autograd function's ``dx``/``dw`` against
-   autograd through the plain version; the f32 kernels of the f32 serving
-   paths (``conv3d_f32`` behind K1, ``conv3d5_f32`` behind K5,
-   ``maxpool2_f32`` behind K2, ``upconv_f32`` behind K3, ``convt_f32``
-   behind K7a/K7b) within ``f32_tol`` at every f32 shape of the paths
-   (``f32_shapes``). Each with the kernel's time beside the plain
+   convolutions; K6's f32 route (``conv3d_tc_f32``, the f32
+   tensor-core conv) at every K6 shape of the f32 training run, forward
+   and as input gradient, beside the direct CUDA-core kernel it replaced,
+   and the autograd function's ``dx``/``dw`` against autograd through the
+   plain version;
+   the f32 kernels of the f32 serving paths (``conv3d_tc_f32`` behind K1
+   and K5, ``maxpool2_f32`` behind K2, ``upconv_f32`` behind K3,
+   ``convt_f32`` behind K7a/K7b) within ``f32_tol`` at every f32 shape of
+   the paths (``f32_shapes``), the f32 convs beside the direct CUDA-core
+   kernels they replaced. Each with the kernel's time beside the plain
    version's, one PyTorch library call's where one exists (cuDNN, TF32
-   off), and the card's bound.
+   off), and the card's bound (f32 products at the 3xTF32 rate,
+   ``F32_TC_FLOP_PER_S``).
 3. bf16 path: serves synthetic broken skulls (``spherical_shell`` with a
    hole punched; atlas ``spherical_shell(radius_frac=0.42)``) through the
    ``Model`` test path with the committed ``unetsp_10k`` weights, checks
@@ -87,16 +91,18 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
    (``int8_bf16_head = 1``, round to nearest), and an f32 training run
    (``conv_impl = chain``, ``N_TRAIN_F32`` train steps and one eval step
    at full size) that then serves one volume from its weights. Checks:
-   every float launch on the f32 kernels, ``conv3d_tc`` and ``upconv_tc``
-   at 0 (the int8 engine's calibration forward, bf16 as in the JAX
-   package, aside); the f32 engines' probabilities within atol 5e-4 /
+   every float launch on the f32 kernels (``conv3d_tc_f32`` launches equal
+   to the f32 K1, K6 and K5 launches), ``conv3d_tc`` and ``upconv_tc`` at
+   0 (the int8 engine's calibration forward, bf16 as in the JAX package,
+   aside); the f32 engines' probabilities within atol 5e-4 /
    rtol 1e-3 of the plain f32 model over the whole volume and their masks
    equal to its masks wherever it decides by more than ``2 * F32_ATOL``;
    the int8 masks against the same engine on the plain versions (Dice >=
    0.999 over decided voxels); finite losses, the checkpoint and the
    files; each engine's ms per volume and loop's volumes/s beside phases 3
    and 6, the legacy f32 launches timed by CUDA events, the training
-   run's peak memory.
+   run's peak memory and the ``conv3d_tc_f32`` weight packing one f32
+   train step makes.
 
 The last two lines of output are one JSON object ``{"kernels": [...]}``
 and ``{"ok": true, "device": {...}}``. Any failure exits non-zero and
@@ -106,6 +112,7 @@ imports nothing of JAX and nothing of ``ctunet_tpu``.
 
 from __future__ import annotations
 
+import collections
 import functools
 import json
 import math
@@ -148,6 +155,9 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 BF16_FLOP_PER_S = 989e12    # H100 SXM dense bf16, published
 INT8_OP_PER_S = 1979e12     # H100 SXM dense int8 tensor cores, published
 F32_FLOP_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
+# f32-accurate products through 3xTF32: the dense TF32 rate (495 TFLOP/s)
+# over the three tf32 products each f32 product takes
+F32_TC_FLOP_PER_S = 495e12 / 3
 BF16_EPS = 2.0 ** -7        # bf16 spacing at 1.0 (7 stored mantissa bits)
 # A voxel is decided when both engines' class probabilities differ by more
 # than 4 bf16 ulps at 0.5. Two bf16 engines that differ only in f32
@@ -573,18 +583,25 @@ def f32_tol(ref, n_terms: int) -> float:
 
 
 def check_kernel_train(device, shape=SHAPE, reps: int = 3):
-    """K6's f32 route (the direct kernel) against its plain version at the
-    layers training launches: forward and as input gradient (the reverse
-    layer's flipped, channel-swapped weights); then the autograd function's
-    bf16 ``dx`` and ``dw`` against autograd through the plain version at the
-    full-resolution 7->7 layer, and the library's forward / dgrad / wgrad
-    times there. Random normal inputs and weights from a seed. Returns
-    ``(entries, failures)``.
+    """K6's f32 route (``conv3d_tc_f32``, the f32 tensor-core conv)
+    against its plain version within ``f32_tol`` at every K6 shape of
+    :func:`conv_tc_shapes` (the layers an f32 train step launches), in the
+    layouts the step launches it: forward, and as input gradient (the
+    reverse layer's flipped, channel-swapped weights); each call must count
+    once on ``conv3d_tc_f32`` and on ``conv3d_f32``. Beside it the direct
+    CUDA-core kernel it replaced ("earlier", same inputs, same call), the
+    plain version, cuDNN f32 and the bound at ``F32_TC_FLOP_PER_S``, and
+    the sums per f32 train step (time x launches). Then the autograd
+    function's bf16 ``dx`` and ``dw`` against autograd through the plain
+    version at the full-resolution 7->7 layer, and the library's forward /
+    dgrad / wgrad times there. Random normal inputs and weights from a
+    seed. Returns ``(entries, failures)``.
     """
     import torch
     import torch.nn.functional as F
 
     from ctunet_tpu_torch.ops import chain_conv_train as cct
+    from ctunet_tpu_torch.ops import kernels
     from ctunet_tpu_torch.ops.kernels import conv3d as kc
 
     gen = torch.Generator(device=device).manual_seed(2)
@@ -595,47 +612,76 @@ def check_kernel_train(device, shape=SHAPE, reps: int = 3):
     def randn(*shp, dtype):
         return torch.randn(*shp, generator=gen, device=device).to(dtype)
 
-    # f32: the direct kernel (bf16 is conv3d_tc: check_conv_tc)
+    # f32: conv3d_tc_f32 (bf16 is conv3d_tc: check_conv_tc); launches per
+    # train step of each (ci, co, level) as forward and as input gradient
     f32 = torch.float32
-    for ci, co, level in ((2, 7, 0), (7, 7, 0), (28, 7, 0), (7, 28, 0),
-                          (112, 28, 2)):
+    convs = unetsp_convs()
+    per_mode = {"fwd": collections.Counter(c[:3] for c in convs),
+                "dgrad": collections.Counter((co, ci, lv)
+                                             for ci, co, lv, _ in convs[1:])}
+    sums = [0.0, 0.0, 0.0, 0.0, 0]  # kernel, direct, cuDNN, bound, launches
+    for (k, ci, co, level), paths in conv_tc_shapes().items():
+        if "K6/step" not in paths:
+            continue
         shp = lv[level]
-        wt = randn(3, 3, 3, ci, co, dtype=f32) * (27 * ci) ** -0.5
-        zero = torch.zeros(co, device=device)
-        for mode in ("fwd", "dgrad"):
+        for mode, per_step in per_mode.items():
+            n = per_step[ci, co, level]
+            if not n:
+                continue
             x = randn(*shp, ci, dtype=f32)
-            k = wt if mode == "fwd" else cct.flip_swap(  # a co->ci layer's
-                randn(3, 3, 3, co, ci, dtype=f32) * (27 * co) ** -0.5)
-            got = kc.conv3d_bias_act(x, k, zero, False)
-            ref = kc.conv3d_bias_act_plain(x, k, zero, False)
+            wt = (randn(3, 3, 3, ci, co, dtype=f32) * (27 * ci) ** -0.5
+                  if mode == "fwd" else cct.flip_swap(  # a co->ci layer's
+                      randn(3, 3, 3, co, ci, dtype=f32) * (27 * co) ** -0.5))
+            zero = torch.zeros(co, device=device)
+            before = kernels.launches()
+            got = kc.conv3d_bias_act(x, wt, zero, False)
+            after = kernels.launches()
+            launched = all(after[c] == before[c] + 1
+                           for c in ("conv3d_tc_f32", "conv3d_f32"))
+            ref = kc.conv3d_bias_act_plain(x, wt, zero, False)
             sync(device)
-            tol = f32_tol(ref, 27 * k.shape[3])
+            tol = f32_tol(ref, 27 * ci)
             err = float((got - ref).abs().max())
-            ok = bool(torch.isfinite(got).all()) and err <= tol
-            ms = time_ms(lambda: kc.conv3d_bias_act(x, k, zero, False), reps,
-                         device)
-            p_ms = time_ms(lambda: kc.conv3d_bias_act_plain(x, k, zero,
+            ok = launched and bool(torch.isfinite(got).all()) and err <= tol
+            ms = time_ms(lambda: kc.conv3d_bias_act(x, wt, zero, False),
+                         reps, device)
+            d_ms = time_ms(lambda: kc.conv3d_bias_act_direct(x, wt, zero,
+                                                             False), reps,
+                           device)
+            p_ms = time_ms(lambda: kc.conv3d_bias_act_plain(x, wt, zero,
                                                             False), 1, device)
             x_l = x.permute(3, 0, 1, 2)[None]
-            k_l = k.permute(4, 3, 0, 1, 2).contiguous(
+            w_l = wt.permute(4, 3, 0, 1, 2).contiguous(
                 memory_format=torch.channels_last_3d)
-            l_ms = time_ms(lambda: F.conv3d(x_l, k_l, padding=1), reps,
+            l_ms = time_ms(lambda: F.conv3d(x_l, w_l, padding=1), reps,
                            device)
-            nbytes = 4 * (math.prod(shp) * (ci + co) + k.numel()) + 4 * co
+            nbytes = 4 * (math.prod(shp) * (ci + co) + wt.numel()) + 4 * co
             nflops = 2 * ci * co * conv_taps(shp, 3)
-            b_ms, b_by = bound_ms(nbytes, nflops, F32_FLOP_PER_S)
+            b_ms, b_by = bound_ms(nbytes, nflops, F32_TC_FLOP_PER_S)
             case = f"{ci}->{co} {'x'.join(map(str, shp))} f32 {mode}"
             log(f"  conv3d_bias_act [{case}]: max_abs_err {err:.3e} (tol "
-                f"{tol:.3e}) {'ok' if ok else 'FAIL'}; kernel {ms:.3f} ms, "
-                f"plain {p_ms:.3f} ms, library {l_ms:.3f} ms, bound "
-                f"{b_ms:.4f} ms ({b_by}); {nflops / ms / 1e9:.2f} TFLOP/s")
+                f"{tol:.3e}) {'ok' if ok else 'FAIL'}; conv3d_tc_f32 "
+                f"{ms:.3f} ms ({nflops / ms / 1e9:.2f} TFLOP/s), earlier "
+                f"(direct) {d_ms:.3f} ms, plain {p_ms:.3f} ms, cuDNN f32 "
+                f"{l_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}, at 165 TFLOP/s "
+                f"3xTF32); launches {n} per f32 train step")
             if not ok:
                 failures.append(f"conv3d_bias_act [{case}]: err {err} > tol "
-                                f"{tol} or non-finite")
+                                f"{tol}, non-finite or not launched on "
+                                "conv3d_tc_f32")
+            for i, v in enumerate((ms, d_ms, l_ms, b_ms, 1)):
+                sums[i] += n * v
             entries.setdefault("conv3d_bias_act_f32", dict(
                 case=case, max_abs_err=err, ms=ms, plain_ms=p_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=l_ms))
-            del x, k, got, ref, x_l, k_l
+            del x, wt, got, ref, x_l, w_l
+    t, t_d, t_l, t_b, n = sums
+    log(f"  K6 f32 sum per train step: {n} launches, conv3d_tc_f32 {t:.3f} "
+        f"ms, earlier (direct) {t_d:.3f} ms, cuDNN f32 {t_l:.3f} ms, bound "
+        f"{t_b:.4f} ms")
+    if n != K6_PER_TRAIN_STEP:
+        failures.append(f"K6 f32 check: {n} launches per train step, "
+                        f"expected {K6_PER_TRAIN_STEP}")
 
     # the autograd function at the full-resolution 7->7 layer, bf16
     bf = torch.bfloat16
@@ -714,14 +760,19 @@ def check_kernels_f32(sd, device, shape=SHAPE, reps_big: int = 2,
     ``conv3d_f32`` / ``conv3d5_f32``), K2 ``maxpool2`` (``maxpool2_f32``),
     K3 ``upconv_bn_relu`` with UNetSP's trained decoder weights
     (``upconv_f32``), K7a ``convt_k2s2`` and K7b ``convt_k2s2_dual``
-    (``convt_f32``); each call must count on its f32 kernel and on neither
-    tensor-core kernel. Random normal weights scaled by their fan-in, f32
-    biases, ReLU'd normal inputs from a seed. Beside each: the plain
-    version's time, one cuDNN call of the same function in f32 with TF32
-    off (K3: ConvT, then the folded conv and the ReLU) and the bound
-    (bytes / HBM rate or flops / ``F32_FLOP_PER_S``). Logs one ``F32`` line
-    per shape and each path's sums (time x launches). Returns ``(entries,
-    failures)``, entries keyed ``<wrapper>_f32`` (its first shape)."""
+    (``convt_f32``); each call must count on its f32 kernel (K1 and K5
+    also on ``conv3d_tc_f32``, the f32 tensor-core conv they launch) and
+    on neither bf16 tensor-core kernel. Random normal weights scaled by
+    their fan-in, f32 biases, ReLU'd normal inputs from a seed. Beside
+    each: for K1 and K5 the direct CUDA-core kernel they launched before
+    ("earlier", same inputs, same call), the plain version's time, one
+    cuDNN call of the same function in f32 with TF32 off (K3: ConvT, then
+    the folded conv and the ReLU) and the bound (bytes / HBM rate or flops
+    / ``F32_TC_FLOP_PER_S``, the f32-accurate 3xTF32 rate; K2, whose max is
+    no product, at ``F32_FLOP_PER_S``). Logs one ``F32`` line per shape and
+    each path's sums (time x launches). Returns ``(entries, failures)``,
+    entries keyed ``<wrapper>_f32`` (its first shape) and ``conv3d_tc_f32``
+    (K5 64->16 at 112x152x152)."""
     import torch
     import torch.nn.functional as F
 
@@ -753,6 +804,7 @@ def check_kernels_f32(sd, device, shape=SHAPE, reps_big: int = 2,
 
     for key, paths in f32_shapes().items():
         name = key[0]
+        direct, peak = None, F32_TC_FLOP_PER_S
         if name in ("conv3d_bn_relu", "conv3d5_bias_act"):
             _, ci, co, level = key
             k = 3 if name == "conv3d_bn_relu" else 5
@@ -762,6 +814,9 @@ def check_kernels_f32(sd, device, shape=SHAPE, reps_big: int = 2,
             x = relu_in(*shp, ci)
             args = (x, wt, b)
             run = getattr(kc, name)
+            direct = functools.partial(
+                kc.conv3d_bias_act_direct if k == 3
+                else kc.conv3d5_bias_act_direct, relu=True)
             plain = functools.partial(kc.conv3d_tc_plain, relu=True)
             w_l = wt.permute(4, 3, 0, 1, 2).contiguous(
                 memory_format=torch.channels_last_3d)
@@ -780,6 +835,7 @@ def check_kernels_f32(sd, device, shape=SHAPE, reps_big: int = 2,
             n_terms = 0  # the max is exact
             nbytes = 4 * x.numel() * 9 // 8
             nflops = 7 * x.numel() // 8
+            peak = F32_FLOP_PER_S  # comparisons, on the CUDA cores
             case = f"{c}ch {'x'.join(map(str, shp))}"
         elif name == "upconv_bn_relu":
             _, j, _, _, level = key
@@ -848,7 +904,10 @@ def check_kernels_f32(sd, device, shape=SHAPE, reps_big: int = 2,
         before = kernels.launches()
         got = run(*args)
         after = kernels.launches()
+        tcf = int(direct is not None)  # K1, K5 launch conv3d_tc_f32
         launched = (after[counter] == before[counter] + 1
+                    and after["conv3d_tc_f32"] == before["conv3d_tc_f32"]
+                    + tcf
                     and after["conv3d_tc"] == before["conv3d_tc"]
                     and after["upconv_tc"] == before["upconv_tc"])
         ref = plain(*args)
@@ -859,32 +918,42 @@ def check_kernels_f32(sd, device, shape=SHAPE, reps_big: int = 2,
               and bool(torch.isfinite(got).all()))
         reps = reps_big if big else reps_small
         ms = time_ms(lambda: run(*args), reps, device)
+        d_ms = (time_ms(lambda: direct(*args), 1 if big else reps, device)
+                if direct else float("nan"))
         p_ms = time_ms(lambda: plain(*args), 1 if big else reps, device)
         l_ms = time_ms(lib, reps, device)
-        b_ms, b_by = bound_ms(nbytes, nflops, F32_FLOP_PER_S)
+        b_ms, b_by = bound_ms(nbytes, nflops, peak)
         per = ", ".join(f"{n} {p}" for p, n in paths.items())
+        via = "conv3d_tc_f32 via " + counter if direct else counter
+        earlier = f"earlier (direct) {d_ms:.3f} ms, " if direct else ""
         log(f"  F32 {name} [{case}]: max_abs_err {err:.3e} (tol {tol:.3e}) "
-            f"{'ok' if ok else 'FAIL'}; {counter} {ms:.3f} ms "
+            f"{'ok' if ok else 'FAIL'}; {via} {ms:.3f} ms "
             f"({nflops / ms / 1e9:.2f} TFLOP/s, {nbytes / ms / 1e6:.1f} "
-            f"GB/s), plain {p_ms:.3f} ms, cuDNN f32 {l_ms:.3f} ms, bound "
-            f"{b_ms:.4f} ms ({b_by}), {ms / b_ms:.1f}x it; launches {per}")
+            f"GB/s), {earlier}plain {p_ms:.3f} ms, cuDNN f32 {l_ms:.3f} "
+            f"ms, bound {b_ms:.4f} ms ({b_by}, at {peak / 1e12:.0f} "
+            f"TFLOP/s), {ms / b_ms:.1f}x it; launches {per}")
         if not ok:
-            failures.append(f"{counter} via {name} [{case}]: err {err} > tol "
-                            f"{tol}, non-finite, not f32, or not launched on "
-                            f"{counter} alone")
+            failures.append(f"{via} [{case}] (wrapper {name}): err {err} > "
+                            f"tol {tol}, non-finite, not f32, or not "
+                            "launched on its kernels alone")
         for p, n in paths.items():
-            t = sums.setdefault((p, name), [0.0, 0.0, 0.0, 0])
+            t = sums.setdefault((p, name), [0.0, 0.0, 0.0, 0.0, 0])
             t[0] += n * ms
             t[1] += n * b_ms
             t[2] += n * l_ms
-            t[3] += n
-        entries.setdefault(f"{name}_f32", dict(
-            case=case, max_abs_err=err, ms=ms, plain_ms=p_ms, bound_ms=b_ms,
-            bound_by=b_by, library_ms=l_ms))
+            t[3] += n * d_ms
+            t[4] += n
+        entry = dict(case=case, max_abs_err=err, ms=ms, plain_ms=p_ms,
+                     bound_ms=b_ms, bound_by=b_by, library_ms=l_ms)
+        entries.setdefault(f"{name}_f32", entry)
+        if key == ("conv3d5_bias_act", 64, 16, 1):
+            entries["conv3d_tc_f32"] = entry
         del args, got, ref
-    for (p, name), (t, t_b, t_l, n) in sums.items():
+    for (p, name), (t, t_b, t_l, t_d, n) in sums.items():
+        earlier = ("" if math.isnan(t_d)
+                   else f", earlier (direct) {t_d:.3f} ms")
         log(f"  F32 sum {p} {name}: {n} launches per volume, {t:.3f} ms "
-            f"(bound {t_b:.4f} ms, cuDNN f32 {t_l:.3f} ms)")
+            f"(bound {t_b:.4f} ms, cuDNN f32 {t_l:.3f} ms{earlier})")
     return entries, failures
 
 
@@ -1974,7 +2043,9 @@ def serve_f32(device, work: str, shape=SHAPE, n_volumes: int = N_VOLUMES,
     from ctunet_tpu_torch.checkpoint import UNETSP_10K, load_any
     from ctunet_tpu_torch.data import make_dataset
     from ctunet_tpu_torch.models import build_model
+    from ctunet_tpu_torch.ops import chain_conv_train as cct
     from ctunet_tpu_torch.ops import kernels
+    from ctunet_tpu_torch.ops.kernels import conv3d as kc
 
     f32 = torch.float32
     bf16 = bf16 or {}
@@ -2015,8 +2086,8 @@ def serve_f32(device, work: str, shape=SHAPE, n_volumes: int = N_VOLUMES,
 
     # ---- UNetSP, n_volumes volumes ---------------------------------------
     per_vol = {"conv3d_bn_relu": 12, "maxpool2": 4, "upconv_bn_relu": 4,
-               "conv3d_f32": 12, "maxpool2_f32": 4, "upconv_f32": 4,
-               "conv3d_tc": 0, "upconv_tc": 0}
+               "conv3d_f32": 12, "conv3d_tc_f32": 12, "maxpool2_f32": 4,
+               "upconv_f32": 4, "conv3d_tc": 0, "upconv_tc": 0}
     m, counts = run_model(dict(
         test_flag=True, name="chip_smoke_f32", model_class="UNetSP",
         problem_handler="FlapRecWithShapePriorDoubleOut", device=device.type,
@@ -2067,8 +2138,9 @@ def serve_f32(device, work: str, shape=SHAPE, n_volumes: int = N_VOLUMES,
                       test_files_csv=csv1, resume_model=pt, n_workers=2,
                       compute_dtype="float32")
         want = {"conv3d5_bias_act": 18, "maxpool2": 4, "convt_k2s2": 1,
-                "convt_k2s2_dual": 3, "conv3d5_f32": 18, "maxpool2_f32": 4,
-                "convt_f32": 4, "conv3d_tc": 0, "upconv_tc": 0}
+                "convt_k2s2_dual": 3, "conv3d5_f32": 18,
+                "conv3d_tc_f32": 18, "maxpool2_f32": 4, "convt_f32": 4,
+                "conv3d_tc": 0, "upconv_tc": 0}
         m, counts = run_model(params, want, f"{mc} f32", 1)
         runs[mc] = counts
         masks = read_masks(os.path.join(data, f"pred_chip_smoke_f32_{mc}"),
@@ -2101,10 +2173,10 @@ def serve_f32(device, work: str, shape=SHAPE, n_volumes: int = N_VOLUMES,
                   compute_dtype="float32")
     # the calibration forward runs the bf16 engine, as the JAX package's
     # does: 12 conv3d_tc and 4 upconv_tc launches, then the served volume
-    want = {"conv3d_f32": 2, "maxpool2_f32": 0, "upconv_f32": 0,
-            "conv3d_q_requant": 10, "maxpool2_q": 4, "upconv_q_requant": 4,
-            "conv3d_tc_q": 10, "upconv_tc_q": 4, "conv3d_tc": 12,
-            "upconv_tc": 4}
+    want = {"conv3d_f32": 2, "conv3d_tc_f32": 2, "maxpool2_f32": 0,
+            "upconv_f32": 0, "conv3d_q_requant": 10, "maxpool2_q": 4,
+            "upconv_q_requant": 4, "conv3d_tc_q": 10, "upconv_tc_q": 4,
+            "conv3d_tc": 12, "upconv_tc": 4}
     m, counts = run_model(params, want, "int8 f32 head", 1)
     runs["int8"] = counts
     masks = read_masks(os.path.join(data, "pred_chip_smoke_f32_int8"),
@@ -2140,6 +2212,35 @@ def serve_f32(device, work: str, shape=SHAPE, n_volumes: int = N_VOLUMES,
                 f"{dice(mg, mr):.6f}; max |p - p_plain| "
                 f"{float((g - r).abs().max()):.3e}")
             st[f"dice_{sfx}"] = d
+        # the int8 codes at the f32 -> int8 switch (the first block's f32
+        # output at its scale) that each f32 conv moves against the plain
+        # version: what moves the Dice above
+        l0, l1 = qfn.layers["d0.0"], qfn.layers["d0.1"]
+        s_sw = np.asarray(qfn.scales["d0.1"][1], np.float32)  # as to_int8
+        inv = torch.tensor((1.0 / s_sw[:l1[0].shape[-1]]).astype(np.float32),
+                           device=device)
+
+        def f64_conv(x, w, b):
+            y = torch.nn.functional.conv3d(
+                x.double().permute(3, 0, 1, 2)[None],
+                w.double().permute(4, 3, 0, 1, 2), padding=1)[0]
+            return torch.relu(y.permute(1, 2, 3, 0) + b.double()).float()
+
+        def codes(conv):
+            with torch.inference_mode():
+                h = conv(conv(xt[0], *l0).contiguous(), *l1)
+                return torch.round(torch.clamp(h * inv, 0.0, 255.0))
+
+        ref_codes = codes(kc.conv3d_bn_relu_plain)
+        moved = {name: int((codes(fn) != ref_codes).sum()) for name, fn in (
+            ("conv3d_tc_f32", kc.conv3d_bn_relu),
+            ("direct", lambda x, w, b: kc.conv3d_bias_act_direct(x, w, b,
+                                                                 True)),
+            ("f64", f64_conv))}
+        log(f"  int8 f32 head: int8 codes at the switch moved against the "
+            f"plain version (of {ref_codes.numel()}): {moved}")
+        st["codes_moved"] = moved
+        del ref_codes
         st["engine_ms"] = time_ms(lambda: qfn(xt), 3, device)
         log(f"  int8 f32 head engine {st['engine_ms']:.2f} ms/volume")
         del got, ref, plain_q
@@ -2160,9 +2261,9 @@ def serve_f32(device, work: str, shape=SHAPE, n_volumes: int = N_VOLUMES,
         compute_dtype="float32")
     k6 = n_train * K6_PER_TRAIN_STEP + K6_PER_EVAL_STEP
     want = {"conv3d_bias_act": k6, "conv3d_f32": k6 + 12,
-            "conv3d_bn_relu": 12, "maxpool2": 4, "maxpool2_f32": 4,
-            "upconv_bn_relu": 4, "upconv_f32": 4, "conv3d_tc": 0,
-            "upconv_tc": 0}
+            "conv3d_tc_f32": k6 + 12, "conv3d_bn_relu": 12, "maxpool2": 4,
+            "maxpool2_f32": 4, "upconv_bn_relu": 4, "upconv_f32": 4,
+            "conv3d_tc": 0, "upconv_tc": 0}
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
@@ -2185,13 +2286,35 @@ def serve_f32(device, work: str, shape=SHAPE, n_volumes: int = N_VOLUMES,
     log(f"  f32 training: losses {losses}, epoch scalars {json.dumps(hist)}; "
         f"Model train + eval + test {wall:.1f} s; peak device memory "
         f"{st.get('peak_mem_gb', float('nan')):.2f} GiB")
+    # the weight packing of conv3d_tc_f32 that one f32 train step makes: the
+    # 16 forward kernels (written by every optimizer step) and the 15
+    # flipped, channel-swapped input-gradient kernels (a new tensor each
+    # call), at their layers' plans
+    lv = [tuple(n >> i for n in shape) for i in range(5)]
+    packs = []
+    for i, (ci, co, level, _) in enumerate(unetsp_convs()):
+        wt = torch.randn(3, 3, 3, ci, co, device=device)
+        packs.append((wt, kc.tcf_plan(lv[level], ci, co, 3)))
+        if i:
+            packs.append((cct.flip_swap(wt), kc.tcf_plan(lv[level], co, ci,
+                                                         3)))
+    st["pack_ms_per_step"] = time_ms(
+        lambda: [kc.pack_tcf_weights(wt, p) for wt, p in packs], 5, device)
+    st["train_s_per_step"] = m.train_seconds / n_train
+    log(f"  f32 training: conv3d_tc_f32 weight packing {len(packs)} tensors "
+        f"a step, {st['pack_ms_per_step']:.3f} ms (CUDA events), beside "
+        f"{1e3 * st['train_s_per_step']:.1f} ms a train step (host clock "
+        "over the Model's train loop)")
+    del packs
     stats["train_f32"] = st
 
     def total(key):
         return sum(c[key] for c in runs.values())
 
-    # per wrapper in f32 (K1 and K6 share conv3d_f32; only training runs K6)
+    # per wrapper in f32 (K1 and K6 share conv3d_f32; only training runs K6;
+    # K1, K6 and K5 all launch conv3d_tc_f32)
     launches = {
+        "conv3d_tc_f32": total("conv3d_tc_f32"),
         "conv3d_bn_relu_f32": total("conv3d_f32") - total("conv3d_bias_act"),
         "conv3d_bias_act_f32": total("conv3d_bias_act"),
         "maxpool2_f32": total("maxpool2_f32"),
@@ -2342,12 +2465,15 @@ def main() -> int:
                        "ctunet_tpu/ops/pallas/convt.py:78"),
         "convt_k2s2_dual": ("ctunet_tpu_torch/csrc/upconv_tc.cu",
                             "ctunet_tpu/ops/pallas/convt.py:146"),
-        # the f32 paths (phase 7) on the CUDA-core kernels
-        "conv3d_bn_relu_f32": ("ctunet_tpu_torch/csrc/conv3d.cu",
+        # the f32 paths (phase 7): the convs on the f32 tensor-core
+        # kernel, the rest on the CUDA-core kernels
+        "conv3d_tc_f32": ("ctunet_tpu_torch/csrc/conv3d_tc_f32.cu",
+                          "ctunet_tpu/ops/pallas/conv3d.py:136"),
+        "conv3d_bn_relu_f32": ("ctunet_tpu_torch/csrc/conv3d_tc_f32.cu",
                                "ctunet_tpu/ops/pallas/conv3d.py:1031"),
-        "conv3d_bias_act_f32": ("ctunet_tpu_torch/csrc/conv3d.cu",
+        "conv3d_bias_act_f32": ("ctunet_tpu_torch/csrc/conv3d_tc_f32.cu",
                                 "ctunet_tpu/ops/pallas/conv3d.py:453"),
-        "conv3d5_bias_act_f32": ("ctunet_tpu_torch/csrc/conv3d_k5.cu",
+        "conv3d5_bias_act_f32": ("ctunet_tpu_torch/csrc/conv3d_tc_f32.cu",
                                  "ctunet_tpu/ops/pallas/conv3d.py:136"),
         "maxpool2_f32": ("ctunet_tpu_torch/csrc/maxpool.cu",
                          "ctunet_tpu/ops/pallas/conv3d.py:1862"),

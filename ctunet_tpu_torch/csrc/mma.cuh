@@ -1,8 +1,10 @@
 // Tensor-core building blocks of the port's implicit-GEMM kernels
-// (conv3d_tc.cu, upconv_tc.cu and their int8 forms conv3d_tc_q.cu,
-// upconv_tc_q.cu): cp.async copies into shared memory with zero-fill,
-// ldmatrix fragment loads, mma.sync.m16n8k16 bf16 -> f32 and
-// mma.sync.m16n8k32 s8 -> s32.
+// (conv3d_tc.cu, upconv_tc.cu, their int8 forms conv3d_tc_q.cu,
+// upconv_tc_q.cu, and the f32 conv3d_tc_f32.cu): cp.async copies into
+// shared memory with zero-fill, ldmatrix fragment loads,
+// mma.sync.m16n8k16 bf16 -> f32, mma.sync.m16n8k32 s8 -> s32, and
+// mma.sync.m16n8k8 tf32 -> f32 with the split of an f32 value into two
+// tf32 halves that split-tf32 (3xTF32) products are built from.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -75,6 +77,36 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The tf32 product: A 16x8 and B 8x8 tf32 values (the .b32 words of f32
+// values rounded to tf32), f32 sums. A 16-byte ldmatrix row holds 4 f32
+// values of K where it holds 8 bf16 ones, so the fragments load exactly as
+// mma_bf16's do: ldsm_x4 on four 8x16-byte tiles (rows 0-7 / 8-15, words
+// 0-3 / 4-7 of K) gives a0..a3, and load_b on [n][4 f32] rows gives b0, b1.
+// The tensor cores truncate their f32 sums (round toward zero), so a long
+// sum kept in the accumulator drifts toward zero; conv3d_tc_f32.cu takes
+// each product into a zeroed fragment and adds it up with ordinary
+// round-to-nearest FADDs.
+__device__ __forceinline__ void mma_tf32(float (&c)[4],
+                                         const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// v = hi + lo + r with hi = tf32(v), lo = tf32(v - hi), both rounded to
+// nearest with ties away from zero (cvt.rna); v - hi is exact in f32, so
+// |r| <= 2^-22 |v|. ops/kernels/conv3d.py::tf32_rna rounds the weights on
+// the host the same way.
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(v));
+  const float r = v - __uint_as_float(hi);
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(r));
 }
 
 // 16 bytes of `base` from byte offset off (any alignment), as aligned word

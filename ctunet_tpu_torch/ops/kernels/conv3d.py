@@ -15,11 +15,15 @@ volumes.
 In bf16, K1, K6 and K5 are one kernel, :func:`conv3d_tc`
 (``csrc/conv3d_tc.cu``): an implicit GEMM on the tensor cores whose tiles
 :func:`tc_plan` chooses per layer and shape and whose weights
-:func:`pack_tc_weights` lays out once per weight tensor. In f32, K1 and K6
-run the direct kernel :func:`conv3d_f32` (``csrc/conv3d.cu``) and K5
-:func:`conv3d5_f32` (``csrc/conv3d_k5.cu``), on the CUDA cores in full f32
-(the tensor cores' f32 mode is TF32); their bf16 forms are kept as
-``*_direct`` functions for timing beside the tensor-core kernel. K2 runs
+:func:`pack_tc_weights` lays out once per weight tensor. In f32 they are
+another, :func:`conv3d_tc_f32` (``csrc/conv3d_tc_f32.cu``): the same
+implicit GEMM on split tf32 operands (3xTF32 with the weights split
+exactly: four tf32 products per f32 product, f32-accurate), plan
+:func:`tcf_plan`, weights :func:`pack_tcf_weights` (three tf32 planes),
+reached through :func:`conv3d_f32` (K1, K6) and :func:`conv3d5_f32`
+(K5). The CUDA-core
+kernels they replaced (``csrc/conv3d.cu``, ``csrc/conv3d_k5.cu``) are
+kept, bf16 and f32, as ``*_direct`` functions for timing. K2 runs
 ``csrc/maxpool.cu`` in bf16, and in f32 as :func:`maxpool2_f32`. K1q runs
 the int8 tensor-core kernel :func:`conv3d_tc_q` (``csrc/conv3d_tc_q.cu``,
 plan :func:`tcq_plan`, weights :func:`pack_tcq_weights`); the CUDA-core
@@ -30,8 +34,9 @@ Each wrapper launches its kernel for a CUDA tensor (or raises) and takes
 its plain PyTorch version only for a tensor on the CPU. ``<wrapper>.launches``
 counts kernel launches, so a run can show that its path went through the
 kernels; a bf16 K1/K6/K5 call counts on its wrapper and on ``conv3d_tc``,
-an f32 K1/K6 call on its wrapper and on ``conv3d_f32``, an f32 K5 call on
-``conv3d5_f32``, an f32 K2 call on ``maxpool2_f32``, a K1q call on its
+an f32 K1/K6 call on its wrapper, on ``conv3d_f32`` and on
+``conv3d_tc_f32``, an f32 K5 call on its wrapper, on ``conv3d5_f32`` and on
+``conv3d_tc_f32``, an f32 K2 call on ``maxpool2_f32``, a K1q call on its
 wrapper and on ``conv3d_tc_q``.
 """
 
@@ -97,6 +102,8 @@ def _require_cuda(x: torch.Tensor, what: str) -> None:
 
 # SMs of an H100 SXM: the plan wants at least two blocks on each
 TC_SMS = 132
+# shared memory one block may hold on an H100 (227 KB)
+SMEM_PER_BLOCK = 232448
 # output tiles of 64 * mf voxels of one z plane, as (mf, log2 TX): 16x16,
 # 32x8, 8x16 and 16x8 (TY x TX)
 TC_TILES = ((4, 4), (4, 3), (2, 4), (2, 3))
@@ -313,14 +320,277 @@ def launch_tc(x: torch.Tensor, wp: torch.Tensor, bias: torch.Tensor,
 
 
 # --------------------------------------------------------------------------
+# conv3d_tc_f32: f32 Conv3D(k3 or k5, SAME) + bias + optional ReLU on the
+# tensor cores in split tf32 products, the kernel of K1, K6 and K5 in f32
+# --------------------------------------------------------------------------
+
+# bytes of one pipeline stage (slab + the three weight planes), a block
+# holding two; f32 and the planes make conv3d_tc's stage up to 6x larger
+# at the same channel chunk, so TC_STAGE_BYTES does not carry over. A
+# plan sweep on the H100 (24-64 KB at every f32 conv shape of the paths,
+# summed per path) chose 32 KB.
+TCF_STAGE_BYTES = 32 * 1024
+# the largest tile, in m16 x n8 fragments a warp (mf * nf): the same sweep
+# found the 4 x 4 tile no faster than 2 x 4
+TCF_MAX_FRAGS = 8
+
+
+class TcfPlan(NamedTuple):
+    """Launch parameters of ``csrc/conv3d_tc_f32.cu`` for one layer at one
+    shape: kernel size ``k``; ``mf`` m16 fragments per warp (4 warps, so
+    64 * mf voxels a tile, ``1 << tx_log2`` of them along W); ``nf`` n8
+    tiles per block (``8 * nf`` output channels); ``cc`` input channels per
+    pipeline stage (a multiple of 4), ``chunks`` stages per input
+    plane."""
+
+    k: int
+    mf: int
+    nf: int
+    tx_log2: int
+    cc: int
+    chunks: int
+
+    @property
+    def tile(self):
+        """(TY, TX): the output tile of one block in one z plane."""
+        tx = 1 << self.tx_log2
+        return 64 * self.mf // tx, tx
+
+    def n_tiles(self, co: int) -> int:
+        return -(-co // (8 * self.nf))
+
+    def groups(self) -> int:
+        """k-groups of 4 input channels per stage, rounded up to even (one
+        k8 product takes two)."""
+        return (self.k * self.k * self.cc // 4 + 1) // 2 * 2
+
+    @property
+    def cs(self) -> int:
+        """Floats per slab voxel: an odd number of 16-byte words."""
+        return self.cc if (self.cc // 4) % 2 else self.cc + 4
+
+    def stage_bytes(self) -> int:
+        """One stage: the halo slab and the three weight planes."""
+        ty, tx = self.tile
+        slab = (ty + self.k - 1) * (tx + self.k - 1) * self.cs * 4
+        return slab + 3 * self.groups() * 8 * self.nf * 16
+
+    def smem(self) -> int:
+        """Shared memory of one block: the tap table, then the two-stage
+        ring (which the f32 output tile reuses)."""
+        tab = (self.groups() * 4 + 15) // 16 * 16
+        return tab + max(2 * self.stage_bytes(), 64 * self.mf * 8 * self.nf
+                         * 4)
+
+
+def tcf_tiles(nf: int):
+    """The ``(mf, tx_log2)`` tiles of :data:`TC_TILES` whose fragment sets
+    fit the registers at ``nf``."""
+    return tuple(t for t in TC_TILES if t[0] * nf <= TCF_MAX_FRAGS)
+
+
+def tcf_channels(ci: int, k: int, nf: int):
+    """``(cc, chunks)`` of an f32 input: the fewest padded channels
+    (``cc * chunks >= ci``, ``cc`` a multiple of 4), then the widest chunk
+    whose stage fits ``TCF_STAGE_BYTES`` (and whose block fits the card)
+    at the largest halo slab of :func:`tcf_tiles`; depends on the layer
+    alone, so one weight packing serves every shape."""
+    plans = [TcfPlan(k, mf, nf, t, 4, 1) for mf, t in tcf_tiles(nf)]
+    best = None
+    for cc in range(4, -(-ci // 4) * 4 + 1, 4):
+        wide = [p._replace(cc=cc) for p in plans]
+        if cc > 4 and (max(p.stage_bytes() for p in wide) > TCF_STAGE_BYTES
+                       or max(p.smem() for p in wide) > SMEM_PER_BLOCK):
+            continue
+        chunks = -(-ci // cc)
+        key = (chunks * cc, -cc)
+        if best is None or key < best[0]:
+            best = (key, cc, chunks)
+    return best[1], best[2]
+
+
+def tcf_plan(shape, ci: int, co: int, k: int) -> TcfPlan:
+    """The tile plan of an f32 ``k`` conv ``ci -> co`` over a ``(D, H,
+    W)`` volume. ``nf`` covers ``co`` in one N tile up to 32 channels
+    (wider layers take several, one block each). The M tile is the one of
+    :func:`tcf_tiles` with the least estimated time: the voxels computed
+    (ragged extents round up to whole tiles) times the shared-memory bytes
+    per product (``512 / nf`` of A, ``512 / mf`` of the B planes),
+    stretched when the grid has fewer than two blocks per SM."""
+    d, h, w = shape
+    nf = 1 if co <= 8 else 2 if co <= 16 else 4
+    n_tiles = -(-co // (8 * nf))
+    cc, chunks = tcf_channels(ci, k, nf)
+    best = None
+    for mf, tx_log2 in tcf_tiles(nf):
+        tx = 1 << tx_log2
+        ty = 64 * mf // tx
+        nty, ntx = -(-h // ty), -(-w // tx)
+        blocks = d * nty * ntx * n_tiles
+        work = d * nty * ty * ntx * tx * n_tiles
+        cost = work * (512 / nf + 512 / mf) * max(1.0, 2 * TC_SMS / blocks)
+        if best is None or cost < best[0]:
+            best = (cost, mf, tx_log2)
+    return TcfPlan(k, best[1], nf, best[2], cc, chunks)
+
+
+# conv3d_tc_f32's grid is conv3d_tc's: one block per (z, M tile, N tile)
+tcf_blocks = tc_blocks
+
+
+def tf32_rna(t: torch.Tensor) -> torch.Tensor:
+    """f32 ``t`` rounded to tf32 (10 stored mantissa bits) to nearest,
+    ties away from zero, as ``cvt.rna.tf32.f32`` rounds: ``0x1000`` (half
+    the last kept bit) added to the bit pattern, the low 13 bits cleared.
+    The pattern is sign and magnitude, so the carry rounds the magnitude
+    up for either sign; finite inputs only."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def pack_tcf_weights(w: torch.Tensor, plan: TcfPlan) -> torch.Tensor:
+    """f32 ``(k, k, k, Ci, Co)`` weights -> the kernel's B operand
+    ``(n_tiles, k, chunks, 3, groups, 8 * nf, 4)``: per N tile, input plane
+    dz and channel chunk, the planes ``hi = tf32_rna(w)``, ``mid =
+    tf32_rna(w - hi)`` and ``lo = w - hi - mid`` (exact, at most 3
+    significant bits: the three sum to ``w``) of one stage's k-groups
+    (group ``(dy * k + dx) * cc / 4 + c4`` holds input channels ``chunk *
+    cc + 4 * c4 + j``), each ``[n][j]``; zeros pad Ci, Co and an odd group
+    count."""
+    k, ci, co = w.shape[0], w.shape[3], w.shape[4]
+    bn, nt = 8 * plan.nf, plan.n_tiles(co)
+    c4 = plan.cc // 4
+    wz = w.new_zeros((k, k, k, plan.cc * plan.chunks, bn * nt),
+                     dtype=torch.float32)
+    wz[..., :ci, :co] = w
+    hi = tf32_rna(wz)
+    mid = tf32_rna(wz - hi)
+    t = torch.stack([hi, mid, wz - hi - mid])
+    t = t.reshape(3, k, k * k, plan.chunks, c4, 4, nt, bn)
+    t = t.permute(6, 1, 3, 0, 2, 4, 7, 5).reshape(nt, k, plan.chunks, 3,
+                                                  k * k * c4, bn, 4)
+    return F.pad(t, (0, 0, 0, 0, 0, plan.groups() - k * k * c4)).contiguous()
+
+
+def tcf_packed(w: torch.Tensor, plan: TcfPlan) -> torch.Tensor:
+    """:func:`pack_tcf_weights`, once per weight tensor (as
+    :func:`tc_packed`: made again when ``w`` was written in place since or
+    another packing is asked for)."""
+    key = (plan.cc, plan.chunks, plan.nf,
+           None if w.is_inference() else w._version)
+    hit = getattr(w, "_tcf_packed", None)
+    if hit is None or hit[0] != key:
+        hit = (key, pack_tcf_weights(w, plan))
+        w._tcf_packed = hit
+    return hit[1]
+
+
+def conv3d_tc_f32(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                  relu: bool = True) -> torch.Tensor:
+    """The split-tf32 tensor-core conv on f32 ``x`` ``(D, H, W, Ci)`` with f32
+    ``w`` ``(k, k, k, Ci, Co)``, k 3 or 5, and f32 ``bias`` ``(Co,)`` ->
+    ``(D, H, W, Co)``: ``act(conv(x, w) + bias)`` to f32 accuracy, ``act``
+    the ReLU when ``relu``.
+
+    CPU tensor: the plain version. CUDA tensor: the
+    ``csrc/conv3d_tc_f32.cu`` kernel on the current stream with
+    :func:`tcf_plan`'s tiles and :func:`tcf_packed` weights, or an error.
+    """
+    if x.device.type == "cpu":
+        return conv3d_tc_plain(x, w, bias, relu)
+    k = w.shape[0] if w.dim() == 5 else 0
+    if k not in (3, 5):
+        raise ValueError(f"conv3d_tc_f32: k = 3 or 5, got w {tuple(w.shape)}")
+    d, h, wd, ci, co = _conv_checks(x, w, bias, k, "conv3d_tc_f32")
+    if x.dtype != torch.float32:
+        raise TypeError(f"conv3d_tc_f32: float32 only, got {x.dtype}")
+    if x.data_ptr() % 16:
+        raise ValueError("conv3d_tc_f32: x must start on a 16-byte boundary")
+    if d * h * wd * co == 0:
+        return torch.empty((d, h, wd, co), dtype=torch.float32,
+                           device=x.device)
+    plan = tcf_plan((d, h, wd), ci, co, k)
+    out = launch_tcf(x, tcf_packed(w, plan), bias, relu, plan)
+    conv3d_tc_f32.launches += 1
+    return out
+
+
+conv3d_tc_f32.launches = 0
+
+
+def launch_tcf(x: torch.Tensor, wp: torch.Tensor, bias: torch.Tensor,
+               relu: bool, plan: TcfPlan) -> torch.Tensor:
+    """One launch of ``csrc/conv3d_tc_f32.cu`` on checked operands with the
+    weights ``wp`` packed for ``plan`` (:func:`conv3d_tc_f32` picks
+    both)."""
+    d, h, wd, ci = x.shape
+    co = bias.shape[0]
+    out = torch.empty((d, h, wd, co), dtype=torch.float32, device=x.device)
+    fn = build.function("conv3d_tc_f32", "ctunet_conv3d_tc_f32",
+                        [_P] * 4 + [_I] * 13 + [_P])
+    rc = fn(x.data_ptr(), wp.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            d, h, wd, ci, co, plan.k, int(bool(relu)), plan.mf, plan.nf,
+            plan.tx_log2, plan.cc, plan.chunks, *build.stream_args(x))
+    build.check(rc, "conv3d_tc_f32")
+    return out
+
+
+def _f32_tc(x, w, bias, relu, k: int, fn):
+    """An f32 conv at ``k`` on :func:`conv3d_tc_f32`, counted on ``fn``
+    too."""
+    if x.device.type == "cpu":
+        return conv3d_tc_plain(x, w, bias, relu)
+    _require_cuda(x, fn.__name__)
+    if x.dtype != torch.float32:
+        raise TypeError(f"{fn.__name__}: float32 only, got {x.dtype}")
+    if w.dim() != 5 or w.shape[0] != k:  # conv3d_tc_f32 checks the rest
+        raise ValueError(f"{fn.__name__}: w must be ({k}, {k}, {k}, Ci, "
+                         f"Co), got {tuple(w.shape)}")
+    out = conv3d_tc_f32(x, w, bias, relu)
+    if out.numel():  # an empty volume launches nothing
+        fn.launches += 1
+    return out
+
+
+def conv3d_f32(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+               relu: bool) -> torch.Tensor:
+    """The f32 k=3 conv, the kernel of K1 and K6 in f32: f32 ``x``
+    ``(D, H, W, Ci)``, ``w`` ``(3, 3, 3, Ci, Co)`` and ``bias`` ``(Co,)`` ->
+    ``act(conv(x, w) + bias)`` to f32 accuracy, ``act`` the ReLU when
+    ``relu``.
+
+    CPU tensor: the plain version. CUDA tensor: :func:`conv3d_tc_f32`
+    (``csrc/conv3d_tc_f32.cu``) on the current stream, or an error.
+    """
+    return _f32_tc(x, w, bias, relu, 3, conv3d_f32)
+
+
+conv3d_f32.launches = 0
+
+
+def conv3d5_f32(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                relu: bool = True) -> torch.Tensor:
+    """The f32 k=5 conv, the kernel of K5 in f32 (arguments as
+    :func:`conv3d_f32` with ``w`` ``(5, 5, 5, Ci, Co)``, any Ci).
+
+    CPU tensor: the plain version. CUDA tensor: :func:`conv3d_tc_f32`
+    (``csrc/conv3d_tc_f32.cu``) on the current stream, or an error.
+    """
+    return _f32_tc(x, w, bias, relu, 5, conv3d5_f32)
+
+
+conv3d5_f32.launches = 0
+
+
+# --------------------------------------------------------------------------
 # The direct kernels (csrc/conv3d.cu at k3, csrc/conv3d_k5.cu at k5): one
-# thread per voxel x 8 output channels on the CUDA cores. They run the f32
-# convs (conv3d_f32, conv3d5_f32); in bf16 only phase 2 of chip_smoke.py
-# times them.
+# thread per voxel x 8 output channels on the CUDA cores, bf16 or f32. No
+# path launches them: phase 2 of chip_smoke.py times them beside the
+# tensor-core kernels that replaced them.
 # --------------------------------------------------------------------------
 
 # dz-plane staging holds 25*Ci*8 f32 weights in one block's shared memory
-K5_MAX_CI = 232448 // (25 * 8 * 4)
+K5_MAX_CI = SMEM_PER_BLOCK // (25 * 8 * 4)
 
 
 def _direct(x, w, bias, relu, k: int, what: str):
@@ -358,50 +628,6 @@ def conv3d5_bias_act_direct(x, w, bias, relu: bool = True) -> torch.Tensor:
     return _direct(x, w, bias, relu, 5, "conv3d5_bias_act_direct")
 
 
-def _f32_direct(x, w, bias, relu, k: int, fn):
-    """An f32 conv on the direct kernel at ``k``, counted on ``fn``."""
-    if x.device.type == "cpu":
-        return conv3d_tc_plain(x, w, bias, relu)
-    _require_cuda(x, fn.__name__)
-    if x.dtype != torch.float32:
-        raise TypeError(f"{fn.__name__}: float32 only, got {x.dtype}")
-    out = _direct(x, w, bias, relu, k, fn.__name__)
-    if out.numel():  # an empty volume launches nothing
-        fn.launches += 1
-    return out
-
-
-def conv3d_f32(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
-               relu: bool) -> torch.Tensor:
-    """The f32 k=3 conv, the kernel of K1 and K6 in f32: f32 ``x``
-    ``(D, H, W, Ci)``, ``w`` ``(3, 3, 3, Ci, Co)`` and ``bias`` ``(Co,)`` ->
-    ``act(conv(x, w) + bias)`` summed in f32, ``act`` the ReLU when
-    ``relu``.
-
-    CPU tensor: the plain version. CUDA tensor: ``csrc/conv3d.cu``
-    (``ctunet_conv3d_bias_act_f32``) on the current stream, or an error.
-    """
-    return _f32_direct(x, w, bias, relu, 3, conv3d_f32)
-
-
-conv3d_f32.launches = 0
-
-
-def conv3d5_f32(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
-                relu: bool = True) -> torch.Tensor:
-    """The f32 k=5 conv, the kernel of K5 in f32 (arguments as
-    :func:`conv3d_f32` with ``w`` ``(5, 5, 5, Ci, Co)``, ``Ci <=
-    K5_MAX_CI``).
-
-    CPU tensor: the plain version. CUDA tensor: ``csrc/conv3d_k5.cu``
-    (``ctunet_conv3d5_bias_act_f32``) on the current stream, or an error.
-    """
-    return _f32_direct(x, w, bias, relu, 5, conv3d5_f32)
-
-
-conv3d5_f32.launches = 0
-
-
 # --------------------------------------------------------------------------
 # K1: Conv3D(k3, SAME) + folded BN + ReLU
 # --------------------------------------------------------------------------
@@ -419,7 +645,8 @@ def conv3d_bn_relu(x: torch.Tensor, w: torch.Tensor,
     and f32 ``bias`` ``(Co,)`` -> ``(D, H, W, Co)``.
 
     CPU tensor: the plain version. CUDA tensor: :func:`conv3d_tc` in bf16,
-    the direct kernel :func:`conv3d_f32` in f32, or an error.
+    :func:`conv3d_f32` (the tensor-core :func:`conv3d_tc_f32`) in f32, or an
+    error.
     """
     if x.device.type == "cpu":
         return conv3d_bn_relu_plain(x, w, bias)
@@ -457,7 +684,8 @@ def conv3d_bias_act(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     the ReLU when ``relu`` else the identity.
 
     CPU tensor: the plain version. CUDA tensor: :func:`conv3d_tc` in bf16,
-    the direct kernel :func:`conv3d_f32` in f32, or an error.
+    :func:`conv3d_f32` (the tensor-core :func:`conv3d_tc_f32`) in f32, or an
+    error.
     """
     if x.device.type == "cpu":
         return conv3d_bias_act_plain(x, w, bias, relu)
@@ -498,8 +726,8 @@ def conv3d5_bias_act(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     identity.
 
     CPU tensor: the plain version. CUDA tensor: :func:`conv3d_tc` in bf16,
-    the direct kernel :func:`conv3d5_f32` in f32 (``Ci <= K5_MAX_CI``), or
-    an error.
+    :func:`conv3d5_f32` (the tensor-core :func:`conv3d_tc_f32`) in f32, or an
+    error.
     """
     if x.device.type == "cpu":
         return conv3d5_bias_act_plain(x, w, bias, relu)

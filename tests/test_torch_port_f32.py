@@ -18,10 +18,12 @@ K7a/K7b, their routing, and the f32 engines.
   flooring and NaN kept. Same tolerance (the max exactly).
 - **Routing on a patched card**: ``build.function`` records the symbol it
   is asked for and launches nothing, ``_require_cuda`` passes ``meta``
-  tensors. An f32 call of each wrapper asks for its f32 entry and never
-  for ``conv3d_tc``, ``upconv_tc`` or a bf16 symbol, and counts on its f32
-  kernel; the engines (``build_predict``, ``build_predict_q`` with an f32
-  head) build and run for that card in f32.
+  tensors. An f32 call of each wrapper asks for its f32 entry (K1, K6 and
+  K5: ``ctunet_conv3d_tc_f32``, the f32 tensor-core conv, counted on
+  ``conv3d_tc_f32`` too) and never for ``conv3d_tc``, ``upconv_tc`` or a
+  bf16 symbol, and counts on its f32 kernel; the engines
+  (``build_predict``, ``build_predict_q`` with an f32 head) build and run
+  for that card in f32.
 - **The slice on the CPU**: each engine configuration in f32, with its K2,
   K3 and K7 calls served by the kernel emulations, against
   ``ctunet_tpu.engine.build_predict(compute_dtype=float32,
@@ -367,9 +369,9 @@ def _wrapper_calls(dtype):
 
 
 F32_ENTRY = {
-    "conv3d_bn_relu": ("conv3d", "ctunet_conv3d_bias_act_f32"),
-    "conv3d_bias_act": ("conv3d", "ctunet_conv3d_bias_act_f32"),
-    "conv3d5_bias_act": ("conv3d_k5", "ctunet_conv3d5_bias_act_f32"),
+    "conv3d_bn_relu": ("conv3d_tc_f32", "ctunet_conv3d_tc_f32"),
+    "conv3d_bias_act": ("conv3d_tc_f32", "ctunet_conv3d_tc_f32"),
+    "conv3d5_bias_act": ("conv3d_tc_f32", "ctunet_conv3d_tc_f32"),
     "maxpool2": ("maxpool", "ctunet_maxpool2_f32"),
     "upconv_bn_relu": ("upconv", "ctunet_upconv_bn_relu_f32"),
     "convt_k2s2": ("convt", "ctunet_convt_k2s2_f32"),
@@ -395,7 +397,10 @@ def test_f32_call_asks_for_the_f32_entry(card, name):
     counts = kernels.launches()
     assert counts[name] == 1 and counts[counter] == 1
     assert counts["conv3d_tc"] == counts["upconv_tc"] == 0
-    assert sum(counts.values()) == 2
+    # the f32 convs launch through conv3d_tc_f32, which counts as well
+    tcf = counts["conv3d_f32"] + counts["conv3d5_f32"]
+    assert counts["conv3d_tc_f32"] == tcf
+    assert sum(counts.values()) == 2 + tcf
 
 
 @pytest.mark.parametrize("name", sorted(BF16_ENTRY))
@@ -405,6 +410,7 @@ def test_bf16_call_keeps_its_kernel(card, name):
     assert card == [BF16_ENTRY[name]]
     counts = kernels.launches()
     assert counts[counter] == 0 and counts[name] == 1
+    assert counts["conv3d_tc_f32"] == 0
 
 
 def test_f32_kernels_refuse_other_dtypes(card):
@@ -472,12 +478,12 @@ def test_engine_builds_and_runs_on_the_card_in_its_dtype(card, monkeypatch,
                for o in out)
     asked = collections.Counter(sym for _, sym in card)
     if tengine.ENGINE_CONFIGS[name]["family"] == "generic":
-        f32 = {"ctunet_conv3d_bias_act_f32": 12, "ctunet_maxpool2_f32": 4,
+        f32 = {"ctunet_conv3d_tc_f32": 12, "ctunet_maxpool2_f32": 4,
                "ctunet_upconv_bn_relu_f32": 4}
         bf16 = {"ctunet_conv3d_tc": 12, "ctunet_maxpool2": 4,
                 "ctunet_upconv_tc": 4}
     else:
-        f32 = {"ctunet_conv3d5_bias_act_f32": 18, "ctunet_maxpool2_f32": 4,
+        f32 = {"ctunet_conv3d_tc_f32": 18, "ctunet_maxpool2_f32": 4,
                "ctunet_convt_k2s2_f32": 1, "ctunet_convt_k2s2_dual_f32": 3}
         bf16 = {"ctunet_conv3d_tc": 18, "ctunet_maxpool2": 4,
                 "ctunet_upconv_tc": 4}
@@ -488,6 +494,10 @@ def test_engine_builds_and_runs_on_the_card_in_its_dtype(card, monkeypatch,
         assert (counts["conv3d_f32"] + counts["conv3d5_f32"]
                 + counts["maxpool2_f32"] + counts["upconv_f32"]
                 + counts["convt_f32"]) == sum(f32.values())
+        assert counts["conv3d_tc_f32"] == (counts["conv3d_f32"]
+                                           + counts["conv3d5_f32"])
+    else:
+        assert counts["conv3d_tc_f32"] == 0
 
 
 @pytest.fixture(scope="module")
@@ -512,10 +522,11 @@ def test_int8_engine_with_an_f32_head_builds_and_runs_on_the_card(
     full, flap = predict(_meta(1, 16, 16, 16, 2))
     assert full.dtype == flap.dtype == F32
     assert collections.Counter(sym for _, sym in card) == {
-        "ctunet_conv3d_bias_act_f32": 2, "ctunet_conv3d_tc_q": 10,
+        "ctunet_conv3d_tc_f32": 2, "ctunet_conv3d_tc_q": 10,
         "ctunet_maxpool2_q": 4, "ctunet_upconv_tc_q": 4}
     counts = kernels.launches()
-    assert counts["conv3d_f32"] == 2 and counts["conv3d_tc"] == 0
+    assert counts["conv3d_f32"] == counts["conv3d_tc_f32"] == 2
+    assert counts["conv3d_tc"] == 0
 
 
 # --------------------------------------------------------------------------

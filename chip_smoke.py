@@ -28,12 +28,13 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
    and the autograd function's ``dx``/``dw`` against autograd through the
    plain version;
    the f32 kernels of the f32 serving paths (``conv3d_tc_f32`` behind K1
-   and K5, ``maxpool2_f32`` behind K2, ``upconv_f32`` behind K3,
-   ``convt_f32`` behind K7a/K7b) within ``f32_tol`` at every f32 shape of
-   the paths (``f32_shapes``), the f32 convs beside the direct CUDA-core
-   kernels they replaced. Each with the kernel's time beside the plain
-   version's, one PyTorch library call's where one exists (cuDNN, TF32
-   off), and the card's bound (f32 products at the 3xTF32 rate,
+   and K5, ``maxpool2_f32`` behind K2, ``upconv_tc_f32``, the f32
+   tensor-core stride-2 upsampling kernel, behind K3 (``upconv_f32``) and
+   K7a/K7b (``convt_f32``)) within ``f32_tol`` at every f32 shape of the
+   paths (``f32_shapes``), the f32 convs and upsamplings beside the direct
+   CUDA-core kernels they replaced. Each with the kernel's time beside the
+   plain version's, one PyTorch library call's where one exists (cuDNN,
+   TF32 off), and the card's bound (f32 products at the 3xTF32 rate,
    ``F32_TC_FLOP_PER_S``).
 3. bf16 path: serves synthetic broken skulls (``spherical_shell`` with a
    hole punched; atlas ``spherical_shell(radius_frac=0.42)``) through the
@@ -92,7 +93,8 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
    (``conv_impl = chain``, ``N_TRAIN_F32`` train steps and one eval step
    at full size) that then serves one volume from its weights. Checks:
    every float launch on the f32 kernels (``conv3d_tc_f32`` launches equal
-   to the f32 K1, K6 and K5 launches), ``conv3d_tc`` and ``upconv_tc`` at
+   to the f32 K1, K6 and K5 launches, ``upconv_tc_f32`` launches to the f32
+   K3, K7a and K7b launches), ``conv3d_tc`` and ``upconv_tc`` at
    0 (the int8 engine's calibration forward, bf16 as in the JAX package,
    aside); the f32 engines' probabilities within atol 5e-4 /
    rtol 1e-3 of the plain f32 model over the whole volume and their masks
@@ -756,23 +758,26 @@ def check_kernels_f32(sd, device, shape=SHAPE, reps_big: int = 2,
     """The f32 kernels of the f32 serving paths against their plain
     versions, within ``f32_tol`` (the max pool exactly), at every shape of
     :func:`f32_shapes`, through the wrapper each path calls: K1
-    ``conv3d_bn_relu`` and K5 ``conv3d5_bias_act`` (the direct kernels
+    ``conv3d_bn_relu`` and K5 ``conv3d5_bias_act`` (the kernel functions
     ``conv3d_f32`` / ``conv3d5_f32``), K2 ``maxpool2`` (``maxpool2_f32``),
     K3 ``upconv_bn_relu`` with UNetSP's trained decoder weights
     (``upconv_f32``), K7a ``convt_k2s2`` and K7b ``convt_k2s2_dual``
-    (``convt_f32``); each call must count on its f32 kernel (K1 and K5
-    also on ``conv3d_tc_f32``, the f32 tensor-core conv they launch) and
-    on neither bf16 tensor-core kernel. Random normal weights scaled by
-    their fan-in, f32 biases, ReLU'd normal inputs from a seed. Beside
-    each: for K1 and K5 the direct CUDA-core kernel they launched before
-    ("earlier", same inputs, same call), the plain version's time, one
+    (``convt_f32``); each call must count on its f32 kernel function (K1
+    and K5 also on ``conv3d_tc_f32``, the f32 tensor-core conv they
+    launch; K3, K7a and K7b on ``upconv_tc_f32``, the f32 tensor-core
+    upsampling) and on neither bf16 tensor-core kernel. Random normal
+    weights scaled by their fan-in, f32 biases, ReLU'd normal inputs from a
+    seed. Beside each: for K1, K5, K3, K7a and K7b the direct CUDA-core
+    kernel they launched before ("earlier", same inputs, same call), the
+    plain version's time, one
     cuDNN call of the same function in f32 with TF32 off (K3: ConvT, then
     the folded conv and the ReLU) and the bound (bytes / HBM rate or flops
     / ``F32_TC_FLOP_PER_S``, the f32-accurate 3xTF32 rate; K2, whose max is
     no product, at ``F32_FLOP_PER_S``). Logs one ``F32`` line per shape and
     each path's sums (time x launches). Returns ``(entries, failures)``,
-    entries keyed ``<wrapper>_f32`` (its first shape) and ``conv3d_tc_f32``
-    (K5 64->16 at 112x152x152)."""
+    entries keyed ``<wrapper>_f32`` (its first shape), ``conv3d_tc_f32``
+    (K5 64->16 at 112x152x152) and ``upconv_tc_f32`` (its largest launch,
+    K7b (14+14)->28 to 224x304x304)."""
     import torch
     import torch.nn.functional as F
 
@@ -850,6 +855,7 @@ def check_kernels_f32(sd, device, shape=SHAPE, reps_big: int = 2,
             bb = relu_in(*shp, cb) if cb else None
             args = (a, bb, wa, wb, wone, bias)
             run, plain = ku.upconv_bn_relu, ku.upconv_bn_relu_plain
+            direct = ku.upconv_bn_relu_direct
             p = f"u_blocks.{j}.block"
             w1, b1 = kc.fold_conv_unit(
                 sd[f"{p}.1.weight"], sd.get(f"{p}.1.bias"),
@@ -883,10 +889,10 @@ def check_kernels_f32(sd, device, shape=SHAPE, reps_big: int = 2,
             bb = relu_in(*shp, cb) if cb else None
             if cb:
                 args = (a, bb, wa, wb, bias)
-                run = kt.convt_k2s2_dual
+                run, direct = kt.convt_k2s2_dual, kt.convt_k2s2_dual_direct
             else:
                 args = (a, wa, bias)
-                run = kt.convt_k2s2
+                run, direct = kt.convt_k2s2, kt.convt_k2s2_direct
             plain = (lambda a, *r: kt.convt_k2s2_plain(a, None, r[0], None,
                                                        r[1])) if not cb \
                 else kt.convt_k2s2_plain
@@ -904,12 +910,13 @@ def check_kernels_f32(sd, device, shape=SHAPE, reps_big: int = 2,
         before = kernels.launches()
         got = run(*args)
         after = kernels.launches()
-        tcf = int(direct is not None)  # K1, K5 launch conv3d_tc_f32
+        # K1, K5 launch conv3d_tc_f32; K3, K7a, K7b upconv_tc_f32
+        tc = ("upconv_tc_f32" if counter in ("upconv_f32", "convt_f32")
+              else "conv3d_tc_f32" if direct else None)
         launched = (after[counter] == before[counter] + 1
-                    and after["conv3d_tc_f32"] == before["conv3d_tc_f32"]
-                    + tcf
-                    and after["conv3d_tc"] == before["conv3d_tc"]
-                    and after["upconv_tc"] == before["upconv_tc"])
+                    and all(after[k] == before[k] + (k == tc) for k in (
+                        "conv3d_tc_f32", "upconv_tc_f32", "conv3d_tc",
+                        "upconv_tc")))
         ref = plain(*args)
         sync(device)
         tol = f32_tol(ref, n_terms) if n_terms else 0.0
@@ -924,7 +931,7 @@ def check_kernels_f32(sd, device, shape=SHAPE, reps_big: int = 2,
         l_ms = time_ms(lib, reps, device)
         b_ms, b_by = bound_ms(nbytes, nflops, peak)
         per = ", ".join(f"{n} {p}" for p, n in paths.items())
-        via = "conv3d_tc_f32 via " + counter if direct else counter
+        via = f"{tc} via {counter}" if tc else counter
         earlier = f"earlier (direct) {d_ms:.3f} ms, " if direct else ""
         log(f"  F32 {name} [{case}]: max_abs_err {err:.3e} (tol {tol:.3e}) "
             f"{'ok' if ok else 'FAIL'}; {via} {ms:.3f} ms "
@@ -948,6 +955,8 @@ def check_kernels_f32(sd, device, shape=SHAPE, reps_big: int = 2,
         entries.setdefault(f"{name}_f32", entry)
         if key == ("conv3d5_bias_act", 64, 16, 1):
             entries["conv3d_tc_f32"] = entry
+        if key == ("convt_k2s2_dual", 14, 14, 28, 1):
+            entries["upconv_tc_f32"] = entry
         del args, got, ref
     for (p, name), (t, t_b, t_l, t_d, n) in sums.items():
         earlier = ("" if math.isnan(t_d)
@@ -2087,7 +2096,8 @@ def serve_f32(device, work: str, shape=SHAPE, n_volumes: int = N_VOLUMES,
     # ---- UNetSP, n_volumes volumes ---------------------------------------
     per_vol = {"conv3d_bn_relu": 12, "maxpool2": 4, "upconv_bn_relu": 4,
                "conv3d_f32": 12, "conv3d_tc_f32": 12, "maxpool2_f32": 4,
-               "upconv_f32": 4, "conv3d_tc": 0, "upconv_tc": 0}
+               "upconv_f32": 4, "upconv_tc_f32": 4, "conv3d_tc": 0,
+               "upconv_tc": 0}
     m, counts = run_model(dict(
         test_flag=True, name="chip_smoke_f32", model_class="UNetSP",
         problem_handler="FlapRecWithShapePriorDoubleOut", device=device.type,
@@ -2140,7 +2150,7 @@ def serve_f32(device, work: str, shape=SHAPE, n_volumes: int = N_VOLUMES,
         want = {"conv3d5_bias_act": 18, "maxpool2": 4, "convt_k2s2": 1,
                 "convt_k2s2_dual": 3, "conv3d5_f32": 18,
                 "conv3d_tc_f32": 18, "maxpool2_f32": 4, "convt_f32": 4,
-                "conv3d_tc": 0, "upconv_tc": 0}
+                "upconv_tc_f32": 4, "conv3d_tc": 0, "upconv_tc": 0}
         m, counts = run_model(params, want, f"{mc} f32", 1)
         runs[mc] = counts
         masks = read_masks(os.path.join(data, f"pred_chip_smoke_f32_{mc}"),
@@ -2174,7 +2184,8 @@ def serve_f32(device, work: str, shape=SHAPE, n_volumes: int = N_VOLUMES,
     # the calibration forward runs the bf16 engine, as the JAX package's
     # does: 12 conv3d_tc and 4 upconv_tc launches, then the served volume
     want = {"conv3d_f32": 2, "conv3d_tc_f32": 2, "maxpool2_f32": 0,
-            "upconv_f32": 0, "conv3d_q_requant": 10, "maxpool2_q": 4,
+            "upconv_f32": 0, "upconv_tc_f32": 0, "conv3d_q_requant": 10,
+            "maxpool2_q": 4,
             "upconv_q_requant": 4, "conv3d_tc_q": 10, "upconv_tc_q": 4,
             "conv3d_tc": 12, "upconv_tc": 4}
     m, counts = run_model(params, want, "int8 f32 head", 1)
@@ -2263,7 +2274,7 @@ def serve_f32(device, work: str, shape=SHAPE, n_volumes: int = N_VOLUMES,
     want = {"conv3d_bias_act": k6, "conv3d_f32": k6 + 12,
             "conv3d_tc_f32": k6 + 12, "conv3d_bn_relu": 12, "maxpool2": 4,
             "maxpool2_f32": 4, "upconv_bn_relu": 4, "upconv_f32": 4,
-            "conv3d_tc": 0, "upconv_tc": 0}
+            "upconv_tc_f32": 4, "conv3d_tc": 0, "upconv_tc": 0}
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
@@ -2312,9 +2323,10 @@ def serve_f32(device, work: str, shape=SHAPE, n_volumes: int = N_VOLUMES,
         return sum(c[key] for c in runs.values())
 
     # per wrapper in f32 (K1 and K6 share conv3d_f32; only training runs K6;
-    # K1, K6 and K5 all launch conv3d_tc_f32)
+    # K1, K6 and K5 all launch conv3d_tc_f32, K3, K7a and K7b upconv_tc_f32)
     launches = {
         "conv3d_tc_f32": total("conv3d_tc_f32"),
+        "upconv_tc_f32": total("upconv_tc_f32"),
         "conv3d_bn_relu_f32": total("conv3d_f32") - total("conv3d_bias_act"),
         "conv3d_bias_act_f32": total("conv3d_bias_act"),
         "maxpool2_f32": total("maxpool2_f32"),
@@ -2465,10 +2477,12 @@ def main() -> int:
                        "ctunet_tpu/ops/pallas/convt.py:78"),
         "convt_k2s2_dual": ("ctunet_tpu_torch/csrc/upconv_tc.cu",
                             "ctunet_tpu/ops/pallas/convt.py:146"),
-        # the f32 paths (phase 7): the convs on the f32 tensor-core
-        # kernel, the rest on the CUDA-core kernels
+        # the f32 paths (phase 7): the convs and the upsamplings on the f32
+        # tensor-core kernels, the max pool on the CUDA cores
         "conv3d_tc_f32": ("ctunet_tpu_torch/csrc/conv3d_tc_f32.cu",
                           "ctunet_tpu/ops/pallas/conv3d.py:136"),
+        "upconv_tc_f32": ("ctunet_tpu_torch/csrc/upconv_tc_f32.cu",
+                          "ctunet_tpu/ops/pallas/convt.py:146"),
         "conv3d_bn_relu_f32": ("ctunet_tpu_torch/csrc/conv3d_tc_f32.cu",
                                "ctunet_tpu/ops/pallas/conv3d.py:1031"),
         "conv3d_bias_act_f32": ("ctunet_tpu_torch/csrc/conv3d_tc_f32.cu",
@@ -2477,11 +2491,11 @@ def main() -> int:
                                  "ctunet_tpu/ops/pallas/conv3d.py:136"),
         "maxpool2_f32": ("ctunet_tpu_torch/csrc/maxpool.cu",
                          "ctunet_tpu/ops/pallas/conv3d.py:1862"),
-        "upconv_bn_relu_f32": ("ctunet_tpu_torch/csrc/upconv.cu",
+        "upconv_bn_relu_f32": ("ctunet_tpu_torch/csrc/upconv_tc_f32.cu",
                                "ctunet_tpu/ops/pallas/upconv.py:464"),
-        "convt_k2s2_f32": ("ctunet_tpu_torch/csrc/convt.cu",
+        "convt_k2s2_f32": ("ctunet_tpu_torch/csrc/upconv_tc_f32.cu",
                            "ctunet_tpu/ops/pallas/convt.py:78"),
-        "convt_k2s2_dual_f32": ("ctunet_tpu_torch/csrc/convt.cu",
+        "convt_k2s2_dual_f32": ("ctunet_tpu_torch/csrc/upconv_tc_f32.cu",
                                 "ctunet_tpu/ops/pallas/convt.py:146"),
     }
     kernels = []

@@ -98,6 +98,19 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// The same product into a fresh fragment: d = A * B (C is zero), with no
+// instructions spent on zeroing d first (upconv_tc_f32.cu's hi * hi terms).
+__device__ __forceinline__ void mma_tf32_zero(float (&d)[4],
+                                              const uint32_t (&a)[4],
+                                              const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
+        "f"(0.f));
+}
+
 // v = hi + lo + r with hi = tf32(v), lo = tf32(v - hi), both rounded to
 // nearest with ties away from zero (cvt.rna); v - hi is exact in f32, so
 // |r| <= 2^-22 |v|. ops/kernels/conv3d.py::tf32_rna rounds the weights on

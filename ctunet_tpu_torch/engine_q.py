@@ -23,8 +23,8 @@ channels-last tensors and the port's kernels:
   kernels, at every ``split_taps`` and ``sparse`` setting: the JAX forms
   these select compute the same integers. The float units of the
   mixed-precision splits (``bf16_head``, ``bf16_tail``) run K1/K2/K3 in
-  ``compute_dtype``: the tensor-core kernels in bf16, the CUDA-core f32
-  kernels in f32 (``engine.py``).
+  ``compute_dtype``: the tensor-core kernels in bf16, the f32 kernels in
+  f32 (``engine.py``).
 
 The JAX chain layout carries a ones lane in every tensor (q = 127 inside
 the volume, the -128 fill outside); here it exists only inside K3q, whose

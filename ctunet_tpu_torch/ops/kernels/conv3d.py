@@ -448,6 +448,16 @@ def tf32_rna(t: torch.Tensor) -> torch.Tensor:
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
+def split_tf32_planes(w: torch.Tensor) -> torch.Tensor:
+    """f32 ``w`` -> ``(3, *w.shape)``: the planes ``hi = tf32_rna(w)``,
+    ``mid = tf32_rna(w - hi)`` and ``lo = w - hi - mid`` (exact, at most 3
+    significant bits: the three sum to ``w``, each a tf32 value), the
+    weights of the split-tf32 kernels' products."""
+    hi = tf32_rna(w)
+    mid = tf32_rna(w - hi)
+    return torch.stack([hi, mid, w - hi - mid])
+
+
 def pack_tcf_weights(w: torch.Tensor, plan: TcfPlan) -> torch.Tensor:
     """f32 ``(k, k, k, Ci, Co)`` weights -> the kernel's B operand
     ``(n_tiles, k, chunks, 3, groups, 8 * nf, 4)``: per N tile, input plane
@@ -463,10 +473,8 @@ def pack_tcf_weights(w: torch.Tensor, plan: TcfPlan) -> torch.Tensor:
     wz = w.new_zeros((k, k, k, plan.cc * plan.chunks, bn * nt),
                      dtype=torch.float32)
     wz[..., :ci, :co] = w
-    hi = tf32_rna(wz)
-    mid = tf32_rna(wz - hi)
-    t = torch.stack([hi, mid, wz - hi - mid])
-    t = t.reshape(3, k, k * k, plan.chunks, c4, 4, nt, bn)
+    t = split_tf32_planes(wz).reshape(3, k, k * k, plan.chunks, c4, 4, nt,
+                                      bn)
     t = t.permute(6, 1, 3, 0, 2, 4, 7, 5).reshape(nt, k, plan.chunks, 3,
                                                   k * k * c4, bn, 4)
     return F.pad(t, (0, 0, 0, 0, 0, plan.groups() - k * k * c4)).contiguous()

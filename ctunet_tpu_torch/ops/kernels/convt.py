@@ -4,10 +4,12 @@ operand or on the channel concat of two, for Hopper.
 Counterpart of ``ctunet_tpu/ops/pallas/convt.py``: ``conv_transpose_k2s2``
 (K7a) and ``conv_transpose_k2s2_dual`` (K7b, the weight-split form that
 never builds the concat). In bf16 both run the tensor-core kernel
-:func:`~.upsample_tc.upconv_tc` (``csrc/upconv_tc.cu``, shared with K3);
-the CUDA-core kernel ``csrc/convt.cu`` they launched before stays
-reachable as :func:`convt_k2s2_direct` / :func:`convt_k2s2_dual_direct`
-for timing beside it, and in f32 it is their kernel, :func:`convt_f32`.
+:func:`~.upsample_tc.upconv_tc` (``csrc/upconv_tc.cu``, shared with K3),
+in f32 :func:`convt_f32`, which launches the split-tf32 tensor-core kernel
+:func:`~.upsample_tc.upconv_tc_f32` (``csrc/upconv_tc_f32.cu``, shared
+with K3 in f32); the CUDA-core kernel ``csrc/convt.cu`` they launched
+before stays reachable, bf16 and f32, as :func:`convt_k2s2_direct` /
+:func:`convt_k2s2_dual_direct` for timing beside them.
 The TPU kernels emit a W-packed-by-2 layout that ``unpack2`` reshapes;
 here the output is the dense ``(2D, 2H, 2W, Co)`` volume. The function
 (``convt.py:34-62,128-143``, no spatial flip):
@@ -23,7 +25,7 @@ tap-major ``(2, 2, 2, Cin, Co)`` like the conv kernels'
 Each wrapper launches its kernel for a CUDA tensor (or raises) and takes
 its plain PyTorch version only for a tensor on the CPU;
 ``<wrapper>.launches`` counts kernel launches (each also counts on
-``upconv_tc`` in bf16, on ``convt_f32`` in f32).
+``upconv_tc`` in bf16, on ``convt_f32`` and ``upconv_tc_f32`` in f32).
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ import torch
 
 from . import build
 from .conv3d import _check, _require_cuda
-from .upsample_tc import upconv_tc
+from .upsample_tc import upconv_tc, upconv_tc_f32
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -113,17 +115,17 @@ def convt_f32(a: torch.Tensor, b: Optional[torch.Tensor], wa: torch.Tensor,
     ``b`` ``(D, H, W, Cb)``, ``wa``/``wb`` ``(2, 2, 2, C, Co)`` and
     ``bias`` ``(Co,)`` -> f32 ``(2D, 2H, 2W, Co)``.
 
-    CPU tensor: the plain version. CUDA tensor: ``csrc/convt.cu``
-    (``ctunet_convt_k2s2_f32`` / ``ctunet_convt_k2s2_dual_f32``, which
-    reads ``a`` and ``b`` by two pointers) on the current stream, or an
-    error.
+    CPU tensor: the plain version. CUDA tensor: the split-tf32
+    tensor-core kernel :func:`~.upsample_tc.upconv_tc_f32`
+    (``csrc/upconv_tc_f32.cu``, which reads ``a`` and ``b`` by two
+    pointers) on the current stream, or an error.
     """
     if a.device.type == "cpu":
         return convt_k2s2_plain(a, b, wa, wb, bias)
     _require_cuda(a, "convt_f32")
     if a.dtype != torch.float32:
         raise TypeError(f"convt_f32: float32 only, got {a.dtype}")
-    out = _launch_direct(a, b, wa, wb, bias, "convt_f32")
+    out = upconv_tc_f32(a, b, wa, wb, None, bias, k3=False)
     if out.numel():  # an empty volume launches nothing
         convt_f32.launches += 1
     return out
@@ -140,8 +142,8 @@ def convt_k2s2(a: torch.Tensor, wa: torch.Tensor,
 
     CPU tensor: the plain version. CUDA tensor: the tensor-core kernel
     :func:`~.upsample_tc.upconv_tc` (``csrc/upconv_tc.cu``) in bf16,
-    :func:`convt_f32` (``csrc/convt.cu``) in f32, on the current stream, or
-    an error.
+    :func:`convt_f32` (the split-tf32 ``csrc/upconv_tc_f32.cu``) in f32, on
+    the current stream, or an error.
     """
     if a.device.type == "cpu":
         return convt_k2s2_plain(a, None, wa, None, bias)
@@ -165,8 +167,8 @@ def convt_k2s2_dual(a: torch.Tensor, b: torch.Tensor, wa: torch.Tensor,
 
     CPU tensor: the plain version. CUDA tensor: the tensor-core kernel
     :func:`~.upsample_tc.upconv_tc` (``csrc/upconv_tc.cu``) in bf16,
-    :func:`convt_f32` (``csrc/convt.cu``) in f32, on the current stream, or
-    an error.
+    :func:`convt_f32` (the split-tf32 ``csrc/upconv_tc_f32.cu``) in f32, on
+    the current stream, or an error.
     """
     if a.device.type == "cpu":
         return convt_k2s2_plain(a, b, wa, wb, bias)
@@ -185,9 +187,9 @@ convt_k2s2_dual.launches = 0
 def convt_k2s2_direct(a: torch.Tensor, wa: torch.Tensor,
                       bias: torch.Tensor) -> torch.Tensor:
     """K7a on the CUDA cores (``csrc/convt.cu``, bf16 or f32), the kernel
-    :func:`convt_k2s2` launched in bf16 before ``upconv_tc``: kept for
-    timing beside it; the plain version on CPU tensors. Counts no
-    launches."""
+    :func:`convt_k2s2` launched before ``upconv_tc`` (bf16) and
+    ``upconv_tc_f32`` (f32): kept for timing beside them; the plain version
+    on CPU tensors. Counts no launches."""
     if a.device.type == "cpu":
         return convt_k2s2_plain(a, None, wa, None, bias)
     return _launch_direct(a, None, wa, None, bias, "convt_k2s2_direct")
@@ -197,9 +199,9 @@ def convt_k2s2_dual_direct(a: torch.Tensor, b: torch.Tensor,
                            wa: torch.Tensor, wb: torch.Tensor,
                            bias: torch.Tensor) -> torch.Tensor:
     """K7b on the CUDA cores (``csrc/convt.cu``, bf16 or f32), the kernel
-    :func:`convt_k2s2_dual` launched in bf16 before ``upconv_tc``: kept for
-    timing beside it; the plain version on CPU tensors. Counts no
-    launches."""
+    :func:`convt_k2s2_dual` launched before ``upconv_tc`` (bf16) and
+    ``upconv_tc_f32`` (f32): kept for timing beside them; the plain version
+    on CPU tensors. Counts no launches."""
     if a.device.type == "cpu":
         return convt_k2s2_plain(a, b, wa, wb, bias)
     return _launch_direct(a, b, wa, wb, bias, "convt_k2s2_dual_direct")

@@ -15,10 +15,12 @@ depends on position.
 
 In bf16, K3 runs the tensor-core kernel :func:`~.upsample_tc.upconv_tc`
 (``csrc/upconv_tc.cu``, shared with K7a/K7b; each launch also counts on
-``upconv_tc``); the CUDA-core kernel ``csrc/upconv.cu`` it launched before
-stays reachable as :func:`upconv_bn_relu_direct` for timing beside it. In
-f32, K3 runs that CUDA-core kernel's f32 form, :func:`upconv_f32` (each
-launch also counting on ``upconv_f32``). K3q
+``upconv_tc``). In f32 it runs :func:`upconv_f32`, which launches the
+split-tf32 tensor-core kernel :func:`~.upsample_tc.upconv_tc_f32`
+(``csrc/upconv_tc_f32.cu``, shared with K7a/K7b in f32; each launch counts
+on ``upconv_f32`` and on ``upconv_tc_f32``). The CUDA-core kernel
+``csrc/upconv.cu`` they launched before stays reachable, bf16 and f32, as
+:func:`upconv_bn_relu_direct` for timing beside them. K3q
 runs the int8 tensor-core kernel :func:`~.upsample_tc.upconv_tc_q`
 (``csrc/upconv_tc_q.cu``, each launch also counting on ``upconv_tc_q``);
 the CUDA-core kernel ``csrc/upconv_q.cu`` it launched before stays
@@ -41,7 +43,7 @@ import torch.nn.functional as F
 
 from . import build
 from .conv3d import _check, _require_cuda, fma_requant, fold_bn
-from .upsample_tc import upconv_tc, upconv_tc_q
+from .upsample_tc import upconv_tc, upconv_tc_f32, upconv_tc_q
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -162,9 +164,9 @@ def upconv_bn_relu(a: torch.Tensor, b: Optional[torch.Tensor],
     ``a``'s dtype (bf16 or f32; weights of the same dtype, f32 ``bias``).
 
     CPU tensor: the plain version. CUDA tensor: the tensor-core kernel
-    :func:`~.upsample_tc.upconv_tc` (``csrc/upconv_tc.cu``) in bf16, the
-    CUDA-core kernel :func:`upconv_f32` (``csrc/upconv.cu``) in f32, on the
-    current stream, or an error.
+    :func:`~.upsample_tc.upconv_tc` (``csrc/upconv_tc.cu``) in bf16,
+    :func:`upconv_f32` (the split-tf32 ``csrc/upconv_tc_f32.cu``) in f32,
+    on the current stream, or an error.
     """
     if a.device.type == "cpu":
         return upconv_bn_relu_plain(a, b, wa, wb, wone, bias)
@@ -216,9 +218,9 @@ def upconv_bn_relu_direct(a: torch.Tensor, b: Optional[torch.Tensor],
                           wone: torch.Tensor,
                           bias: torch.Tensor) -> torch.Tensor:
     """K3 on the CUDA cores (``csrc/upconv.cu``, bf16 or f32), the kernel
-    :func:`upconv_bn_relu` launched in bf16 before ``upconv_tc``: kept for
-    timing beside it (``chip_smoke.py`` phase 2); the plain version on CPU
-    tensors. Counts no launches."""
+    :func:`upconv_bn_relu` launched before ``upconv_tc`` (bf16) and
+    ``upconv_tc_f32`` (f32): kept for timing beside them (``chip_smoke.py``
+    phase 2); the plain version on CPU tensors. Counts no launches."""
     if a.device.type == "cpu":
         return upconv_bn_relu_plain(a, b, wa, wb, wone, bias)
     return _launch_direct(a, b, wa, wb, wone, bias, "upconv_bn_relu_direct")
@@ -232,15 +234,16 @@ def upconv_f32(a: torch.Tensor, b: Optional[torch.Tensor], wa: torch.Tensor,
     Co)``, ``wone`` ``(4, 4, 4, Co)`` and ``bias`` ``(Co,)`` -> f32
     ``(2*D2, 2*H2, 2*W2, Co)``, summed in f32 with no rounding to bf16.
 
-    CPU tensor: the plain version. CUDA tensor: ``csrc/upconv.cu``
-    (``ctunet_upconv_bn_relu_f32``) on the current stream, or an error.
+    CPU tensor: the plain version. CUDA tensor: the split-tf32
+    tensor-core kernel :func:`~.upsample_tc.upconv_tc_f32`
+    (``csrc/upconv_tc_f32.cu``) on the current stream, or an error.
     """
     if a.device.type == "cpu":
         return upconv_bn_relu_plain(a, b, wa, wb, wone, bias)
     _require_cuda(a, "upconv_f32")
     if a.dtype != torch.float32:
         raise TypeError(f"upconv_f32: float32 only, got {a.dtype}")
-    out = _launch_direct(a, b, wa, wb, wone, bias, "upconv_f32")
+    out = upconv_tc_f32(a, b, wa, wb, wone, bias, k3=True)
     if out.numel():  # an empty volume launches nothing
         upconv_f32.launches += 1
     return out

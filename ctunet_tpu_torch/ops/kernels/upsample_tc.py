@@ -19,8 +19,17 @@ keeps the packing on the weight tensor, and :func:`uptc_blocks` is the
 kernel's grid arithmetic. :func:`upconv_tc` launches the kernel for bf16
 CUDA tensors (or raises) and runs the plain version of K3 or K7 for a CPU
 tensor; ``upconv_tc.launches`` counts kernel launches, and equals on every
-bf16 path the launches of the K3, K7a and K7b wrappers, which call it (in
-f32 they call the CUDA-core kernels ``upconv_f32`` and ``convt_f32``).
+bf16 path the launches of the K3, K7a and K7b wrappers, which call it.
+
+In f32 the same function runs on :func:`upconv_tc_f32`
+(``csrc/upconv_tc_f32.cu``): the same implicit GEMM on split tf32 products
+(3xTF32 with the weights split exactly, f32-accurate), plan
+:func:`uptcf_plan` (an :class:`UpPlan` whose ``cc`` is a multiple of 8;
+K3 blocks take 2 or 4 parities of one ``pz``), slots :func:`uptcf_slots`,
+weights :func:`pack_weights_f32` (three tf32 planes) kept by
+:func:`uptcf_packed`. The wrappers ``upconv.upconv_f32`` (K3) and
+``convt.convt_f32`` (K7a/K7b) call it, and ``upconv_tc_f32.launches``
+equals the sum of theirs.
 
 K3q, the int8 mode of K3, has a kernel of its own on the int8 tensor cores,
 :func:`upconv_tc_q` (``csrc/upconv_tc_q.cu``), with the same tiles and slot
@@ -33,6 +42,7 @@ lane rides operand a's padding), :func:`pack_weights_q` the packing;
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple, Optional
 
@@ -40,7 +50,8 @@ import torch
 import torch.nn.functional as F
 
 from . import build
-from .conv3d import _check, _require_cuda
+from .conv3d import (SMEM_PER_BLOCK, _check, _require_cuda,
+                     split_tf32_planes)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -230,13 +241,13 @@ def _tap_weights(w: torch.Tensor, k3: bool) -> torch.Tensor:
     return w[idx[..., 0], idx[..., 1], idx[..., 2]].reshape(64, *w.shape[3:])
 
 
-def pack_weights(wa: torch.Tensor, wb: Optional[torch.Tensor],
-                 plan: UpPlan) -> torch.Tensor:
-    """The kernel's weight operand ``(n_pg, n_tiles, n_dz, chunks, slots,
-    cc / 8, 8 * nf, 8)``: per parity group, N tile, input plane and channel
-    chunk (operand a's chunks, then b's), the stage's slots of
-    :func:`slot_table`, each ``[k-group][n][8]``; zeros pad the channels,
-    ``Co`` and the slots a plane does not use."""
+def _slot_weights(wa: torch.Tensor, wb: Optional[torch.Tensor],
+                  plan: UpPlan, slots=slot_table) -> torch.Tensor:
+    """``(n_pg, n_dz, slots, chunks * cc, n_tiles * 8 * nf)``: per parity
+    group and input plane, the weights of the stage's slots in the order of
+    ``slots(plan, pg)`` (:func:`slot_table`, or :func:`uptcf_slots`;
+    operand a's channels padded to its chunks, then b's); zeros pad the
+    channels, ``Co`` and the slots a plane does not use."""
     co = wa.shape[-1]
     bn, nt = 8 * plan.nf, plan.n_tiles(co)
     parts = []
@@ -250,12 +261,21 @@ def pack_weights(wa: torch.Tensor, wb: Optional[torch.Tensor],
     idx = torch.full((plan.n_pg, plan.n_dz, plan.slots), n_mat)
     tpp = 8 if plan.k3 else 1
     for pg in range(plan.n_pg):
-        for dzi, row in enumerate(slot_table(plan, pg)):
+        for dzi, row in enumerate(slots(plan, pg)):
             for s, (_, _, p, t) in enumerate(row):
                 idx[pg, dzi, s] = p * tpp + t
-    g = wz[idx]  # (n_pg, n_dz, slots, Cp, Co_p)
+    return wz[idx]
+
+
+def pack_weights(wa: torch.Tensor, wb: Optional[torch.Tensor],
+                 plan: UpPlan) -> torch.Tensor:
+    """The kernel's weight operand ``(n_pg, n_tiles, n_dz, chunks, slots,
+    cc / 8, 8 * nf, 8)``: per parity group, N tile, input plane and channel
+    chunk (operand a's chunks, then b's), the stage's slots of
+    :func:`slot_table`, each ``[k-group][n][8]`` (:func:`_slot_weights`)."""
+    g = _slot_weights(wa, wb, plan)
     g = g.reshape(plan.n_pg, plan.n_dz, plan.slots, plan.chunks,
-                  plan.cc // 8, 8, nt, bn)
+                  plan.cc // 8, 8, -1, 8 * plan.nf)
     return g.permute(0, 6, 1, 3, 2, 4, 7, 5).contiguous()
 
 
@@ -267,23 +287,32 @@ def pack_wone(wone: torch.Tensor) -> torch.Tensor:
     return torch.cat([t, t.sum(1, keepdim=True)], 1).float().contiguous()
 
 
-def uptc_packed(wa: torch.Tensor, wb: Optional[torch.Tensor],
-                wone: Optional[torch.Tensor], plan: UpPlan):
-    """``(pack_weights, pack_wone or None)``, once per weight tensor: kept
-    on ``wa`` and made again only when one of the weights was written in
-    place since (version counters), another tensor comes with it, or the
-    plan packs differently."""
+def _kept(attr: str, plan_key: tuple, wa: torch.Tensor,
+          wb: Optional[torch.Tensor], wone: Optional[torch.Tensor], make):
+    """``make()``, once per weight tensor: kept on ``wa`` under ``attr``
+    and made again only when one of the weights was written in place since
+    (version counters), another tensor comes with it, or the plan packs
+    differently (``plan_key``)."""
     def ver(t):
         return None if t is None or t.is_inference() else (id(t), t._version)
 
-    key = (plan.k3, plan.np, plan.nf, plan.cc, plan.chunks_a, plan.chunks_b,
-           ver(wa), ver(wb), ver(wone), id(wb), id(wone))
-    hit = getattr(wa, "_uptc_packed", None)
+    key = (plan_key, ver(wa), ver(wb), ver(wone), id(wb), id(wone))
+    hit = getattr(wa, attr, None)
     if hit is None or hit[0] != key:
-        hit = (key, (pack_weights(wa, wb, plan),
-                     None if wone is None else pack_wone(wone)))
-        wa._uptc_packed = hit
+        hit = (key, make())
+        setattr(wa, attr, hit)
     return hit[1]
+
+
+def uptc_packed(wa: torch.Tensor, wb: Optional[torch.Tensor],
+                wone: Optional[torch.Tensor], plan: UpPlan):
+    """``(pack_weights, pack_wone or None)``, once per weight tensor
+    (:func:`_kept`)."""
+    return _kept("_uptc_packed", (plan.k3, plan.np, plan.nf, plan.cc,
+                                  plan.chunks_a, plan.chunks_b),
+                 wa, wb, wone, lambda: (
+                     pack_weights(wa, wb, plan),
+                     None if wone is None else pack_wone(wone)))
 
 
 def upconv_tc_plain(a, b, wa, wb, wone, bias, k3: bool) -> torch.Tensor:
@@ -294,6 +323,31 @@ def upconv_tc_plain(a, b, wa, wb, wone, bias, k3: bool) -> torch.Tensor:
     if k3:
         return upconv.upconv_bn_relu_plain(a, b, wa, wb, wone, bias)
     return convt.convt_k2s2_plain(a, b, wa, wb, bias)
+
+
+def _up_checks(a, b, wa, wb, wone, bias, k3: bool, dtype, what: str):
+    """Check the operands of K3 (``k3``) or K7 in ``dtype`` (f32 bias) for
+    a launch and return ``(D2, H2, W2, Ca, Cb, Co)``."""
+    _require_cuda(a, what)
+    kw = 4 if k3 else 2
+    d2, h2, w2, ca = a.shape
+    co = wa.shape[-1]
+    _check(a, "a", dtype)
+    _check(wa, "wa", dtype, (kw, kw, kw, ca, co), a.device)
+    _check(bias, "bias", torch.float32, (co,), a.device)
+    if k3:
+        _check(wone, "wone", dtype, (4, 4, 4, co), a.device)
+    elif wone is not None:
+        raise ValueError(f"{what}: K7 takes no ones-channel weights")
+    cb = 0
+    if b is not None:
+        cb = b.shape[-1]
+        _check(b, "b", dtype, (d2, h2, w2, cb), a.device)
+        _check(wb, "wb", dtype, (kw, kw, kw, cb, co), a.device)
+    if a.data_ptr() % 16 or (b is not None and b.data_ptr() % 16):
+        raise ValueError(f"{what}: a and b must start on a 16-byte "
+                         "boundary")
+    return d2, h2, w2, ca, cb, co
 
 
 def upconv_tc(a: torch.Tensor, b: Optional[torch.Tensor], wa: torch.Tensor,
@@ -312,26 +366,8 @@ def upconv_tc(a: torch.Tensor, b: Optional[torch.Tensor], wa: torch.Tensor,
     """
     if a.device.type == "cpu":
         return upconv_tc_plain(a, b, wa, wb, wone, bias, k3)
-    _require_cuda(a, "upconv_tc")
-    kw = 4 if k3 else 2
-    d2, h2, w2, ca = a.shape
-    co = wa.shape[-1]
-    _check(a, "a", torch.bfloat16)
-    _check(wa, "wa", torch.bfloat16, (kw, kw, kw, ca, co), a.device)
-    _check(bias, "bias", torch.float32, (co,), a.device)
-    if k3:
-        _check(wone, "wone", torch.bfloat16, (4, 4, 4, co), a.device)
-    elif wone is not None:
-        raise ValueError("upconv_tc: K7 takes no ones-channel weights")
-    cb = 0
-    if b is not None:
-        cb = b.shape[-1]
-        _check(b, "b", torch.bfloat16, (d2, h2, w2, cb), a.device)
-        _check(wb, "wb", torch.bfloat16, (kw, kw, kw, cb, co), a.device)
-        if b.data_ptr() % 16:
-            raise ValueError("upconv_tc: b must start on a 16-byte boundary")
-    if a.data_ptr() % 16:
-        raise ValueError("upconv_tc: a must start on a 16-byte boundary")
+    d2, h2, w2, ca, cb, co = _up_checks(a, b, wa, wb, wone, bias, k3,
+                                        torch.bfloat16, "upconv_tc")
     out = torch.empty((2 * d2, 2 * h2, 2 * w2, co), dtype=torch.bfloat16,
                       device=a.device)
     if out.numel() == 0:
@@ -363,6 +399,184 @@ def upconv_tc_work(shape2, ca: int, cb: int, co: int, k3: bool):
               + 2 * (64 if k3 else 8) * (ca + cb + (1 if k3 else 0)) * co
               + 4 * co)
     return nbytes, 2 * (ca + cb) * co * taps
+
+
+# --------------------------------------------------------------------------
+# upconv_tc_f32: K3 and K7a/K7b in f32 on the tensor cores, split tf32
+# --------------------------------------------------------------------------
+
+# bytes of one f32 pipeline stage (slab + the three weight planes of its
+# slots), a block holding two: f32 and the three planes make a stage up to
+# 6x upconv_tc's at the same channel chunk, so UT_STAGE_BYTES does not
+# carry over. A plan sweep on the H100 (every plan of every f32 path shape)
+# found small stages, which keep more blocks on an SM, the fastest.
+UTF_STAGE_BYTES = 24 * 1024
+# accumulators a thread holds: np * mf * nf n8 tiles of 4 floats, and as
+# many for the stage's corrections (the kernel's UF_MAX_TILES; the same
+# sweep found 16 slower at every shape)
+UTF_MAX_TILES = 8
+
+
+def uptcf_slots(plan: UpPlan, pg: int):
+    """``csrc/upconv_tc_f32.cu``'s stage slots, as :func:`slot_table` lists
+    ``upconv_tc``'s: per input plane ``dzi`` of parity group ``pg``, ``(o,
+    j, p, t)`` in slot order, parity by parity and (K3) tap ``(ty, tx)`` by
+    tap, which the kernel's unrolled loop addresses as ``4 j + 2 ty + tx``
+    (K3 takes 2 or 4 parities of one ``pz``: every parity reads both
+    planes, through tap ``tz = dzi``)."""
+    if not plan.k3:
+        return [[(0, j, pg * plan.np + j, 0) for j in range(plan.np)]]
+    if plan.np not in (2, 4):
+        raise ValueError(f"upconv_tc_f32: K3 takes 2 or 4 parities a block, "
+                         f"got {plan.np}")
+    table = []
+    for dzi in range(plan.n_dz):
+        row = []
+        for j in range(plan.np):
+            p = pg * plan.np + j
+            _, py, px = parity(p)
+            for ty in (0, 1):
+                for tx in (0, 1):
+                    row.append(((ty + py) * 3 + tx + px, j, p,
+                                4 * dzi + 2 * ty + tx))
+        table.append(row)
+    return table
+
+
+def uptcf_stage_bytes(plan: UpPlan) -> int:
+    """One f32 stage of ``plan``: the halo slab (``cc + 4`` floats a voxel,
+    an odd number of 16-byte words) and the widest stage's slots, three
+    tf32 planes each."""
+    h = 1 if plan.k3 else 0
+    ty, tx = plan.tile
+    slab = (ty + 2 * h) * (tx + 2 * h) * (plan.cc + 4)
+    return 4 * (slab + plan.slots * 3 * plan.cc * 8 * plan.nf)
+
+
+def uptcf_smem(plan: UpPlan) -> int:
+    """Shared memory of one block: the two-stage ring, which the staged f32
+    output tile reuses."""
+    tile = 4 * plan.np * 64 * plan.mf * 8 * plan.nf
+    return max(2 * uptcf_stage_bytes(plan), tile)
+
+
+def uptcf_channels(ca: int, cb: int, plan: UpPlan):
+    """``(cc, chunks_a, chunks_b)`` of f32 operands for ``plan``'s tiles:
+    ``cc`` a multiple of 8 (one k8 product takes two k-groups of 4) whose
+    stage fits ``UTF_STAGE_BYTES`` and whose block fits the card: the
+    fewest stages (``chunks_a + chunks_b``), then the fewest padded
+    channels, then the widest chunk."""
+    best = None
+    for cc in range(8, -(-max(ca, cb) // 8) * 8 + 1, 8):
+        wide = plan._replace(cc=cc)
+        if cc > 8 and (uptcf_stage_bytes(wide) > UTF_STAGE_BYTES
+                       or uptcf_smem(wide) > SMEM_PER_BLOCK):
+            continue
+        n_a, n_b = -(-ca // cc), -(-cb // cc)
+        key = (n_a + n_b, (n_a + n_b) * cc, -cc)
+        if best is None or key < best[0]:
+            best = (key, cc, n_a, n_b)
+    return best[1:]
+
+
+@functools.lru_cache(maxsize=256)
+def uptcf_plan(shape2, ca: int, cb: int, co: int, k3: bool) -> UpPlan:
+    """The tile plan of ``csrc/upconv_tc_f32.cu`` for K3 (``k3``) or K7
+    from f32 half-resolution operands of ``ca`` (and ``cb``) channels over
+    ``shape2`` to ``co`` channels: :class:`UpPlan`'s fields, with ``cc`` a
+    multiple of 8 (:func:`uptcf_channels`). ``nf`` covers ``co`` in one N
+    tile up to 32 channels. Of the parity groupings (K3: 4 or 2 parities
+    of one ``pz``, whose slots the kernel knows when it is compiled; K7: 8,
+    4 or 2) and M tiles that keep ``np * mf * nf <= UTF_MAX_TILES``, the
+    one with the least estimated time: the shared-memory bytes the blocks
+    read per k8 step (A once per slab offset a block reads, the three B
+    planes once per (offset, parity) pair, in each of 4 warps), stretched
+    when the grid has fewer than two blocks per SM. Kept per shape: a
+    launch pays for it once."""
+    d2, h2, w2 = shape2
+    nf = 1 if co <= 8 else 2 if co <= 16 else 4
+    n_tiles = -(-co // (8 * nf))
+    best = None
+    for np_ in (4, 2) if k3 else (8, 4, 2):
+        for mf, tx_log2 in UT_TILES:
+            if np_ * mf * nf > UTF_MAX_TILES:
+                continue
+            tx = 1 << tx_log2
+            ty = 64 * mf // tx
+            blocks = d2 * -(-h2 // ty) * -(-w2 // tx) * (8 // np_) * n_tiles
+            offsets = {4: 18, 2: 12}[np_] if k3 else 1
+            pairs = 8 * np_ if k3 else np_
+            per_block = 4 * (offsets * mf * 512 + pairs * 3 * nf * 256)
+            cost = blocks * per_block * max(1.0, 2 * UT_SMS / blocks)
+            if best is None or cost < best[0]:
+                best = (cost, np_, mf, tx_log2)
+    plan = UpPlan(bool(k3), best[1], best[2], nf, best[3], 8, 1, 0)
+    cc, n_a, n_b = uptcf_channels(ca, cb, plan)
+    return plan._replace(cc=cc, chunks_a=n_a, chunks_b=n_b)
+
+
+def pack_weights_f32(wa: torch.Tensor, wb: Optional[torch.Tensor],
+                     plan: UpPlan) -> torch.Tensor:
+    """f32 weights -> ``csrc/upconv_tc_f32.cu``'s operand ``(n_pg,
+    n_tiles, n_dz, chunks, slots, 3, cc / 4, 8 * nf, 4)``: per parity
+    group, N tile, input plane and channel chunk, the stage's slots of
+    :func:`uptcf_slots` (:func:`_slot_weights`), each the three tf32
+    planes ``hi + mid + lo == w`` (:func:`~.conv3d.split_tf32_planes`) of
+    ``[k-group][n][4]``."""
+    g = split_tf32_planes(_slot_weights(
+        wa.float(), None if wb is None else wb.float(), plan, uptcf_slots))
+    g = g.reshape(3, plan.n_pg, plan.n_dz, plan.slots, plan.chunks,
+                  plan.cc // 4, 4, -1, 8 * plan.nf)
+    return g.permute(1, 7, 2, 4, 3, 0, 5, 8, 6).contiguous()
+
+
+def uptcf_packed(wa: torch.Tensor, wb: Optional[torch.Tensor],
+                 wone: Optional[torch.Tensor], plan: UpPlan):
+    """``(pack_weights_f32, pack_wone or None)``, once per weight tensor
+    (:func:`_kept`)."""
+    return _kept("_uptcf_packed", (plan.k3, plan.np, plan.nf, plan.cc,
+                                   plan.chunks_a, plan.chunks_b),
+                 wa, wb, wone, lambda: (
+                     pack_weights_f32(wa, wb, plan),
+                     None if wone is None else pack_wone(wone)))
+
+
+def upconv_tc_f32(a: torch.Tensor, b: Optional[torch.Tensor],
+                  wa: torch.Tensor, wb: Optional[torch.Tensor],
+                  wone: Optional[torch.Tensor], bias: torch.Tensor,
+                  k3: bool) -> torch.Tensor:
+    """K3 or K7 as :func:`upconv_tc` takes them, on f32 operands, weights
+    and ``wone`` -> f32 ``(2*D2, 2*H2, 2*W2, Co)``, to f32 accuracy: the
+    split-tf32 tensor-core kernel of K3 and K7a/K7b in f32.
+
+    CPU tensor: the plain version. CUDA tensor: the
+    ``csrc/upconv_tc_f32.cu`` kernel on the current stream with
+    :func:`uptcf_plan`'s tiles and :func:`uptcf_packed` weights, or an
+    error.
+    """
+    if a.device.type == "cpu":
+        return upconv_tc_plain(a, b, wa, wb, wone, bias, k3)
+    d2, h2, w2, ca, cb, co = _up_checks(a, b, wa, wb, wone, bias, k3,
+                                        torch.float32, "upconv_tc_f32")
+    out = torch.empty((2 * d2, 2 * h2, 2 * w2, co), dtype=torch.float32,
+                      device=a.device)
+    if out.numel() == 0:
+        return out
+    plan = uptcf_plan((d2, h2, w2), ca, cb, co, k3)
+    wp, wo = uptcf_packed(wa, wb, wone, plan)
+    fn = build.function("upconv_tc_f32", "ctunet_upconv_tc_f32",
+                        [_P] * 6 + [_I] * 16 + [_P])
+    rc = fn(a.data_ptr(), None if b is None else b.data_ptr(), wp.data_ptr(),
+            None if wo is None else wo.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), d2, h2, w2, ca, cb, co, int(k3), int(k3),
+            plan.np, plan.mf, plan.nf, plan.tx_log2, plan.cc, plan.chunks_a,
+            plan.chunks_b, *build.stream_args(a))
+    build.check(rc, "upconv_tc_f32")
+    upconv_tc_f32.launches += 1
+    return out
+
+
+upconv_tc_f32.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -469,18 +683,9 @@ def pack_weights_q(wa: torch.Tensor, wb: Optional[torch.Tensor],
 
 def uptcq_packed(wa: torch.Tensor, wb: Optional[torch.Tensor],
                  wone: torch.Tensor, plan: UpqPlan) -> torch.Tensor:
-    """:func:`pack_weights_q`, once per weight tensor (as
-    :func:`uptc_packed`)."""
-    def ver(t):
-        return None if t is None or t.is_inference() else (id(t), t._version)
-
-    key = (plan.np, plan.nf, plan.cg, plan.chunks, ver(wa), ver(wb),
-           ver(wone), id(wb), id(wone))
-    hit = getattr(wa, "_uptcq_packed", None)
-    if hit is None or hit[0] != key:
-        hit = (key, pack_weights_q(wa, wb, wone, plan))
-        wa._uptcq_packed = hit
-    return hit[1]
+    """:func:`pack_weights_q`, once per weight tensor (:func:`_kept`)."""
+    return _kept("_uptcq_packed", (plan.np, plan.nf, plan.cg, plan.chunks),
+                 wa, wb, wone, lambda: pack_weights_q(wa, wb, wone, plan))
 
 
 def upconv_tc_q(a: torch.Tensor, b: Optional[torch.Tensor],

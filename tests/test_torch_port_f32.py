@@ -20,8 +20,10 @@ K7a/K7b, their routing, and the f32 engines.
   is asked for and launches nothing, ``_require_cuda`` passes ``meta``
   tensors. An f32 call of each wrapper asks for its f32 entry (K1, K6 and
   K5: ``ctunet_conv3d_tc_f32``, the f32 tensor-core conv, counted on
-  ``conv3d_tc_f32`` too) and never for ``conv3d_tc``, ``upconv_tc`` or a
-  bf16 symbol, and counts on its f32 kernel; the engines
+  ``conv3d_tc_f32`` too; K3, K7a and K7b: ``ctunet_upconv_tc_f32``, the
+  f32 tensor-core upsampling, counted on ``upconv_tc_f32`` too) and never
+  for ``conv3d_tc``, ``upconv_tc`` or a bf16 symbol, and counts on its f32
+  kernel; the engines
   (``build_predict``, ``build_predict_q`` with an f32 head) build and run
   for that card in f32.
 - **The slice on the CPU**: each engine configuration in f32, with its K2,
@@ -373,9 +375,9 @@ F32_ENTRY = {
     "conv3d_bias_act": ("conv3d_tc_f32", "ctunet_conv3d_tc_f32"),
     "conv3d5_bias_act": ("conv3d_tc_f32", "ctunet_conv3d_tc_f32"),
     "maxpool2": ("maxpool", "ctunet_maxpool2_f32"),
-    "upconv_bn_relu": ("upconv", "ctunet_upconv_bn_relu_f32"),
-    "convt_k2s2": ("convt", "ctunet_convt_k2s2_f32"),
-    "convt_k2s2_dual": ("convt", "ctunet_convt_k2s2_dual_f32"),
+    "upconv_bn_relu": ("upconv_tc_f32", "ctunet_upconv_tc_f32"),
+    "convt_k2s2": ("upconv_tc_f32", "ctunet_upconv_tc_f32"),
+    "convt_k2s2_dual": ("upconv_tc_f32", "ctunet_upconv_tc_f32"),
 }
 BF16_ENTRY = {
     "conv3d_bn_relu": ("conv3d_tc", "ctunet_conv3d_tc"),
@@ -397,10 +399,13 @@ def test_f32_call_asks_for_the_f32_entry(card, name):
     counts = kernels.launches()
     assert counts[name] == 1 and counts[counter] == 1
     assert counts["conv3d_tc"] == counts["upconv_tc"] == 0
-    # the f32 convs launch through conv3d_tc_f32, which counts as well
+    # the f32 convs launch through conv3d_tc_f32, the f32 upsamplings
+    # through upconv_tc_f32, which count as well
     tcf = counts["conv3d_f32"] + counts["conv3d5_f32"]
+    utf = counts["upconv_f32"] + counts["convt_f32"]
     assert counts["conv3d_tc_f32"] == tcf
-    assert sum(counts.values()) == 2 + tcf
+    assert counts["upconv_tc_f32"] == utf
+    assert sum(counts.values()) == 2 + tcf + utf
 
 
 @pytest.mark.parametrize("name", sorted(BF16_ENTRY))
@@ -479,12 +484,12 @@ def test_engine_builds_and_runs_on_the_card_in_its_dtype(card, monkeypatch,
     asked = collections.Counter(sym for _, sym in card)
     if tengine.ENGINE_CONFIGS[name]["family"] == "generic":
         f32 = {"ctunet_conv3d_tc_f32": 12, "ctunet_maxpool2_f32": 4,
-               "ctunet_upconv_bn_relu_f32": 4}
+               "ctunet_upconv_tc_f32": 4}
         bf16 = {"ctunet_conv3d_tc": 12, "ctunet_maxpool2": 4,
                 "ctunet_upconv_tc": 4}
     else:
         f32 = {"ctunet_conv3d_tc_f32": 18, "ctunet_maxpool2_f32": 4,
-               "ctunet_convt_k2s2_f32": 1, "ctunet_convt_k2s2_dual_f32": 3}
+               "ctunet_upconv_tc_f32": 4}
         bf16 = {"ctunet_conv3d_tc": 18, "ctunet_maxpool2": 4,
                 "ctunet_upconv_tc": 4}
     assert asked == (f32 if dtype == F32 else bf16)
@@ -496,8 +501,10 @@ def test_engine_builds_and_runs_on_the_card_in_its_dtype(card, monkeypatch,
                 + counts["convt_f32"]) == sum(f32.values())
         assert counts["conv3d_tc_f32"] == (counts["conv3d_f32"]
                                            + counts["conv3d5_f32"])
+        assert counts["upconv_tc_f32"] == (counts["upconv_f32"]
+                                           + counts["convt_f32"])
     else:
-        assert counts["conv3d_tc_f32"] == 0
+        assert counts["conv3d_tc_f32"] == counts["upconv_tc_f32"] == 0
 
 
 @pytest.fixture(scope="module")

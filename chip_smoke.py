@@ -26,7 +26,11 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
    tensor-core conv) at every K6 shape of the f32 training run, forward
    and as input gradient, beside the direct CUDA-core kernel it replaced,
    and the autograd function's ``dx``/``dw`` against autograd through the
-   plain version;
+   plain version; ``conv3d_tc`` at the 16 K5 shapes only legacy training
+   launches (its input gradients, ``conv3d5_train``), and the k=5 autograd
+   function's ``dx``/``dw`` at 28->7 full size against autograd through
+   the plain version, with the 125-tap weight gradient's time beside
+   cuDNN's;
    the f32 kernels of the f32 serving paths (``conv3d_tc_f32`` behind K1
    and K5, ``maxpool2_f32`` behind K2, ``upconv_tc_f32``, the f32
    tensor-core stride-2 upsampling kernel, behind K3 (``upconv_f32``) and
@@ -105,6 +109,22 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
    and 6, the legacy f32 launches timed by CUDA events, the training
    run's peak memory and the ``conv3d_tc_f32`` weight packing one f32
    train step makes.
+8. Legacy training: ``Model`` with the settings of both AutoImplant 2020
+   INIs (adam, lr 1e-4, Dice + CE, batch 1, bf16) and ``conv_impl =
+   "pallas"`` on complete synthetic skulls at 224x304x304, random weights
+   from the seed, the INIs' synthesis on the card (``UNet4_2IC`` +
+   ``FlapRecWithShapePrior``: ``cranioplasty_transform``;
+   ``recAE_v2_fixed`` + ``FlapRec``: hole and noise): ``LEGACY_TRAIN``
+   train steps (3 and 2) and 1 eval step each, the checkpoint saved, one
+   volume served from it by the bf16 legacy engine. Checks: finite losses,
+   K5 launches (35 per train step: 18 forward + 17 input gradients; 18 per
+   eval step; each a ``conv3d_tc`` launch), the checkpoint reloading to
+   the same tensors, the masks written, and one train step against the
+   same step on the plain versions (loss within 1e-2 relative, BatchNorm
+   batch statistics within 4 bf16 ulps). Then the step time on
+   ``pallas`` and on ``xla`` (cuDNN), the weight gradients' time by CUDA
+   events, a ``torch.profiler`` pass, the synthesis ms per volume and the
+   peak memory.
 
 The last two lines of output are one JSON object ``{"kernels": [...]}``
 and ``{"ok": true, "device": {...}}``. Any failure exits non-zero and
@@ -134,7 +154,8 @@ INT8_INI = os.path.join(ROOT, "examples", "UNetSPDO",
                         "FlapRecSP2O_serve_int8.ini")
 ADAQUANT_STEPS = 250
 # steps of each of the two rounding searches that phase 4 holds bit-equal
-REPRO_STEPS = 10
+# (10 until phase 8 joined the script; 5 keep its time near 690 s)
+REPRO_STEPS = 5
 TRAIN_INI = os.path.join(ROOT, "examples", "UNetSPDO", "FlapRecSP2O.ini")
 LEGACY_INIS = {  # AutoImplant 2020: with and without the shape prior
     "UNet4_2IC": os.path.join(ROOT, "examples", "autoimplant2020", "UNetSP",
@@ -146,6 +167,12 @@ LEGACY_INIS = {  # AutoImplant 2020: with and without the shape prior
 LEGACY_PER_VOLUME = {"conv3d5_bias_act": 18, "maxpool2": 4, "convt_k2s2": 1,
                      "convt_k2s2_dual": 3, "conv3d_tc": 18, "upconv_tc": 4}
 N_TRAIN, N_EVAL = 4, 2  # steps of the training phase (batch 1)
+# train steps of each legacy model in phase 8 (1 eval step each)
+LEGACY_TRAIN = (("UNet4_2IC", 3), ("recAE_v2_fixed", 2))
+# K5 launches per legacy step under conv_impl = "pallas": 18 forward and 17
+# input gradients (the network input needs none) a train step, 18 an eval
+# step; each one a conv3d_tc launch in bf16
+K5_PER_TRAIN_STEP, K5_PER_EVAL_STEP = 18 + 17, 18
 N_TRAIN_F32 = 2  # train steps of phase 7's f32 training run (1 eval step)
 # f32 engine vs the plain f32 model: the JAX engine tests' tolerance
 # (tests/test_engine.py: atol 5e-4, rtol 1e-3)
@@ -329,7 +356,9 @@ def conv_tc_shapes():
     """Every distinct bf16 conv the paths launch, ``{(k, ci, co, level):
     {path: launches}}``: K1 per UNetSP volume, K6 per UNetSP train step
     (16 forward + 15 input gradients, ``co -> ci``, the network input's
-    left out), K5 per ``UNet4_2IC`` and per ``recAE_v2_fixed`` volume."""
+    left out), K5 per ``UNet4_2IC`` and per ``recAE_v2_fixed`` volume, and
+    K5 per legacy train step (18 forward, ``<model>/step``, and 17 input
+    gradients, ``<model>/dgrad``)."""
     rows = {}
 
     def add(key, path):
@@ -343,8 +372,11 @@ def conv_tc_shapes():
         if i:
             add((3, co, ci, lv), "K6/step")
     for mc, i_size, cin in (("UNet4_2IC", 7, 2), ("recAE_v2_fixed", 8, 1)):
-        for ci, co, lv in legacy_convs(i_size, cin):
+        for i, (ci, co, lv) in enumerate(legacy_convs(i_size, cin)):
             add((5, ci, co, lv), f"{mc}/volume")
+            add((5, ci, co, lv), f"{mc}/step")
+            if i:
+                add((5, co, ci, lv), f"{mc}/dgrad")
     return dict(sorted(rows.items()))
 
 
@@ -371,7 +403,12 @@ def check_conv_tc(device, shape=SHAPE):
     entries, failures, sums = {}, [], {}
     for (k, ci, co, level), paths in conv_tc_shapes().items():
         shp = lv[level]
-        if k == 5:
+        if k == 5 and not any(p.endswith("/volume") for p in paths):
+            # a shape only an input gradient of legacy training launches
+            name, relu = "conv3d5_train", False
+            run = functools.partial(kc.conv3d5_bias_act, relu=False)
+            direct = kc.conv3d5_bias_act_direct
+        elif k == 5:
             name, relu = "conv3d5_bias_act", True
             run = functools.partial(kc.conv3d5_bias_act, relu=True)
             direct = kc.conv3d5_bias_act_direct
@@ -723,7 +760,77 @@ def check_kernel_train(device, shape=SHAPE, reps: int = 3):
         f"27 tap-shifted matmuls wgrad {wgrad_ms:.3f} ms; library (cuDNN "
         f"through torch.autograd.grad) dgrad {lib['dgrad']:.3f} ms, wgrad "
         f"{lib['wgrad']:.3f} ms")
+    del x, wt, g, xd, wd, x_l, w_l, g_l, y_l
+    failures += check_k5_train(device, lv[0], reps)
     return entries, failures
+
+
+def check_k5_train(device, shp, reps: int):
+    """The k=5 training conv (``conv_impl = "pallas"``): the autograd
+    function's bf16 ``dx`` and ``dw`` against autograd through the plain
+    version at the full-resolution 28->7 layer of ``UNet4_2IC``
+    (``ublock4``'s first conv unit), and the times of its K5 dgrad, its 125
+    tap-shifted matmuls wgrad and cuDNN's bf16 dgrad and wgrad there.
+    Returns the failures."""
+    import torch
+    import torch.nn.functional as F
+
+    from ctunet_tpu_torch.ops import chain_conv_train as cct
+    from ctunet_tpu_torch.ops.kernels import conv3d as kc
+
+    gen = torch.Generator(device=device).manual_seed(3)
+    bf = torch.bfloat16
+    ci, co = 28, 7
+    failures = []
+
+    def randn(*s):
+        return torch.randn(*s, generator=gen, device=device).to(bf)
+
+    x = torch.relu(randn(1, *shp, ci)).requires_grad_()
+    wt = (randn(5, 5, 5, ci, co).float() * (125 * ci) ** -0.5).to(bf)
+    wt.requires_grad_()
+    g = randn(1, *shp, co)
+    zero = torch.zeros(co, device=device)
+    dx, dw = torch.autograd.grad(cct.conv3d_chain_train(x, wt), (x, wt), g)
+    y_ref = kc.conv3d5_bias_act_plain(x[0], wt, zero, False)[None]
+    dx_r, dw_r = torch.autograd.grad(y_ref, (x, wt), g)
+    del y_ref
+    for name, got, ref, ulps in (("dx", dx, dx_r, 1.0), ("dw", dw, dw_r, 2.0)):
+        # dw: each depth plane's partial sum is rounded to bf16 before the
+        # f32 sum over planes, then the sum is rounded: twice K5's tolerance
+        tol = ulps * bf16_tol(ref)
+        err = float((got.float() - ref.float()).abs().max())
+        ok = bool(torch.isfinite(got.float()).all()) and err <= tol
+        log(f"  conv3d_chain_train k=5 {name} [28->7 full size bf16] vs "
+            f"autograd through the plain version: max_abs_err {err:.3e} (tol "
+            f"{tol:.3e}, max |ref| {float(ref.float().abs().max()):.3e}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"conv3d_chain_train k=5 {name}: err {err} > "
+                            f"{tol}")
+    del dx, dw, dx_r, dw_r
+    xd, wd = x.detach(), wt.detach()
+    zero_ci = torch.zeros(ci, device=device)
+    dgrad_ms = time_ms(lambda: kc.conv3d5_bias_act(
+        g[0], cct.flip_swap(wd), zero_ci, False), reps, device)
+    wgrad_ms = time_ms(lambda: cct.dw_taps(xd[0], g[0], 5), reps, device)
+    x_l = xd.permute(0, 4, 1, 2, 3).requires_grad_()
+    w_l = wd.permute(4, 3, 0, 1, 2).contiguous(
+        memory_format=torch.channels_last_3d).requires_grad_()
+    y_l = F.conv3d(x_l, w_l, padding=2)
+    g_l = g.permute(0, 4, 1, 2, 3)
+    lib = {}
+    for name, inp in (("dgrad", x_l), ("wgrad", w_l)):
+        lib[name] = time_ms(lambda: torch.autograd.grad(
+            y_l, inp, g_l, retain_graph=True), reps, device)
+    nbytes = 2 * (xd.numel() + g.numel()) + 4 * wd.numel()
+    w_bound, w_by = bound_ms(nbytes, 2 * ci * co * conv_taps(shp, 5))
+    log(f"  28->7 full size bf16 k=5 backward: kernel dgrad {dgrad_ms:.3f} "
+        f"ms, 125 tap-shifted matmuls wgrad {wgrad_ms:.3f} ms (bound "
+        f"{w_bound:.4f} ms, {w_by}); library (cuDNN through "
+        f"torch.autograd.grad) dgrad {lib['dgrad']:.3f} ms, wgrad "
+        f"{lib['wgrad']:.3f} ms")
+    return failures
 
 
 def f32_shapes():
@@ -1990,6 +2097,303 @@ def serve_legacy(device, work: str, shape=SHAPE, n_volumes: int = N_VOLUMES):
     return main_launches, stats, failures
 
 
+def wgrad_ms(step, device) -> float:
+    """Milliseconds of one ``step()`` spent in the training conv's weight
+    gradients (``chain_conv_train.dw_taps``): CUDA events around each call
+    on the card, the host clock elsewhere."""
+    import torch
+
+    from ctunet_tpu_torch.ops import chain_conv_train as cct
+
+    spans = []
+    orig = cct.dw_taps
+
+    def timed(x, g, k=3):
+        if device.type != "cuda":
+            t = time.perf_counter()
+            out = orig(x, g, k)
+            spans.append(1e3 * (time.perf_counter() - t))
+            return out
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = orig(x, g, k)
+        b.record()
+        spans.append((a, b))
+        return out
+
+    cct.dw_taps = timed
+    try:
+        step()
+        sync(device)
+    finally:
+        cct.dw_taps = orig
+    return sum(s if isinstance(s, float) else s[0].elapsed_time(s[1])
+               for s in spans)
+
+
+def train_legacy(device, work: str, shape=SHAPE, time_steps: int = 2):
+    """Train both legacy models through ``Model`` with their AutoImplant
+    2020 INIs' settings and ``conv_impl = "pallas"`` on complete synthetic
+    skulls (``LEGACY_TRAIN`` steps, 1 eval step, the INIs' synthesis on the
+    card), save, and serve one volume from each trained checkpoint through
+    the bf16 legacy engine. Then, per model, one train and one eval step
+    counted alone, one train step held against the same step on the plain
+    versions (loss and BatchNorm batch statistics; every parameter's
+    gradient against the plain f32 step), the step time on ``pallas`` and
+    on ``xla`` (cuDNN), the weight gradient's share from a
+    ``torch.profiler`` pass, the synthesis ms a volume and the peak memory.
+    Returns ``(launches, stats, failures)``."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from ctunet_tpu_torch import (Model, checkpoint, default_params,
+                                  load_params, registry, steps)
+    from ctunet_tpu_torch.data import make_dataset
+    from ctunet_tpu_torch.models import build_model
+    from ctunet_tpu_torch.models.unet import Conv3d
+    from ctunet_tpu_torch.ops import kernels
+
+    failures, stats = [], {}
+    data, paths, csv, atlas, affine = write_volumes(work, shape, 1)
+    n_max = max(n for _, n in LEGACY_TRAIN)
+    train_csv = make_dataset(os.path.join(work, "train"), n=n_max,
+                             shape=shape, seed=60)
+    val_csv = make_dataset(os.path.join(work, "val"), n=1, shape=shape,
+                           seed=90)
+    with open(train_csv) as f:
+        rows = f.read().splitlines()
+    k5_total = 0
+    for mc, n_train in LEGACY_TRAIN:
+        t0 = time.perf_counter()
+        csv_n = os.path.join(work, "train", f"first{n_train}.csv")
+        with open(csv_n, "w") as f:
+            f.write("\n".join(rows[:n_train + 1]) + "\n")
+        name = f"chip_smoke_train_{mc}"
+        params = load_params(LEGACY_INIS[mc], default_params())
+        # the INI's settings but: conv_impl = pallas, one epoch, no
+        # per-epoch autosave + test (the final save and test run once),
+        # whole synthetic volumes
+        params.update(
+            name=name, conv_impl="pallas", n_epochs=1, autosave_epochs=0,
+            workspace_path=os.path.join(work, "ws"), train_files_csv=csv_n,
+            validation_files_csv=val_csv, test_files_csv=csv,
+            resume_model="", log_every=1)
+        if device.type != "cuda":
+            params["device"] = device.type
+        kernels.reset_launches()
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        m = Model(params=params)  # train, eval, save, then test one volume
+        sync(device)
+        wall = time.perf_counter() - t0
+        counts = kernels.launches()
+        k5 = n_train * K5_PER_TRAIN_STEP + K5_PER_EVAL_STEP + 18
+        want = {"conv3d5_bias_act": k5, "conv3d_tc": k5, "maxpool2": 4,
+                "convt_k2s2": 1, "convt_k2s2_dual": 3, "upconv_tc": 4}
+        got = {k: counts[k] for k in want}
+        log(f"  {mc} launches: {got} (want {want}: {n_train} train steps x "
+            f"{K5_PER_TRAIN_STEP} + 1 eval step x {K5_PER_EVAL_STEP} of K5, "
+            "then one volume served; each K5 launch a conv3d_tc launch)")
+        if got != want:
+            failures.append(f"{mc} training launch counts {got} != {want}")
+        k5_total += got["conv3d5_bias_act"]
+        losses = [float(v) for v in m.step_losses]
+        hist = {k: v[-1][1] for k, v in m.writer.history.items()}
+        log(f"  {mc} train losses per step: {losses}; epoch scalars: "
+            f"{json.dumps(hist)}")
+        # the Dice coefficient is NaN when neither the prediction nor the
+        # target holds a flap (the hole is drawn at p = 0.9; both packages'
+        # monai semantics): it is not a loss
+        if len(losses) != n_train or not all(map(math.isfinite, losses)) \
+                or not all(math.isfinite(v) for k, v in hist.items()
+                           if not k.endswith("dice_coef")):
+            failures.append(f"{mc} training: losses not finite: {losses} "
+                            f"{hist}")
+        st = dict(train_steps=n_train, eval_steps=1,
+                  train_loop_s=m.train_seconds, model_wall_s=wall,
+                  losses=losses)
+        if device.type == "cuda":
+            st["peak_mem_gb"] = (torch.cuda.max_memory_allocated(device)
+                                 / 2**30)
+            log(f"  {mc} peak device memory over Model's train + test: "
+                f"{st['peak_mem_gb']:.2f} GiB")
+        saved = checkpoint.restore_checkpoint(m.params["model_path"])
+        live = m.state.model.state_dict()
+        bad = [k for k in live if not torch.equal(saved["model"][k],
+                                                  live[k].cpu())]
+        if bad or set(saved["model"]) != set(live) or \
+                saved["step"] != n_train:
+            failures.append(f"{mc} checkpoint differs from the trained "
+                            f"state: {bad}, step {saved['step']}")
+        log(f"  {mc} checkpoint {os.path.basename(m.params['model_path'])}:"
+            f" {len(live)} tensors reload equal, step {saved['step']}")
+        read_masks(os.path.join(data, f"pred_{name}"), paths, shape, affine,
+                   failures, sfxs=("fl", "i"))
+        del m
+
+        # one train and one eval step counted alone, then the same train
+        # step on the plain versions: same initial weights, volume and
+        # synthesis draws
+        handler = registry.get_problem(params["problem_handler"])()
+        at = atlas if handler.append_atlas else None
+        loss_cfg = {k: params.get(k) for k in ("ce_lambda", "dice_lambda")}
+        vol = torch.from_numpy(nifti_data(os.path.join(
+            work, "train", "skull_000.nii.gz"))[None]).to(device)
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            base = build_model(mc).to(device)
+
+        def one_step(impl, n=1, dtype=torch.bfloat16):
+            model = copy.deepcopy(base).configure(impl, dtype)
+            state = steps.TrainState(model, steps.make_optimizer(
+                params, model.parameters()))
+            step = steps.make_train_step(model, handler, loss_cfg, atlas=at,
+                                         compute_dtype=dtype)
+            gen = torch.Generator(device=device).manual_seed(5)
+            out = []
+            for _ in range(n):
+                sync(device)
+                t = time.perf_counter()
+                _, terms = step(state, {"image": vol}, gen)
+                sync(device)
+                out.append((1e3 * (time.perf_counter() - t),
+                            float(terms["epoch_loss"])))
+            return model, state, step, gen, out
+
+        kernels.reset_launches()
+        mk, state_k, step_k, gen_k, out_k = one_step("pallas")
+        c = kernels.launches()
+        grads_k = {n: p.grad.detach().clone()
+                   for n, p in mk.named_parameters()}
+        per_train = (c["conv3d5_bias_act"], c["conv3d_tc"])
+        ev = steps.make_eval_step(mk, handler, loss_cfg, atlas=at,
+                                  compute_dtype=torch.bfloat16)
+        kernels.reset_launches()
+        ev(state_k, {"image": vol}, gen_k)
+        c = kernels.launches()
+        per_eval = (c["conv3d5_bias_act"], c["conv3d_tc"])
+        log(f"  {mc} K5 / conv3d_tc launches: {per_train} per train step "
+            f"(want {K5_PER_TRAIN_STEP}), {per_eval} per eval step (want "
+            f"{K5_PER_EVAL_STEP})")
+        if per_train != (K5_PER_TRAIN_STEP,) * 2 or \
+                per_eval != (K5_PER_EVAL_STEP,) * 2:
+            failures.append(f"{mc} K5 launches per step {per_train} / "
+                            f"{per_eval}")
+        mp, _, _, _, out_p = one_step("plain")
+        loss_k, loss_p = out_k[0][1], out_p[0][1]
+        rel = abs(loss_k - loss_p) / abs(loss_p)
+        worst = 0.0
+        init = base.state_dict()
+        for bname, buf in mk.state_dict().items():
+            if not bname.endswith(("running_mean", "running_var")):
+                continue
+            # batch statistic = (running - 0.9 * initial) / 0.1
+            bk = (buf - 0.9 * init[bname]) / 0.1
+            bp = (mp.state_dict()[bname] - 0.9 * init[bname]) / 0.1
+            tol = 4 * BF16_EPS * float(bp.abs().max().clamp_min(1e-3))
+            err = float((bk - bp).abs().max())
+            worst = max(worst, err / tol)
+            if not err <= tol:
+                failures.append(f"{mc} BN batch statistic {bname}: {err} > "
+                                f"{tol}")
+        # step 1's gradients, leaf by leaf: each K5 dgrad (flip_swap) and
+        # each 125-tap weight gradient of the full-size layers lies on some
+        # leaf's path. A bf16 step's gradients part from the f32 ones by up
+        # to tens of percent at the low-resolution layers (BatchNorm's
+        # backward cancels), and two bf16 steps part as far from each
+        # other; so the kernel step is held against the plain f32 step, no
+        # further from it than twice the plain bf16 step (or 4 bf16 ulps).
+        # A conv bias ahead of a train-mode BatchNorm has the exact
+        # gradient 0 (the batch mean is subtracted): both sides hold
+        # rounding noise there, and it is left out.
+        # The cuDNN (xla) bf16 step is measured beside it, not gated.
+        mf, _, _, _, _ = one_step("plain", dtype=torch.float32)
+        mx, _, _, _, _ = one_step("xla")
+        noise = {f"{n}.bias" for n, mod in mp.named_modules()
+                 if isinstance(mod, Conv3d) and mod.bias is not None}
+        g_worst, g_name, g_kp, x_worst = 0.0, "", 0.0, 0.0
+        grads_p = dict(mp.named_parameters())
+        grads_x = dict(mx.named_parameters())
+        for n, p in mf.named_parameters():
+            if n in noise:
+                continue
+            gf = p.grad.double()
+            gk, gp = grads_k[n].double(), grads_p[n].grad.double()
+            scale = gf.norm().clamp_min(1e-30)
+            ek = float((gk - gf).norm() / scale)
+            ep = float((gp - gf).norm() / scale)
+            ex = float((grads_x[n].grad.double() - gf).norm() / scale)
+            limit = max(2.0 * ep, 4 * BF16_EPS)
+            g_kp = max(g_kp, float((gk - gp).norm() / scale))
+            x_worst = max(x_worst, ex / limit)
+            if ek / limit > g_worst:
+                g_worst, g_name = ek / limit, (f"{n} ({ek:.2e} vs {ep:.2e}, "
+                                               f"xla {ex:.2e})")
+            if not ek <= limit:
+                failures.append(f"{mc} step 1 gradient of {n}: relative L2 "
+                                f"error to the f32 step {ek} > {limit} "
+                                f"(plain bf16 step {ep})")
+        log(f"  {mc} step 1 kernels vs plain versions: loss {loss_k:.6f} vs "
+            f"{loss_p:.6f} (relative {rel:.2e}, limit 1e-2); BN batch "
+            f"statistics worst error / tolerance {worst:.3f}; gradients of "
+            f"{len(grads_k) - len(noise)} leaves (the {len(noise)} conv "
+            f"biases ahead of a BatchNorm left out) against the plain f32 "
+            f"step: worst error / limit {g_worst:.3f} at {g_name} (kernel vs "
+            f"plain bf16 step; limit max(2x plain, {4 * BF16_EPS:.2e})); "
+            f"kernel vs plain bf16 step at most {g_kp:.2e}; the xla (cuDNN) "
+            f"bf16 step's worst error / the same limit {x_worst:.3f}")
+        if not rel <= 1e-2:
+            failures.append(f"{mc} step loss {loss_k} vs plain {loss_p}: "
+                            f"{rel} > 1e-2")
+        del mp, mf, mx, grads_k, grads_p, grads_x
+
+        # step time: pallas (K5) and xla (cuDNN), the first step left out
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        for _ in range(time_steps):
+            sync(device)
+            t = time.perf_counter()
+            step_k(state_k, {"image": vol}, gen_k)
+            sync(device)
+            out_k.append((1e3 * (time.perf_counter() - t), 0.0))
+        st["pallas_ms_per_step"] = float(np.mean([t for t, _ in out_k[1:]]))
+        if device.type == "cuda":
+            st["step_peak_mem_gb"] = (
+                torch.cuda.max_memory_allocated(device) / 2**30)
+        prof = profile_device(lambda: step_k(state_k, {"image": vol}, gen_k),
+                              device, rows=12,
+                              what=f"one {mc} pallas train step")
+        total = sum(ms for _, ms in prof.values())
+        bmm = wgrad_ms(lambda: step_k(state_k, {"image": vol}, gen_k), device)
+        st["wgrad_bmm_ms"] = bmm
+        st["wgrad_share_of_step"] = bmm / st["pallas_ms_per_step"]
+        st["profiled_device_ms"] = total
+        synth_ms = time_ms(lambda: handler.synthesize(gen_k, vol[0]), 3,
+                           device)
+        st["synthesis_ms_per_volume"] = synth_ms
+        del mk, state_k, step_k
+        _, _, _, _, out_x = one_step("xla", n=time_steps + 1)
+        st["xla_ms_per_step"] = float(np.mean([t for t, _ in out_x[1:]]))
+        log(f"  {mc} ms/step at batch 1 (host clock around a synchronized "
+            f"step, first step left out): pallas "
+            f"{st['pallas_ms_per_step']:.1f}, xla (cuDNN) "
+            f"{st['xla_ms_per_step']:.1f}; the 18 weight gradients (125 "
+            f"tap-shifted bmm each) {bmm:.1f} ms by CUDA events = "
+            f"{100 * st['wgrad_share_of_step']:.1f}% of the pallas step "
+            f"({total:.1f} ms of device time in the profile); synthesis "
+            f"{synth_ms:.1f} ms a volume; peak memory of a pallas step "
+            f"{st.get('step_peak_mem_gb', float('nan')):.2f} GiB; xla "
+            f"losses {[round(v, 6) for _, v in out_x]}")
+        stats[mc] = st
+        del base
+        log(f"  {mc}: {time.perf_counter() - t0:.1f} s")
+    return {"conv3d5_train": k5_total, "conv3d_tc": k5_total}, stats, \
+        failures
+
+
 def prob_check(what, got, ref, failures):
     """The f32 engine's probabilities ``got`` against the plain f32 model's
     ``ref`` over the whole volume: ``|got - ref| <= F32_ATOL + F32_RTOL *
@@ -2415,7 +2819,11 @@ def main() -> int:
                 "UNet4_2IC + 1 recAE_v2_fixed volume, 1 int8 volume with an "
                 f"f32 head, f32 training ({N_TRAIN_F32} + 1 steps) and 1 "
                 "volume served from it",
-             lambda device, work: serve_f32(device, work, bf16=phase_stats))):
+             lambda device, work: serve_f32(device, work, bf16=phase_stats)),
+            (8, f"legacy training, UNet4_2IC ({LEGACY_TRAIN[0][1]} steps) "
+                f"and recAE_v2_fixed ({LEGACY_TRAIN[1][1]} steps) {size} "
+                "bf16 conv_impl=pallas + 1 eval step each, save, serve 1 "
+                "volume each", train_legacy)):
         log(f"== phase {phase}: main path, {label}, through Model")
         t0 = time.perf_counter()
         got = {}
@@ -2473,6 +2881,10 @@ def main() -> int:
                             "ctunet_tpu/ops/pallas/conv3d.py:453"),
         "conv3d5_bias_act": ("ctunet_tpu_torch/csrc/conv3d_tc.cu",
                              "ctunet_tpu/ops/pallas/conv3d.py:136"),
+        # K5 as the legacy training conv (phase 8): forward and input
+        # gradient, the row's case one of the new input-gradient shapes
+        "conv3d5_train": ("ctunet_tpu_torch/csrc/conv3d_tc.cu",
+                          "ctunet_tpu/ops/pallas/conv3d.py:136"),
         "convt_k2s2": ("ctunet_tpu_torch/csrc/upconv_tc.cu",
                        "ctunet_tpu/ops/pallas/convt.py:78"),
         "convt_k2s2_dual": ("ctunet_tpu_torch/csrc/upconv_tc.cu",

@@ -136,3 +136,21 @@ class FlapRecWShapePrior2OTrainDataset(NiftiImageDataset):
 
 class FlapRec2OTrainDataset(FlapRecWShapePrior2OTrainDataset):
     """Double output without shape prior (ref ``datasets.py:238-249``)."""
+
+
+class FlapRecTrainDataset(NiftiImageDataset):
+    """Complete skulls for the single-output ``FlapRec`` synthesis (ref
+    ``datasets.py:136-149``)."""
+
+
+class FlapRecWShapePriorTrainDataset(FlapRecWShapePrior2OTrainDataset):
+    """Complete skulls (or stored pairs) for ``FlapRecWithShapePrior``
+    (``datasets.py:188-191``, ref ``datasets.py:252-281``)."""
+
+
+class BinaryDenoisingAEDataset(NiftiImageDataset):
+    """Clean skulls for ``DenoisingAE``, which adds the noise on the device
+    (ref ``datasets.py:284-294``)."""
+
+
+BinaryDenoisingAEDatasetv2 = BinaryDenoisingAEDataset

@@ -1,5 +1,5 @@
 """Legacy fixed 4-level U-Net (the AutoImplant 2020 challenge models) as
-PyTorch ``nn.Module``s, eval mode.
+PyTorch ``nn.Module``s, eval and train mode.
 
 Counterpart of ``ctunet_tpu/models/legacy.py``: ``recAE_v2_fixed``
 (reference ``ctunet/pytorch/models.py:441-538``) and ``UNet4_2IC``
@@ -21,38 +21,38 @@ modules run channels-last, ``(B, D, H, W, C)``. :meth:`RecAEv2Fixed.configure`
 sets the compute dtype, as the JAX legacy models' ``dtype=`` does
 (``ctunet_tpu/models/legacy.py:36-37,65-66``): parameters stay f32 and are
 cast per call, each conv adds its bias in the compute dtype, and the head
-and softmax run in it; f32 by default. The BatchNorm is
-the port's own (``models/unet.py::BatchNorm``, flax's statistics), so the
-same module can be trained; training the legacy family is not ported yet.
+and softmax run in it; f32 by default. It also sets how the k=5 convs run,
+through ``models/unet.py::Conv3d`` (``PackedConv``,
+``ctunet_tpu/models/unet.py:108-136``):
+
+=========================  ==============================================
+``pallas``                 K5 forward and dgrad, k^3 tap-shifted ``bmm``
+                           wgrad (``ops/chain_conv_train.py``)
+``plain``                  the same on the kernel's plain version
+``xla``, ``xla_dw``,       ``F.conv3d`` (cuDNN on the card); ``chain`` as
+``chain``                  the JAX package's ``chain``, which takes the
+                           XLA conv at k=5 (``chain_conv_train.py:72-73``)
+=========================  ==============================================
+
+The BatchNorm is the port's own (``models/unet.py::BatchNorm``, flax's
+statistics) and trains the same way. There is no dropout: the JAX
+``build_model`` passes no ``dropout_p``, so it is 0. The JAX models' remat
+(``use_checkpoint``) is a TPU memory choice with the same values, and the
+port does not recompute.
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..registry import register_model
-from .unet import BatchNorm, ConvTranspose2x, maxpool2
-
-
-class Conv3d5(nn.Conv3d):
-    """Conv3d(k5, padding 2, stride 1, bias) on channels-last tensors in
-    ``compute_dtype``, the bias added after the conv (``PackedConv``,
-    ``ctunet_tpu/models/unet.py:92-136``)."""
-
-    compute_dtype = torch.float32
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.compute_dtype
-        y = F.conv3d(x.to(dt).permute(0, 4, 1, 2, 3), self.weight.to(dt),
-                     padding=2)
-        return y.permute(0, 2, 3, 4, 1).contiguous() + self.bias.to(dt)
+from .unet import CONV_IMPLS, BatchNorm, Conv3d, ConvTranspose2x, maxpool2
 
 
 def _conv_unit(cin: int, cout: int):
     """Conv3d(k5, p2, bias) + BatchNorm + ReLU (``down_block_cr``)."""
-    return [Conv3d5(cin, cout, 5, padding=2),
+    return [Conv3d(cin, cout, 5, padding=2),
             BatchNorm(cout, eps=1e-5, momentum=0.1), nn.ReLU()]
 
 
@@ -94,16 +94,15 @@ class RecAEv2Fixed(nn.Module):
     def configure(self, conv_impl: str = "xla",
                   compute_dtype: torch.dtype = torch.float32
                   ) -> "RecAEv2Fixed":
-        """Set the compute dtype of every layer (``UNet.configure``'s
-        signature). The convs run ``F.conv3d`` (``xla``); the hand conv of
-        training (``chain``) is not ported at k=5 yet."""
-        if conv_impl not in ("xla", "xla_dw"):
-            raise NotImplementedError(
-                f"conv_impl {conv_impl!r} on the legacy k=5 family: the k=5 "
-                "training conv is ROADMAP Queue 1 item 16")
+        """Select the conv implementation and the compute dtype of every
+        layer (``UNet.configure``'s signature; the table above)."""
+        if conv_impl not in CONV_IMPLS:
+            raise ValueError(f"conv_impl {conv_impl!r}: one of {CONV_IMPLS}")
         self.compute_dtype = compute_dtype
         for m in self.modules():
-            if isinstance(m, (Conv3d5, ConvTranspose2x)):
+            if isinstance(m, Conv3d):
+                m.conv_impl, m.compute_dtype = conv_impl, compute_dtype
+            elif isinstance(m, ConvTranspose2x):
                 m.compute_dtype = compute_dtype
         return self
 

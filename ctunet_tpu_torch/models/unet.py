@@ -53,9 +53,12 @@ CONV_IMPLS = ("xla", "xla_dw", "pallas", "chain", "plain")
 
 
 class Conv3d(nn.Conv3d):
-    """Conv3d(k3, SAME, stride 1, no bias) on channels-last tensors,
-    computed by ``conv_impl`` in ``compute_dtype`` (``PackedConv``,
-    ``unet.py:92-136``)."""
+    """Conv3d(k3 or k5, SAME, stride 1) on channels-last tensors, computed
+    by ``conv_impl`` in ``compute_dtype``, the bias (the legacy family's)
+    added after the conv (``PackedConv``, ``unet.py:92-136``). ``chain``
+    takes the hand conv at k=3 and ``F.conv3d`` at k=5, as the JAX
+    package's ``chain`` takes the XLA conv there
+    (``ctunet_tpu/ops/chain_conv_train.py:72-73``)."""
 
     conv_impl = "xla"
     compute_dtype = torch.float32
@@ -63,13 +66,15 @@ class Conv3d(nn.Conv3d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.compute_dtype)
         w = self.weight.to(self.compute_dtype)
-        if self.conv_impl in ("chain", "pallas", "plain"):
+        k = w.shape[-1]
+        if self.conv_impl in ("pallas", "plain") or (
+                self.conv_impl == "chain" and k == 3):
             y = conv3d_chain_train(x, w.permute(2, 3, 4, 1, 0),
                                    plain=self.conv_impl == "plain")
         else:
             # NCDHW view of the channels-last tensor (channels_last_3d
             # strides: no copy), and back
-            y = F.conv3d(x.permute(0, 4, 1, 2, 3), w, padding=1)
+            y = F.conv3d(x.permute(0, 4, 1, 2, 3), w, padding=k // 2)
             y = y.permute(0, 2, 3, 4, 1).contiguous()
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)

@@ -1,7 +1,7 @@
 """K1 (Conv3D k3 + folded BN + ReLU) and K2 (2x2x2 max pool) for Hopper,
 with their int8 modes K1q (requantizing int8 conv) and K2q (int8 pool), K6
 (Conv3D k3 + bias + optional ReLU in bf16 or f32, the training conv) and
-K5 (the same at k5, the legacy family's conv).
+K5 (the same at k5, the legacy family's conv, served and trained).
 
 Counterpart of ``ctunet_tpu/ops/pallas/conv3d.py``: ``conv3d_chain_split``
 (bf16 and ``scale=``/``zp=`` int8 modes), ``conv3d_chain_q`` (the full-tap

@@ -11,8 +11,9 @@ physical space, ``pred_<name>/<file>_{sk,fl}.nii.gz`` for the
 double-output handlers and ``<file>_fl.nii.gz`` for the single-output ones
 (``FlapRec``, ``FlapRecWithShapePrior``: the legacy k=5 models' test
 path), plus the input copy ``<file>_i.nii.gz``. The single-output
-handlers' training synthesis needs ``ops/warp.py`` and is not ported yet
-(ROADMAP Queue 1 item 13), nor is ``DenoisingAE``.
+handlers synthesize one one-hot target: ``FlapRec`` a hole and salt and
+pepper, ``FlapRecWithShapePrior`` the full cranioplasty chain
+(``ops/warp.py``), ``DenoisingAE`` noise only.
 
 Quirk Q4 is kept: the cross entropy consumes the models' post-sigmoid
 outputs as if they were logits.
@@ -31,6 +32,7 @@ import torch
 from . import registry
 from .data import datasets as ds
 from .ops import codecs, losses, synthesis
+from .ops.warp import cranioplasty_transform
 from .utils import makedir, nifti
 
 
@@ -248,10 +250,9 @@ def _write_single_output(handler, predictions, input_filepaths,
 class FlapRec:
     """Single-output flap reconstruction, broken skull in, flap out (ref
     ``ProblemHandler.py:166-173``; ``recAE_v2_fixed``'s handler in
-    ``examples/autoimplant2020/UNet/AutoImplant2020_woShapePrior.ini``).
-    Test side only: the datasets, the losses and the writer."""
+    ``examples/autoimplant2020/UNet/AutoImplant2020_woShapePrior.ini``)."""
 
-    train_dataset_class = ds.NiftiImageDataset
+    train_dataset_class = ds.FlapRecTrainDataset
     test_dataset_class = ds.NiftiImageDataset
     append_atlas = False
     double_output = False
@@ -261,10 +262,14 @@ class FlapRec:
         return self.postprocess(hard) if self.postprocess else hard
 
     def synthesize(self, gen: torch.Generator, volume: torch.Tensor):
-        raise NotImplementedError(
-            f"{type(self).__name__} training synthesis needs ops/warp.py and "
-            "the single-output synthesis, not ported yet: ROADMAP Queue 1 "
-            "item 13")
+        """Complete skull ``(D, H, W)`` -> (broken skull with noise,
+        one-hot flap) (``problem.py:189-196``): a hole always, salt and
+        pepper (density up to 0.05) with probability 0.5."""
+        full = (volume > 0).float()
+        broken, flap = synthesis.skull_random_hole(gen, full, p=1.0)
+        broken = synthesis.salt_and_pepper(gen, broken, p=0.5,
+                                           noise_density=0.05)
+        return broken, codecs.one_hot(flap, 2)
 
     def targets_from_pair(self, broken: torch.Tensor, flap: torch.Tensor):
         raise NotImplementedError(
@@ -289,5 +294,29 @@ class FlapRecWithShapePrior(FlapRec):
     channel (ref ``ProblemHandler.py:176-188``; ``UNet4_2IC``'s handler in
     ``examples/autoimplant2020/UNetSP/AutoImplant2020_wShapePrior.ini``)."""
 
+    train_dataset_class = ds.FlapRecWShapePriorTrainDataset
     test_dataset_class = ds.NiftiImageWithAtlasDataset
     append_atlas = True
+
+    def synthesize(self, gen: torch.Generator, volume: torch.Tensor):
+        """Complete skull -> (broken skull, one-hot flap) through the full
+        cranioplasty chain (``problem.py:212-216``)."""
+        broken, (_full, flap) = cranioplasty_transform(gen, volume)
+        return broken, codecs.one_hot(flap, 2)
+
+
+@registry.register_problem("DenoisingAE")
+class DenoisingAE(FlapRec):
+    """Denoising autoencoder (ref ``ProblemHandler.py:362-371``): salt and
+    pepper noise in, the clean skull out (``problem.py:342-356``)."""
+
+    train_dataset_class = ds.BinaryDenoisingAEDatasetv2
+    test_dataset_class = ds.NiftiImageDataset
+
+    def synthesize(self, gen: torch.Generator, volume: torch.Tensor):
+        """Complete skull -> (noisy skull, one-hot skull): noise of density
+        up to 0.3 with probability 0.8."""
+        full = (volume > 0).float()
+        noisy = synthesis.salt_and_pepper(gen, full, p=0.8,
+                                          noise_density=0.3)
+        return noisy, codecs.one_hot(full, 2)

@@ -88,8 +88,9 @@ def make_crop_fn(train_patch, atlas: Optional[torch.Tensor]):
 
 def make_synth_fn(handler, from_pairs: bool = False) -> Callable:
     """Batched on-device synthesis: ``(gen, batch) -> (images, targets)``
-    with ``images`` ``(B, D, H, W)`` and each target ``(B, D, H, W, 2)``
-    (``steps.py:209-223``)."""
+    with ``images`` ``(B, D, H, W)`` and the target ``(B, D, H, W, 2)``, or
+    a tuple of them for the double-output handlers (``steps.py:209-223``).
+    """
 
     def synth(gen, batch):
         images = batch["image"]
@@ -99,7 +100,10 @@ def make_synth_fn(handler, from_pairs: bool = False) -> Callable:
         else:
             pairs = [handler.synthesize(gen, i) for i in images]
         xs, targets = zip(*pairs)
-        return torch.stack(xs), tuple(torch.stack(t) for t in zip(*targets))
+        if isinstance(targets[0], tuple):
+            return torch.stack(xs), tuple(torch.stack(t)
+                                          for t in zip(*targets))
+        return torch.stack(xs), torch.stack(targets)
 
     return synth
 

@@ -14,9 +14,15 @@ and/or tests according to the flags. CLI: ``ctunet-tpu-torch <cfg.ini>`` /
   best-model / periodic-checkpoint / ini-snapshot rules of the reference
   (``Model.py:266-296``), a checkpoint on SIGTERM/SIGINT, and resume of
   parameters, BatchNorm statistics, optimizer state and step from a
-  ``s_resume_model`` written by this package. ``conv_impl`` picks how the
-  model's k=3 convs run (``models/unet.py``): ``chain`` (and ``pallas``)
-  the hand-written conv kernel forward and dgrad, ``xla`` a library conv.
+  ``s_resume_model`` written by this package. Every ported model trains:
+  the generic family with the double-output handlers, the legacy k=5
+  family (``recAE_v2_fixed``, ``UNet4_2IC``) with the single-output ones
+  (``FlapRec``, ``FlapRecWithShapePrior``, ``DenoisingAE``); a model whose
+  output count is not the handler's is refused before any step.
+  ``conv_impl`` picks how the convs run (``models/unet.py``,
+  ``models/legacy.py``): ``chain`` and ``pallas`` the hand-written k=3 conv
+  kernel forward and dgrad, ``pallas`` the k=5 one (K5) on the legacy
+  family, ``xla`` a library conv (and ``chain`` at k=5, as in JAX).
   ``b_packed_train`` and ``b_remat`` are TPU memory-layout choices of the
   JAX package: they are accepted and the same dense graph runs.
 - ``test_flag``: every test volume whole through the engine in
@@ -32,8 +38,7 @@ It runs on the CUDA card: ``s_device`` ``tpu``, ``gpu``, ``cuda`` or unset
 all mean the card, and a missing card is an error. ``device = cpu`` runs
 the same code with the kernels' plain PyTorch versions (what the tests
 do). Settings this port does not serve yet raise ``NotImplementedError``
-naming their ROADMAP item instead of serving something else: among them
-training the legacy family or a single-output handler.
+naming their ROADMAP item instead of serving something else.
 """
 
 from __future__ import annotations
@@ -80,6 +85,9 @@ _NOT_PORTED = (
     ("serve_profile", bool,
      "serving-stage profile, ROADMAP Queue 1 item 19"),
     ("distributed", bool, "multi-process runs, ROADMAP Queue 1 item 18"),
+    # 0 and 1 mean one device (ctunet_tpu/trainer.py:162-176)
+    ("mesh_data", lambda v: int(v or 0) > 1,
+     "data-parallel training over several devices, ROADMAP Queue 1 item 18"),
     ("mesh_spatial", lambda v: int(v or 1) > 1,
      "depth-sharded serving, ROADMAP Queue 1 item 18"),
     # parameters are held in float32 (ctunet_tpu/trainer.py:331), the
@@ -151,17 +159,7 @@ class Model:
         self.problem_handler = registry.get_problem(
             self.params["problem_handler"])()
         if self.params.get("train_flag") is True:
-            mc = self.params["model_class"]
-            if engine.ENGINE_CONFIGS.get(mc, {}).get("family") == "legacy":
-                raise NotImplementedError(
-                    f"training {mc} (legacy k=5 family) is not ported yet: "
-                    "the next slice, K5 forward/dgrad with conv_impl = "
-                    "'pallas' (ROADMAP Queue 1 item 16)")
-            if not self.problem_handler.double_output:
-                raise NotImplementedError(
-                    f"training with {self.params['problem_handler']} needs "
-                    "ops/warp.py and the single-output synthesis (ROADMAP "
-                    "Queue 1 item 13)")
+            self._check_outputs()
         self.write_predictions = self.problem_handler.write_predictions
         self.models: Dict = {"main": None}
         self.state_dict: Optional[Dict[str, torch.Tensor]] = None
@@ -191,6 +189,23 @@ class Model:
             self.train()
         if self.params.get("test_flag") is True:
             self.test()
+
+    def _check_outputs(self) -> None:
+        """A model trains only with a handler whose targets it returns:
+        outputs and classes, two 2-class heads for the double-output
+        handlers, one 2-class softmax head for the single-output ones (the
+        head-less generic models return one 3-channel map)."""
+        mc, hd = self.params["model_class"], self.params["problem_handler"]
+        cfg = engine.ENGINE_CONFIGS.get(mc)
+        if cfg is None:
+            return  # an unported family, refused when it is built
+        model = {"double": (2, 2), "softmax": (1, 2)}.get(cfg["head"], (1, 3))
+        handler = (2 if self.problem_handler.double_output else 1, 2)
+        if model != handler:
+            raise ValueError(
+                f"model {mc} returns {model[0]} output(s) of {model[1]} "
+                f"classes, problem handler {hd} takes {handler[0]} of "
+                f"{handler[1]}: choose a matching pair")
 
     # ------------------------------------------------------------------
     # Paths / data

@@ -60,7 +60,8 @@ def _path_pairs():
     """Every (k, Ci, Co) of the f32 paths: UNetSP's 16 convs (K1 serves 12,
     K6 trains all 16 forward and 15 as input gradients, Co -> Ci), the 18
     k=5 convs of ``UNet4_2IC`` (widths 7..112, 2 inputs) and of
-    ``recAE_v2_fixed`` (8..128, 1 input)."""
+    ``recAE_v2_fixed`` (8..128, 1 input), served, and trained with 17 input
+    gradients each (``conv_impl = "pallas"``)."""
     pairs = set()
     widths, cin = (7, 14, 28, 56), 2
     convs = []
@@ -76,12 +77,17 @@ def _path_pairs():
             pairs.add((3, co, ci))
     for i_size, cin in ((7, 2), (8, 1)):
         f = [i_size * 2 ** n for n in range(5)]
+        legacy = []
         for n in range(5):
-            pairs |= {(5, cin, f[n]), (5, f[n], f[n])}
+            legacy += [(cin, f[n]), (f[n], f[n])]
             cin = f[n]
         for n in range(4):
-            pairs |= {(5, cin, f[3 - n]), (5, f[3 - n], f[3 - n])}
+            legacy += [(cin, f[3 - n]), (f[3 - n], f[3 - n])]
             cin = 2 * f[3 - n]
+        for i, (ci, co) in enumerate(legacy):
+            pairs.add((5, ci, co))
+            if i:  # the input gradients of f32 legacy training
+                pairs.add((5, co, ci))
     return sorted(pairs)
 
 

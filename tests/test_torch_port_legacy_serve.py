@@ -13,9 +13,9 @@ of the AutoImplant 2020 INIs, against ``ctunet_tpu``.
   ``tests/test_e2e.py`` pattern);
 - the bf16 engine (plain versions) against ``ctunet_tpu``'s bf16 legacy
   engine with the Pallas kernels in interpret mode;
-- the single-output writer against ``ctunet_tpu``'s, and the refusals:
-  training a legacy model or a single-output handler, and ``use_int8``,
-  which serves the bf16 engine.
+- the single-output writer against ``ctunet_tpu``'s; training a legacy
+  model with its handler, and the refusal of a model whose output count
+  is not its handler's; ``use_int8``, which serves the bf16 engine.
 """
 
 import os
@@ -222,14 +222,31 @@ def test_single_output_writer_matches_ctunet_tpu(tmp_path, rng):
     ("UNet4_2IC", "FlapRecWithShapePrior"),
     ("UNet4_2IC", "FlapRecWithShapePriorDoubleOut"),
     ("UNetSP", "FlapRec"),
+    ("UNet4b2i3o", "FlapRec"),
 ])
-def test_legacy_and_single_output_training_raise(tmp_path, mc, handler):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(params=dict(train_flag=True, test_flag=False, name="x",
-                          model_class=mc, problem_handler=handler,
-                          device="cpu", workspace_path=str(tmp_path)))
-    with pytest.raises(NotImplementedError, match="warp"):
-        FlapRec().synthesize(torch.Generator(), torch.zeros(4, 4, 4))
+def test_legacy_and_single_output_training_raise(synth, tmp_path, mc,
+                                                 handler):
+    """Training a legacy model with its single-output handler builds a
+    training ``Model``; a model whose output count is not its handler's
+    is refused before any step, naming both. (Legacy training and the
+    single-output synthesis are held in test_torch_port_legacy_train.py
+    and test_torch_port_warp.py.)"""
+    _, csv, _ = synth
+    params = dict(train_flag=True, test_flag=False, name="x",
+                  model_class=mc, problem_handler=handler, device="cpu",
+                  workspace_path=str(tmp_path), train_files_csv=csv,
+                  validation_files_csv=csv, n_epochs=1, batch_size=1,
+                  ce_lambda=1.0, dice_lambda=1.0, n_workers=1)
+    if handler == "FlapRecWithShapePrior":
+        m = Model(params=params)
+        assert m.state.step == 2 and len(m.step_losses) == 2
+    else:
+        with pytest.raises(ValueError, match=f"{mc}.*{handler}"):
+            Model(params=params)
+    broken, target = FlapRec().synthesize(torch.Generator().manual_seed(0),
+                                          torch.ones(16, 16, 16))
+    assert broken.shape == (16, 16, 16) and target.shape == (16, 16, 16, 2)
+    assert float(target[..., 1].sum()) > 0
 
 
 def test_legacy_model_without_card_raises(synth, weights):

@@ -141,6 +141,7 @@ def test_model_serves_non_multiple_shapes(tmp_path):
 @pytest.mark.parametrize("key,value", [
     ("fg_crop_train", True), ("serve_profile", True), ("fg_crop", True),
     ("serve_scan", 4), ("patch_inference", True), ("distributed", True),
+    ("mesh_data", 2), ("mesh_spatial", 2), ("profile_dir", "trace"),
 ])
 def test_unported_settings_raise(tmp_path, key, value):
     params = dict(test_flag=False, name="x", model_class="UNetSP",

@@ -158,9 +158,10 @@ def test_wrapper_checks_and_registration():
                        torch.zeros(2), False)
     # the CPU path is the plain version: it launches nothing
     assert kernels.launches()["conv3d_bias_act"] == 0
+    # k = 3 and 5 are taken (k = 5 is the legacy family's training conv)
     with pytest.raises(ValueError, match="3x3x3"):
         cct.conv3d_chain_train(torch.from_numpy(x),
-                               torch.zeros(5, 5, 5, 2, 2))
+                               torch.zeros(7, 7, 7, 2, 2))
     with pytest.raises(TypeError, match="differ"):
         cct.conv3d_chain_train(torch.from_numpy(x),
                                torch.from_numpy(w).bfloat16())

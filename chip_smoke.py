@@ -16,8 +16,11 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
    inputs, same call); ``upconv_tc``, the bf16 tensor-core stride-2
    upsampling kernel behind K3 and K7a/K7b, at UNetSP's four K3 shapes and
    every K7a/K7b shape of both legacy models, beside the CUDA-core
-   kernels it replaced; K2 with the stated tolerance; the int8 kernels
-   K1q-K3q exactly (on layers quantized from a calibration on one
+   kernels it replaced; ``maxpool2_rows``, the row-streaming pool behind
+   K2 (bf16, f32) and K2q (int8), at all 20 K2/K2q launch shapes of the
+   paths (``pool_shapes``), equal by value to the plain version and beside
+   the direct kernel it replaced and under every plan of ``pool_plans``,
+   with one NaN-seeded volume each in bf16 and f32; the int8 kernels K1q and K3q exactly (on layers quantized from a calibration on one
    synthetic volume): ``conv3d_tc_q`` and ``upconv_tc_q``, the int8
    tensor-core kernels behind K1q and K3q, at every K1q and K3q shape of
    the int8 path in zp mode and one each in symmetric mode, beside the
@@ -31,12 +34,12 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
    function's ``dx``/``dw`` at 28->7 full size against autograd through
    the plain version, with the 125-tap weight gradient's time beside
    cuDNN's;
-   the f32 kernels of the f32 serving paths (``conv3d_tc_f32`` behind K1
-   and K5, ``maxpool2_f32`` behind K2, ``upconv_tc_f32``, the f32
-   tensor-core stride-2 upsampling kernel, behind K3 (``upconv_f32``) and
-   K7a/K7b (``convt_f32``)) within ``f32_tol`` at every f32 shape of the
-   paths (``f32_shapes``), the f32 convs and upsamplings beside the direct
-   CUDA-core kernels they replaced. Each with the kernel's time beside the
+   the f32 conv and upsampling kernels of the f32 paths (``conv3d_tc_f32``
+   behind K1 and K5, also at the 16 K5 input-gradient shapes of f32 legacy
+   training, ``upconv_tc_f32``, the f32 tensor-core stride-2 upsampling
+   kernel, behind K3 (``upconv_f32``) and K7a/K7b (``convt_f32``)) within
+   ``f32_tol`` at every f32 shape of the paths (``f32_shapes``), beside the
+   direct CUDA-core kernels they replaced. Each with the kernel's time beside the
    plain version's, one PyTorch library call's where one exists (cuDNN,
    TF32 off), and the card's bound (f32 products at the 3xTF32 rate,
    ``F32_TC_FLOP_PER_S``).
@@ -45,7 +48,8 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
    ``Model`` test path with the committed ``unetsp_10k`` weights, checks
    the written ``pred_<name>/*_{sk,fl,i}.nii.gz`` masks (shape, affine),
    the launch counts (12 K1, 4 K2, 4 K3 per volume; each K1 a
-   ``conv3d_tc`` and each K3 an ``upconv_tc`` launch) and the masks against
+   ``conv3d_tc``, each K2 a ``maxpool2_rows`` and each K3 an ``upconv_tc``
+   launch) and the masks against
    the engine run with the plain versions on the card (Dice >= 0.999 over
    the voxels both decide, see ``DECIDED``) and against the plain f32
    model (the kernel engine no further from it than the plain bf16 one).
@@ -53,7 +57,8 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
    ``examples/UNetSPDO/FlapRecSP2O_serve_int8.ini`` (calibrated int8 with
    AdaQuant, ``ADAQUANT_STEPS``) on whole volumes; checks the files, the
    int8 launch counts (12 K1q, 4 K2q, 4 K3q per volume; each K1q a
-   ``conv3d_tc_q`` and each K3q an ``upconv_tc_q`` launch), masks identical
+   ``conv3d_tc_q``, each K2q a ``maxpool2_rows`` and each K3q an
+   ``upconv_tc_q`` launch), masks identical
    to the same int8 engine on the plain versions, and Dice against the plain
    f32 model of at least 0.98 (skull) and 0.95 (flap). Then two AdaQuant
    rounding searches of ``REPRO_STEPS`` steps on the same volume and scales
@@ -165,7 +170,8 @@ LEGACY_INIS = {  # AutoImplant 2020: with and without the shape prior
 }
 # kernel launches per volume of the legacy engine
 LEGACY_PER_VOLUME = {"conv3d5_bias_act": 18, "maxpool2": 4, "convt_k2s2": 1,
-                     "convt_k2s2_dual": 3, "conv3d_tc": 18, "upconv_tc": 4}
+                     "convt_k2s2_dual": 3, "conv3d_tc": 18, "upconv_tc": 4,
+                     "maxpool2_rows": 4}
 N_TRAIN, N_EVAL = 4, 2  # steps of the training phase (batch 1)
 # train steps of each legacy model in phase 8 (1 eval step each)
 LEGACY_TRAIN = (("UNet4_2IC", 3), ("recAE_v2_fixed", 2))
@@ -231,6 +237,28 @@ def time_ms(fn, reps: int, device) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int, device) -> float:
+    """Device time of ``fn()`` per run, over ``reps`` runs queued behind a
+    sleep kernel so that the host's time per call (tens of microseconds of
+    Python for a small launch) leaves no gaps between them; the host clock
+    off the card."""
+    import torch
+
+    if device.type != "cuda":
+        return time_ms(fn, reps, device)
+    fn()
+    torch.cuda.synchronize(device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(1e6 + 2e5 * reps))  # ~0.1 ms a run at ~2 GHz
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize(device)
+    return start.elapsed_time(end) / reps
+
+
 def sync(device) -> None:
     if device.type == "cuda":
         import torch
@@ -266,58 +294,191 @@ def relu_normal(shape, gen, device):
                       ).to(torch.bfloat16)
 
 
-def record_bf16(entries, failures, name, case, got, ref, ms, plain_ms,
-                lib_ms, nbytes, nflops, tol):
-    """Log one bf16 kernel case against its plain version and the card's
-    bound; the first case of each kernel goes into ``entries``."""
-    import torch
-
-    err = float((got.float() - ref.float()).abs().max())
-    finite = bool(torch.isfinite(got.float()).all())
-    b_ms, b_by = bound_ms(nbytes, nflops)
-    ok = finite and err <= tol
-    log(f"  {name} [{case}]: max_abs_err {err:.3e} (tol {tol:.3e}) "
-        f"{'ok' if ok else 'FAIL'}; kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms, library {lib_ms:.3f} ms, bound {b_ms:.4f} ms"
-        f" ({b_by}); {nflops / ms / 1e9:.2f} TFLOP/s, "
-        f"{nbytes / ms / 1e6:.1f} GB/s")
-    if not ok:
-        failures.append(f"{name} [{case}]: err {err} > tol {tol} "
-                        f"or non-finite")
-    if name not in entries:
-        entries[name] = dict(case=case, max_abs_err=err, ms=ms,
-                             plain_ms=plain_ms, bound_ms=b_ms,
-                             bound_by=b_by, library_ms=lib_ms)
+def pool_shapes():
+    """Every K2 / K2q launch of the paths, ``{(dtype, c, level): {path:
+    launches per volume}}`` (``c`` channels of the pooled input at
+    ``level``): bf16 and f32 per UNetSP, ``UNet4_2IC`` and ``recAE_v2_fixed``
+    volume, int8 per UNetSP volume of the int8 engine."""
+    rows = {}
+    for dt in ("bf16", "f32", "int8"):
+        models = ((("UNetSP", 7),) if dt == "int8" else
+                  (("UNetSP", 7), ("UNet4_2IC", 7), ("recAE_v2_fixed", 8)))
+        for mc, i_size in models:
+            for lv in range(4):
+                rows.setdefault((dt, i_size << lv, lv), {})[mc] = 1
+    return rows
 
 
-def check_kernels(sd, device, shape=SHAPE, reps_big: int = 5):
-    """K2 against its plain version at the UNetSP path's full-resolution
-    pool (K1 is ``conv3d_tc``: :func:`check_conv_tc`; K3 is ``upconv_tc``:
-    :func:`check_upconv_tc`). Returns ``(entries, failures)``, ``entries``
-    keyed by wrapper name."""
+def check_pool(device, shape=SHAPE, reps_big: int = 20,
+               reps_small: int = 100):
+    """K2 and K2q, the row-streaming pool ``maxpool2_rows``, against their
+    plain versions at every launch shape of :func:`pool_shapes`, through the
+    wrapper each path calls (``maxpool2`` in bf16 and f32, ``maxpool2_q`` in
+    int8): equal by value, each call counted once on its wrapper (f32 also
+    on ``maxpool2_f32``) and on ``maxpool2_rows``. Beside each: the direct
+    kernel it replaced (``*_direct``, ``csrc/maxpool.cu``, same inputs, same
+    call; it counts nothing and must agree too), the plain version, the
+    library call (``F.max_pool3d`` in bf16 and f32; in int8, which
+    ``F.max_pool3d`` refuses on the card, ``amax`` over the window axes of
+    a view), all timed on the device (:func:`device_ms`: the small
+    launches take less than the host's time per call), and the bound (the
+    input read once and an eighth of it written at the HBM rate; the 7
+    comparisons per output at ``F32_FLOP_PER_S``). Each shape's ``PLANS``
+    line times the kernel under every plan of ``pool_plans`` (ring depth x
+    grid), the one ``pool_plan`` picks marked. Then small odd volumes in
+    each dtype that take the scalar path and the vector path with an odd W,
+    and one NaN-seeded full-resolution volume each in bf16 and f32, whose
+    NaN positions and other values must equal the plain version's. Random
+    normal (float) or uniform (int8) inputs from a seed. Logs one ``POOL``
+    line per shape and each path's sums (time x launches). Returns
+    ``(entries, failures)``:
+    ``maxpool2``, ``maxpool2_f32`` and ``maxpool2_q`` at their first shape,
+    ``maxpool2_rows`` at its largest launch (f32, 8 channels at full
+    resolution)."""
     import torch
     import torch.nn.functional as F
 
+    from ctunet_tpu_torch.ops import kernels
     from ctunet_tpu_torch.ops.kernels import conv3d as kc
 
-    gen = torch.Generator(device=device).manual_seed(0)
-    bf = torch.bfloat16
+    gen = torch.Generator(device=device).manual_seed(2)
     d, h, w = shape
     lv = [(d >> i, h >> i, w >> i) for i in range(5)]
-    entries, failures = {}, []
-    record = functools.partial(record_bf16, entries, failures)
+    kinds = {  # dtype, wrapper, its f32 counter, direct, plain, entry
+        "bf16": (torch.bfloat16, "maxpool2", None, kc.maxpool2_direct,
+                 kc.maxpool2_plain, "maxpool2"),
+        "f32": (torch.float32, "maxpool2", "maxpool2_f32",
+                kc.maxpool2_f32_direct, kc.maxpool2_plain, "maxpool2_f32"),
+        "int8": (torch.int8, "maxpool2_q", None, kc.maxpool2_q_direct,
+                 kc.maxpool2_q_plain, "maxpool2_q"),
+    }
+    entries, failures, sums = {}, [], {}
 
-    # K2: the full-resolution pool (d0 output, 7 channels); max is exact
-    x = torch.randn(lv[0] + (7,), generator=gen, device=device).to(bf)
-    got, ref = kc.maxpool2(x), kc.maxpool2_plain(x)
-    ms = time_ms(lambda: kc.maxpool2(x), reps_big * 4, device)
-    p_ms = time_ms(lambda: kc.maxpool2_plain(x), reps_big * 4, device)
-    x_l = x.permute(3, 0, 1, 2)[None]
-    l_ms = time_ms(lambda: F.max_pool3d(x_l, 2), reps_big * 4, device)
-    record("maxpool2", f"7ch {'x'.join(map(str, lv[0]))}", got, ref, ms,
-           p_ms, l_ms, x.numel() * 2 + got.numel() * 2, 7 * got.numel(), 0.0)
-    del x, got, ref
+    def library(x, reps):
+        """The one PyTorch call of the pool, timed: ``F.max_pool3d`` on the
+        channels-last volume; in int8 ``amax`` over the window axes of a
+        view (every path shape is even)."""
+        if x.dtype == torch.int8:
+            d_, h_, w_ = (n // 2 for n in x.shape[:3])
+            x_v = x.view(d_, 2, h_, 2, w_, 2, x.shape[3])
+            return device_ms(lambda: x_v.amax((1, 3, 5)), reps, device)
+        x_l = x.permute(3, 0, 1, 2)[None]
+        return device_ms(lambda: F.max_pool3d(x_l, 2), reps, device)
 
+    for (dt, c, level), paths in pool_shapes().items():
+        dtype, wrapper, f32_counter, direct, plain, name = kinds[dt]
+        run = getattr(kc, wrapper)
+        shp = lv[level] + (c,)
+        if dtype == torch.int8:
+            x = torch.randint(-128, 128, shp, generator=gen, device=device,
+                              dtype=torch.int8)
+        else:
+            x = torch.randn(shp, generator=gen, device=device).to(dtype)
+        kernels.reset_launches()
+        got = run(x)
+        counts = kernels.launches()
+        want = {wrapper: 1, "maxpool2_rows": 1}
+        if f32_counter:
+            want[f32_counter] = 1
+        launched = {k: v for k, v in counts.items() if v} == want
+        ref, ref_d = plain(x), direct(x)
+        launched = launched and kernels.launches() == counts
+        sync(device)
+        ok = (launched and got.dtype == dtype and torch.equal(got, ref)
+              and torch.equal(ref_d, ref))
+        err = float((got.float() - ref.float()).abs().max())
+        big = level < 2
+        reps = reps_big if big else reps_small
+        ms = device_ms(lambda: run(x), reps, device)
+        d_ms = device_ms(lambda: direct(x), reps, device)
+        p_ms = device_ms(lambda: plain(x), 3 if big else reps, device)
+        l_ms = library(x, reps)
+        nbytes = x.element_size() * (x.numel() + got.numel())
+        b_ms, b_by = bound_ms(nbytes, 7 * got.numel(), F32_FLOP_PER_S)
+        plan = kc.pool_plan(*shp, x.element_size())
+        case = f"{dt} {c}ch {'x'.join(map(str, lv[level]))}"
+        per = ", ".join(f"{n} {p}" for p, n in paths.items())
+        lib = "amax" if dtype == torch.int8 else "F.max_pool3d"
+        log(f"  POOL {name} [{case}]: {'equal' if ok else 'FAIL'} "
+            f"(max_abs_err {err:.0f}); maxpool2_rows {ms:.4f} ms "
+            f"({nbytes / ms / 1e6:.1f} GB/s, {b_ms / ms:.2f} of the bound), "
+            f"direct {d_ms:.4f} ms, plain {p_ms:.4f} ms, {lib} "
+            f"{l_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); plan "
+            f"stages={plan.stages} grid={plan.grid} out_vec={plan.out_vec}; "
+            f"launches {per}")
+        sweep = []
+        for alt in kc.pool_plans(*shp, x.element_size()):
+            t = device_ms(lambda: kc.maxpool2_rows(x, alt), reps, device)
+            sweep.append(f"{alt.stages}x{alt.grid}"
+                         f"{'*' if alt == plan else ''} {t:.4f}")
+        log(f"    PLANS (stages x grid ms, * launched): {', '.join(sweep)}")
+        if not ok:
+            failures.append(f"maxpool2_rows [{case}] via {wrapper}: not equal "
+                            f"to the plain version (err {err}), wrong dtype, "
+                            f"or counts "
+                            f"{ {k: v for k, v in counts.items() if v} } != "
+                            f"{want}")
+        for slower, t in (("the direct kernel", d_ms), (lib, l_ms)):
+            if ms >= t:  # kept with its numbers (PERF.md)
+                log(f"    SLOWER than {slower} at this shape")
+        for p in paths:
+            t = sums.setdefault((dt, p), [0.0, 0.0, 0.0, 0.0, 0])
+            t[0] += paths[p] * ms
+            t[1] += paths[p] * d_ms
+            t[2] += paths[p] * l_ms
+            t[3] += paths[p] * b_ms
+            t[4] += paths[p]
+        entry = dict(case=case, max_abs_err=err, ms=ms, plain_ms=p_ms,
+                     bound_ms=b_ms, bound_by=b_by, library_ms=l_ms,
+                     direct_ms=d_ms)
+        entries.setdefault(name, entry)
+        if (dt, c, level) == ("f32", 8, 0):
+            entries["maxpool2_rows"] = entry
+        del x, got, ref, ref_d
+    for (dt, p), (t, t_d, t_l, t_b, n) in sums.items():
+        log(f"  POOL sum {dt} {p}: {n} launches per volume, maxpool2_rows "
+            f"{t:.4f} ms, direct {t_d:.4f} ms, library {t_l:.4f} ms, "
+            f"bound {t_b:.4f} ms")
+
+    # no path shape takes the scalar path (rows of bytes not a multiple of
+    # 16) or an odd W on the vector path: one small volume of each, per dtype
+    # (17 x 16 values a row: 272 bytes in int8)
+    for dt, (dtype, wrapper, _, _, plain, _) in kinds.items():
+        for shp, vec in (((9, 11, 13, 7), False), ((5, 7, 17, 16), True)):
+            if dtype == torch.int8:
+                x = torch.randint(-128, 128, shp, generator=gen,
+                                  device=device, dtype=dtype)
+            else:
+                x = torch.randn(shp, generator=gen, device=device).to(dtype)
+            plan = kc.pool_plan(*shp, x.element_size())
+            got, ref = getattr(kc, wrapper)(x), plain(x)
+            ok = torch.equal(got, ref) and (plan.stages > 0) == vec
+            log(f"  POOL {dt} {'x'.join(map(str, shp))} (stages "
+                f"{plan.stages}, out_vec {plan.out_vec}): "
+                f"{'equal' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"maxpool2_rows [{dt} {shp}]: not equal to "
+                                "the plain version, or not on the "
+                                f"{'vector' if vec else 'scalar'} path")
+
+    # a NaN in a window gives NaN, as F.max_pool3d does
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.randn(lv[0] + (7,), generator=gen, device=device).to(dtype)
+        flat = x.view(-1)
+        flat[torch.randint(0, flat.numel(), (4096,), generator=gen,
+                           device=device)] = float("nan")
+        got, ref = kc.maxpool2(x), kc.maxpool2_plain(x)
+        nan = torch.isnan(got)
+        ok = (torch.equal(nan, torch.isnan(ref)) and bool(nan.any())
+              and torch.equal(got.nan_to_num(0.0), ref.nan_to_num(0.0)))
+        log(f"  POOL NaN-seeded {dtype} 7ch {'x'.join(map(str, lv[0]))}: "
+            f"{int(nan.sum())} NaN outputs, positions and values "
+            f"{'equal' if ok else 'DIFFER'}")
+        if not ok:
+            failures.append(f"maxpool2_rows NaN-seeded {dtype}: NaN "
+                            "positions or values differ from the plain "
+                            "version")
+        del x, flat, got, ref, nan
     return entries, failures
 
 
@@ -834,11 +995,13 @@ def check_k5_train(device, shp, reps: int):
 
 
 def f32_shapes():
-    """Every f32 launch of the f32 serving paths, ``{(wrapper, *shape key):
-    {path: launches per volume}}``: K1 per UNetSP volume (``(ci, co,
-    level)``), K2 per UNetSP, ``UNet4_2IC`` and ``recAE_v2_fixed`` volume
-    (``(c, level)`` of the pooled input), K5 per legacy volume, and K3 /
-    K7a / K7b as :func:`upconv_tc_shapes` lists them."""
+    """Every f32 conv and upsampling launch of the f32 serving paths (K2:
+    :func:`pool_shapes`), ``{(wrapper, *shape key): {path: launches}}``: K1
+    per UNetSP volume (``(ci, co, level)``), K5 per legacy volume, K3 / K7a
+    / K7b as :func:`upconv_tc_shapes` lists them, and, keyed
+    ``conv3d5_train``, the 16 K5 input gradients of f32 legacy training
+    that no serving path launches (per train step, as
+    :func:`conv_tc_shapes` lists them)."""
     rows = {}
 
     def add(key, path, n=1):
@@ -850,24 +1013,27 @@ def f32_shapes():
             add(("conv3d_bn_relu", ci, co, lv), "UNetSP")
     for mc, i_size, cin in (("UNetSP", 7, 2), ("UNet4_2IC", 7, 2),
                             ("recAE_v2_fixed", 8, 1)):
-        for lv in range(4):
-            add(("maxpool2", i_size * 2 ** lv, lv), mc)
         if mc != "UNetSP":
             for ci, co, lv in legacy_convs(i_size, cin):
                 add(("conv3d5_bias_act", ci, co, lv), mc)
     for name, ca, cb, co, lv, path in upconv_tc_shapes():
         add((name, ca, cb, co, lv), path)
+    for (k, ci, co, lv), paths in conv_tc_shapes().items():
+        if k == 5 and not any(p.endswith("/volume") for p in paths):
+            for p, n in paths.items():
+                add(("conv3d5_train", ci, co, lv), p, n)
     return rows
 
 
 def check_kernels_f32(sd, device, shape=SHAPE, reps_big: int = 2,
                       reps_small: int = 10):
-    """The f32 kernels of the f32 serving paths against their plain
-    versions, within ``f32_tol`` (the max pool exactly), at every shape of
-    :func:`f32_shapes`, through the wrapper each path calls: K1
-    ``conv3d_bn_relu`` and K5 ``conv3d5_bias_act`` (the kernel functions
-    ``conv3d_f32`` / ``conv3d5_f32``), K2 ``maxpool2`` (``maxpool2_f32``),
-    K3 ``upconv_bn_relu`` with UNetSP's trained decoder weights
+    """The f32 kernels of the f32 paths against their plain versions,
+    within ``f32_tol``, at every shape of :func:`f32_shapes`, through the
+    wrapper each path calls: K1 ``conv3d_bn_relu`` and K5
+    ``conv3d5_bias_act`` (the kernel functions ``conv3d_f32`` /
+    ``conv3d5_f32``; K5 without ReLU at the input-gradient shapes of
+    legacy training, ``conv3d5_train``, on signed normal inputs), K3
+    ``upconv_bn_relu`` with UNetSP's trained decoder weights
     (``upconv_f32``), K7a ``convt_k2s2`` and K7b ``convt_k2s2_dual``
     (``convt_f32``); each call must count on its f32 kernel function (K1
     and K5 also on ``conv3d_tc_f32``, the f32 tensor-core conv they
@@ -879,8 +1045,9 @@ def check_kernels_f32(sd, device, shape=SHAPE, reps_big: int = 2,
     plain version's time, one
     cuDNN call of the same function in f32 with TF32 off (K3: ConvT, then
     the folded conv and the ReLU) and the bound (bytes / HBM rate or flops
-    / ``F32_TC_FLOP_PER_S``, the f32-accurate 3xTF32 rate; K2, whose max is
-    no product, at ``F32_FLOP_PER_S``). Logs one ``F32`` line per shape and
+    / ``F32_TC_FLOP_PER_S``, the f32-accurate 3xTF32 rate); no direct kernel
+    at the input-gradient shapes (the CUDA-core k=5 kernel takes tens of ms
+    there). Logs one ``F32`` line per shape and
     each path's sums (time x launches). Returns ``(entries, failures)``,
     entries keyed ``<wrapper>_f32`` (its first shape), ``conv3d_tc_f32``
     (K5 64->16 at 112x152x152) and ``upconv_tc_f32`` (its largest launch,
@@ -902,7 +1069,8 @@ def check_kernels_f32(sd, device, shape=SHAPE, reps_big: int = 2,
     entries, failures, sums = {}, [], {}
     kernel_of = {"conv3d_bn_relu": "conv3d_f32",
                  "conv3d5_bias_act": "conv3d5_f32",
-                 "maxpool2": "maxpool2_f32", "upconv_bn_relu": "upconv_f32",
+                 "conv3d5_train": "conv3d5_f32",
+                 "upconv_bn_relu": "upconv_f32",
                  "convt_k2s2": "convt_f32", "convt_k2s2_dual": "convt_f32"}
 
     def randn(*shp):
@@ -917,19 +1085,23 @@ def check_kernels_f32(sd, device, shape=SHAPE, reps_big: int = 2,
     for key, paths in f32_shapes().items():
         name = key[0]
         direct, peak = None, F32_TC_FLOP_PER_S
-        if name in ("conv3d_bn_relu", "conv3d5_bias_act"):
+        if name in ("conv3d_bn_relu", "conv3d5_bias_act", "conv3d5_train"):
             _, ci, co, level = key
             k = 3 if name == "conv3d_bn_relu" else 5
+            relu = name != "conv3d5_train"
             shp = lv[level]
             wt = randn(k, k, k, ci, co) * (k ** 3 * ci) ** -0.5
             b = randn(co) * 0.1
-            x = relu_in(*shp, ci)
+            x = relu_in(*shp, ci) if relu else randn(*shp, ci)
             args = (x, wt, b)
-            run = getattr(kc, name)
-            direct = functools.partial(
-                kc.conv3d_bias_act_direct if k == 3
-                else kc.conv3d5_bias_act_direct, relu=True)
-            plain = functools.partial(kc.conv3d_tc_plain, relu=True)
+            if relu:
+                run = getattr(kc, name)
+                direct = functools.partial(
+                    kc.conv3d_bias_act_direct if k == 3
+                    else kc.conv3d5_bias_act_direct, relu=True)
+            else:
+                run = functools.partial(kc.conv3d5_bias_act, relu=False)
+            plain = functools.partial(kc.conv3d_tc_plain, relu=relu)
             w_l = wt.permute(4, 3, 0, 1, 2).contiguous(
                 memory_format=torch.channels_last_3d)
             lib = functools.partial(F.conv3d, cl(x), w_l, b, padding=k // 2)
@@ -937,18 +1109,6 @@ def check_kernels_f32(sd, device, shape=SHAPE, reps_big: int = 2,
             nbytes = 4 * (math.prod(shp) * (ci + co) + wt.numel() + co)
             nflops = 2 * ci * co * conv_taps(shp, k)
             case = f"k{k} {ci}->{co} {'x'.join(map(str, shp))}"
-        elif name == "maxpool2":
-            _, c, level = key
-            shp = lv[level]
-            x = randn(*shp, c)
-            args = (x,)
-            run, plain = kc.maxpool2, kc.maxpool2_plain
-            lib = functools.partial(F.max_pool3d, cl(x), 2)
-            n_terms = 0  # the max is exact
-            nbytes = 4 * x.numel() * 9 // 8
-            nflops = 7 * x.numel() // 8
-            peak = F32_FLOP_PER_S  # comparisons, on the CUDA cores
-            case = f"{c}ch {'x'.join(map(str, shp))}"
         elif name == "upconv_bn_relu":
             _, j, _, _, level = key
             shp = lv[level]
@@ -1019,7 +1179,7 @@ def check_kernels_f32(sd, device, shape=SHAPE, reps_big: int = 2,
         after = kernels.launches()
         # K1, K5 launch conv3d_tc_f32; K3, K7a, K7b upconv_tc_f32
         tc = ("upconv_tc_f32" if counter in ("upconv_f32", "convt_f32")
-              else "conv3d_tc_f32" if direct else None)
+              else "conv3d_tc_f32")
         launched = (after[counter] == before[counter] + 1
                     and all(after[k] == before[k] + (k == tc) for k in (
                         "conv3d_tc_f32", "upconv_tc_f32", "conv3d_tc",
@@ -1088,7 +1248,7 @@ def k1q_shapes(widths=(7, 14, 28, 56), cin: int = 2):
 
 def check_kernels_q(sd, device, shape=SHAPE, reps_big: int = 5,
                     reps_small: int = 50, reps_plain: int = 1):
-    """K1q, K2q and K3q against their plain versions at every shape of the
+    """K1q and K3q against their plain versions at every shape of the
     int8 path (K1q's 8 distinct shapes, K3q's 4), in zp mode, plus one
     symmetric-mode shape each; with the layers the int8 engine quantizes
     (round to nearest) from a calibration on one synthetic volume, on
@@ -1213,28 +1373,6 @@ def check_kernels_q(sd, device, shape=SHAPE, reps_big: int = 5,
         del x, got, ref, x_l
     log(f"  TCQ sum: 12 K1q launches per volume, conv3d_tc_q {sums[0]:.3f} "
         f"ms, direct {sums[1]:.3f} ms, bound {sums[2]:.4f} ms")
-
-    # K2q: the full-resolution pool (d0 output, 7 channels)
-    x = rand_q(lv[0] + (7,))
-    got, ref = kc.maxpool2_q(x), kc.maxpool2_q_plain(x)
-    ms = time_ms(lambda: kc.maxpool2_q(x), reps_big * 4, device)
-    p_ms = time_ms(lambda: kc.maxpool2_q_plain(x), reps_big * 4, device)
-    x_l = x.permute(3, 0, 1, 2)[None]
-    l_ms = library("F.max_pool3d", lambda: F.max_pool3d(x_l, 2))
-    err = float((got.int() - ref.int()).abs().max())
-    nbytes = x.numel() + got.numel()
-    b_ms, b_by = bound_ms(nbytes, 7 * got.numel(), INT8_OP_PER_S)
-    log(f"  maxpool2_q [7ch {'x'.join(map(str, lv[0]))}]: max_abs_err "
-        f"{err:.0f} {'ok' if err == 0 else 'FAIL'}; kernel {ms:.3f} ms, "
-        f"plain {p_ms:.3f} ms, library "
-        f"{'refused' if l_ms is None else f'{l_ms:.3f} ms'}, bound "
-        f"{b_ms:.4f} ms ({b_by}); {nbytes / ms / 1e6:.1f} GB/s")
-    if err != 0:
-        failures.append(f"maxpool2_q: max_abs_err {err} != 0")
-    entries["maxpool2_q"] = dict(
-        case=f"7ch {'x'.join(map(str, lv[0]))}", max_abs_err=err, ms=ms,
-        plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=l_ms)
-    del x, got, ref, x_l
 
     # K3q: decoder block j from half-resolution level 4 - j, zp mode, then
     # (14+14)->7 in symmetric mode
@@ -1576,6 +1714,13 @@ def serve_int8(device, work: str, shape=SHAPE, n_volumes: int = N_VOLUMES,
         if counts[tc] != counts[wrapper]:
             failures.append(f"{tc} launched {counts[tc]} times, "
                             f"{wrapper} {counts[wrapper]}")
+    # every K2q launch and the calibration forward's bf16 K2 launches run
+    # on the row-streaming pool
+    launches["maxpool2_rows"] = counts["maxpool2_rows"]
+    if counts["maxpool2_rows"] != counts["maxpool2_q"] + counts["maxpool2"]:
+        failures.append(f"maxpool2_rows launched {counts['maxpool2_rows']} "
+                        f"times, maxpool2_q {counts['maxpool2_q']} + "
+                        f"maxpool2 {counts['maxpool2']}")
     build_s = m.int8_build_seconds
     stats = dict(volumes=m.n_served, loop_s=m.serve_seconds,
                  build_s=build_s, adaquant_steps=adaquant_steps,
@@ -1689,7 +1834,7 @@ def serve(device, work: str, shape=SHAPE, n_volumes: int = N_VOLUMES):
     m = Model(params=params)  # ends with the masks fetched to the host
     want = {"conv3d_bn_relu": 12 * n_volumes, "maxpool2": 4 * n_volumes,
             "upconv_bn_relu": 4 * n_volumes, "conv3d_tc": 12 * n_volumes,
-            "upconv_tc": 4 * n_volumes}
+            "upconv_tc": 4 * n_volumes, "maxpool2_rows": 4 * n_volumes}
     launches = {k: v for k, v in kernels.launches().items() if k in want}
     log(f"  launches over {n_volumes} volumes: {launches} (want {want})")
     if launches != want:
@@ -1811,7 +1956,8 @@ def train(device, work: str, shape=SHAPE, n_train: int = N_TRAIN,
     counts = kernels.launches()
     k6 = n_train * K6_PER_TRAIN_STEP + n_eval * K6_PER_EVAL_STEP
     want = {"conv3d_bias_act": k6, "conv3d_bn_relu": 12, "maxpool2": 4,
-            "upconv_bn_relu": 4, "conv3d_tc": k6 + 12, "upconv_tc": 4}
+            "upconv_bn_relu": 4, "conv3d_tc": k6 + 12, "upconv_tc": 4,
+            "maxpool2_rows": 4}
     launches = {k: counts[k] for k in want}
     log(f"  launches: {launches} (want {want}: {n_train} train steps x "
         f"{K6_PER_TRAIN_STEP} + {n_eval} eval steps x {K6_PER_EVAL_STEP} of "
@@ -2192,7 +2338,8 @@ def train_legacy(device, work: str, shape=SHAPE, time_steps: int = 2):
         counts = kernels.launches()
         k5 = n_train * K5_PER_TRAIN_STEP + K5_PER_EVAL_STEP + 18
         want = {"conv3d5_bias_act": k5, "conv3d_tc": k5, "maxpool2": 4,
-                "convt_k2s2": 1, "convt_k2s2_dual": 3, "upconv_tc": 4}
+                "convt_k2s2": 1, "convt_k2s2_dual": 3, "upconv_tc": 4,
+                "maxpool2_rows": 4}
         got = {k: counts[k] for k in want}
         log(f"  {mc} launches: {got} (want {want}: {n_train} train steps x "
             f"{K5_PER_TRAIN_STEP} + 1 eval step x {K5_PER_EVAL_STEP} of K5, "
@@ -2501,7 +2648,7 @@ def serve_f32(device, work: str, shape=SHAPE, n_volumes: int = N_VOLUMES,
     per_vol = {"conv3d_bn_relu": 12, "maxpool2": 4, "upconv_bn_relu": 4,
                "conv3d_f32": 12, "conv3d_tc_f32": 12, "maxpool2_f32": 4,
                "upconv_f32": 4, "upconv_tc_f32": 4, "conv3d_tc": 0,
-               "upconv_tc": 0}
+               "upconv_tc": 0, "maxpool2_rows": 4}
     m, counts = run_model(dict(
         test_flag=True, name="chip_smoke_f32", model_class="UNetSP",
         problem_handler="FlapRecWithShapePriorDoubleOut", device=device.type,
@@ -2554,7 +2701,8 @@ def serve_f32(device, work: str, shape=SHAPE, n_volumes: int = N_VOLUMES,
         want = {"conv3d5_bias_act": 18, "maxpool2": 4, "convt_k2s2": 1,
                 "convt_k2s2_dual": 3, "conv3d5_f32": 18,
                 "conv3d_tc_f32": 18, "maxpool2_f32": 4, "convt_f32": 4,
-                "upconv_tc_f32": 4, "conv3d_tc": 0, "upconv_tc": 0}
+                "upconv_tc_f32": 4, "conv3d_tc": 0, "upconv_tc": 0,
+                "maxpool2_rows": 4}
         m, counts = run_model(params, want, f"{mc} f32", 1)
         runs[mc] = counts
         masks = read_masks(os.path.join(data, f"pred_chip_smoke_f32_{mc}"),
@@ -2586,12 +2734,13 @@ def serve_f32(device, work: str, shape=SHAPE, n_volumes: int = N_VOLUMES,
                   int8_adaquant=False, int8_bf16_head=1,
                   compute_dtype="float32")
     # the calibration forward runs the bf16 engine, as the JAX package's
-    # does: 12 conv3d_tc and 4 upconv_tc launches, then the served volume
+    # does: 12 conv3d_tc, 4 maxpool2 and 4 upconv_tc launches, then the
+    # served volume
     want = {"conv3d_f32": 2, "conv3d_tc_f32": 2, "maxpool2_f32": 0,
             "upconv_f32": 0, "upconv_tc_f32": 0, "conv3d_q_requant": 10,
             "maxpool2_q": 4,
             "upconv_q_requant": 4, "conv3d_tc_q": 10, "upconv_tc_q": 4,
-            "conv3d_tc": 12, "upconv_tc": 4}
+            "conv3d_tc": 12, "upconv_tc": 4, "maxpool2_rows": 8}
     m, counts = run_model(params, want, "int8 f32 head", 1)
     runs["int8"] = counts
     masks = read_masks(os.path.join(data, "pred_chip_smoke_f32_int8"),
@@ -2678,7 +2827,8 @@ def serve_f32(device, work: str, shape=SHAPE, n_volumes: int = N_VOLUMES,
     want = {"conv3d_bias_act": k6, "conv3d_f32": k6 + 12,
             "conv3d_tc_f32": k6 + 12, "conv3d_bn_relu": 12, "maxpool2": 4,
             "maxpool2_f32": 4, "upconv_bn_relu": 4, "upconv_f32": 4,
-            "upconv_tc_f32": 4, "conv3d_tc": 0, "upconv_tc": 0}
+            "upconv_tc_f32": 4, "conv3d_tc": 0, "upconv_tc": 0,
+            "maxpool2_rows": 4}
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
@@ -2734,6 +2884,7 @@ def serve_f32(device, work: str, shape=SHAPE, n_volumes: int = N_VOLUMES,
         "conv3d_bn_relu_f32": total("conv3d_f32") - total("conv3d_bias_act"),
         "conv3d_bias_act_f32": total("conv3d_bias_act"),
         "maxpool2_f32": total("maxpool2_f32"),
+        "maxpool2_rows": total("maxpool2_rows"),
         "upconv_bn_relu_f32": total("upconv_f32"),
         "conv3d5_bias_act_f32": total("conv3d5_f32"),
         "convt_k2s2_f32": total("convt_k2s2"),
@@ -2784,7 +2935,8 @@ def main() -> int:
     t0 = time.perf_counter()
     entries = {}
     for label, check in (
-            ("bf16 inputs", lambda: check_kernels(sd, device)),
+            ("K2 and K2q (maxpool2_rows) at every launch shape of the paths, "
+             "bf16, f32 and int8, exact", lambda: check_pool(device)),
             ("int8 inputs, exact", lambda: check_kernels_q(sd, device)),
             ("bf16 conv3d_tc (K1, K6, K5) at every shape of the paths, "
              "random weights", lambda: check_conv_tc(device)),
@@ -2804,7 +2956,8 @@ def main() -> int:
             failures.append(f"phase 2 ({label}) raised")
     log(f"  phase 2: {time.perf_counter() - t0:.1f} s")
 
-    launches, shared = {}, {"conv3d_tc": 0, "upconv_tc": 0}
+    launches, shared = {}, {"conv3d_tc": 0, "upconv_tc": 0,
+                            "maxpool2_rows": 0}
     size = "x".join(map(str, SHAPE))
     phase_stats = {}
     for phase, label, fn in (
@@ -2844,7 +2997,8 @@ def main() -> int:
         # a later phase's count of an earlier kernel (phase 5 serves one
         # volume on K1-K3) does not replace the phase that owns it; the
         # bf16 convs of phases 3, 5 and 6 all launch conv3d_tc, their K3,
-        # K7a and K7b upconv_tc
+        # K7a and K7b upconv_tc, and every phase's K2 and K2q
+        # maxpool2_rows
         for k in shared:
             shared[k] += got.pop(k, 0)
         launches.update({k: v for k, v in got.items() if k not in launches})
@@ -2861,15 +3015,19 @@ def main() -> int:
                       "ctunet_tpu/ops/pallas/conv3d.py:136"),
         "conv3d_bn_relu": ("ctunet_tpu_torch/csrc/conv3d_tc.cu",
                            "ctunet_tpu/ops/pallas/conv3d.py:1031"),
-        "maxpool2": ("ctunet_tpu_torch/csrc/maxpool.cu",
+        "maxpool2": ("ctunet_tpu_torch/csrc/maxpool_rows.cu",
                      "ctunet_tpu/ops/pallas/conv3d.py:1862"),
+        # the pool's kernel under K2 (bf16, f32) and K2q (int8); launches
+        # over every phase
+        "maxpool2_rows": ("ctunet_tpu_torch/csrc/maxpool_rows.cu",
+                          "ctunet_tpu/ops/pallas/conv3d.py:1862"),
         "upconv_tc": ("ctunet_tpu_torch/csrc/upconv_tc.cu",
                       "ctunet_tpu/ops/pallas/convt.py:146"),
         "upconv_bn_relu": ("ctunet_tpu_torch/csrc/upconv_tc.cu",
                            "ctunet_tpu/ops/pallas/upconv.py:464"),
         "conv3d_q_requant": ("ctunet_tpu_torch/csrc/conv3d_tc_q.cu",
                              "ctunet_tpu/ops/pallas/conv3d.py:1677"),
-        "maxpool2_q": ("ctunet_tpu_torch/csrc/maxpool.cu",
+        "maxpool2_q": ("ctunet_tpu_torch/csrc/maxpool_rows.cu",
                        "ctunet_tpu/ops/pallas/conv3d.py:1862"),
         "upconv_q_requant": ("ctunet_tpu_torch/csrc/upconv_tc_q.cu",
                              "ctunet_tpu/ops/pallas/upconv.py:1015"),
@@ -2890,7 +3048,7 @@ def main() -> int:
         "convt_k2s2_dual": ("ctunet_tpu_torch/csrc/upconv_tc.cu",
                             "ctunet_tpu/ops/pallas/convt.py:146"),
         # the f32 paths (phase 7): the convs and the upsamplings on the f32
-        # tensor-core kernels, the max pool on the CUDA cores
+        # tensor-core kernels, the max pool on the row-streaming kernel
         "conv3d_tc_f32": ("ctunet_tpu_torch/csrc/conv3d_tc_f32.cu",
                           "ctunet_tpu/ops/pallas/conv3d.py:136"),
         "upconv_tc_f32": ("ctunet_tpu_torch/csrc/upconv_tc_f32.cu",
@@ -2901,7 +3059,7 @@ def main() -> int:
                                 "ctunet_tpu/ops/pallas/conv3d.py:453"),
         "conv3d5_bias_act_f32": ("ctunet_tpu_torch/csrc/conv3d_tc_f32.cu",
                                  "ctunet_tpu/ops/pallas/conv3d.py:136"),
-        "maxpool2_f32": ("ctunet_tpu_torch/csrc/maxpool.cu",
+        "maxpool2_f32": ("ctunet_tpu_torch/csrc/maxpool_rows.cu",
                          "ctunet_tpu/ops/pallas/conv3d.py:1862"),
         "upconv_bn_relu_f32": ("ctunet_tpu_torch/csrc/upconv_tc_f32.cu",
                                "ctunet_tpu/ops/pallas/upconv.py:464"),

@@ -1,7 +1,11 @@
-// K2: 2x2x2 stride-2 max pool, channels-last, bf16 and f32 (K2) and int8
-// (K2q).
+// The direct 2x2x2 stride-2 max pool, channels-last, bf16 and f32 (K2) and
+// int8 (K2q): the kernel K2 and K2q launched before the row-streaming
+// csrc/maxpool_rows.cu. No path launches it; it is reachable only as
+// ops/kernels/conv3d.py::maxpool2_direct, maxpool2_f32_direct and
+// maxpool2_q_direct, which count no launches, and chip_smoke.py times it
+// beside its successor.
 //
-// Replaces ctunet_tpu/ops/pallas/conv3d.py::maxpool2_chain (kernel body
+// Port of ctunet_tpu/ops/pallas/conv3d.py::maxpool2_chain (kernel body
 // _pool_kernel), in its bf16 and f32 modes (the JAX engine pools in its
 // compute dtype) and its int8 mode (fill=-128, the int8 engine's zero
 // point; the dense output has no halo, so the fill has no counterpart here

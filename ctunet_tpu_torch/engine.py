@@ -39,8 +39,8 @@ Both dtypes run on the card, as the JAX engine runs its Pallas kernels in
 tensor-core kernels (``conv3d_tc``, ``upconv_tc``); in f32 ``conv3d_f32``
 (K1), ``conv3d5_f32`` (K5), ``upconv_f32`` (K3) and ``convt_f32``
 (K7a/K7b) launch the split-tf32 tensor-core kernels (``conv3d_tc_f32``,
-``upconv_tc_f32``) and ``maxpool2_f32`` (K2) the CUDA-core pool, all
-f32-accurate. The heads' matmuls run in the compute dtype through
+``upconv_tc_f32``), all f32-accurate; K2 in either dtype launches the
+row-streaming pool (``maxpool2_rows``). The heads' matmuls run in the compute dtype through
 ``torch.matmul``.
 
 The code is the same on both devices. For CUDA tensors each kernel wrapper

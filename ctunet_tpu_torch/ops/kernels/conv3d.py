@@ -23,12 +23,16 @@ exactly: four tf32 products per f32 product, f32-accurate), plan
 reached through :func:`conv3d_f32` (K1, K6) and :func:`conv3d5_f32`
 (K5). The CUDA-core
 kernels they replaced (``csrc/conv3d.cu``, ``csrc/conv3d_k5.cu``) are
-kept, bf16 and f32, as ``*_direct`` functions for timing. K2 runs
-``csrc/maxpool.cu`` in bf16, and in f32 as :func:`maxpool2_f32`. K1q runs
+kept, bf16 and f32, as ``*_direct`` functions for timing. K2 (bf16, and
+f32 as :func:`maxpool2_f32`) and K2q run one row-streaming kernel,
+:func:`maxpool2_rows` (``csrc/maxpool_rows.cu``, plan :func:`pool_plan`);
+the kernel they launched before (``csrc/maxpool.cu``) stays reachable as
+:func:`maxpool2_direct`, :func:`maxpool2_f32_direct` and
+:func:`maxpool2_q_direct`. K1q runs
 the int8 tensor-core kernel :func:`conv3d_tc_q` (``csrc/conv3d_tc_q.cu``,
 plan :func:`tcq_plan`, weights :func:`pack_tcq_weights`); the CUDA-core
 kernel ``csrc/conv3d_q.cu`` it launched before stays reachable as
-:func:`conv3d_q_requant_direct`. K2q is ``csrc/maxpool.cu`` in int8.
+:func:`conv3d_q_requant_direct`.
 
 Each wrapper launches its kernel for a CUDA tensor (or raises) and takes
 its plain PyTorch version only for a tensor on the CPU. ``<wrapper>.launches``
@@ -36,8 +40,9 @@ counts kernel launches, so a run can show that its path went through the
 kernels; a bf16 K1/K6/K5 call counts on its wrapper and on ``conv3d_tc``,
 an f32 K1/K6 call on its wrapper, on ``conv3d_f32`` and on
 ``conv3d_tc_f32``, an f32 K5 call on its wrapper, on ``conv3d5_f32`` and on
-``conv3d_tc_f32``, an f32 K2 call on ``maxpool2_f32``, a K1q call on its
-wrapper and on ``conv3d_tc_q``.
+``conv3d_tc_f32``, a K2 call on its wrapper and on ``maxpool2_rows`` (f32
+on ``maxpool2_f32`` too), a K2q call on ``maxpool2_q`` and on
+``maxpool2_rows``, a K1q call on its wrapper and on ``conv3d_tc_q``.
 """
 
 from __future__ import annotations
@@ -751,8 +756,92 @@ conv3d5_bias_act.launches = 0
 
 
 # --------------------------------------------------------------------------
-# K2: MaxPool 2x2x2, stride 2
+# K2: MaxPool 2x2x2, stride 2 (bf16, f32; K2q, int8, below): the
+# row-streaming kernel csrc/maxpool_rows.cu
 # --------------------------------------------------------------------------
+
+# threads of a block of csrc/maxpool_rows.cu, the blocks an SM holds at
+# most, and the deepest ring of input-row stages a block keeps (a probe on
+# the H100 of ring depths 1-6 and 1-4 blocks an SM at the paths' bf16, f32
+# and int8 levels found nothing clearly faster; chip_smoke.py's phase 2
+# times every plan within these limits)
+POOL_THREADS = 256
+POOL_BLOCKS_PER_SM = 3
+POOL_MAX_STAGES = 3
+# shared memory of one H100 SM (228 KB), and what each resident block costs
+# of it beside its own
+SMEM_PER_SM = 233472
+SMEM_PER_BLOCK_RESERVED = 1024
+
+
+class PoolPlan(NamedTuple):
+    """Launch parameters of ``csrc/maxpool_rows.cu`` for one volume:
+    ``stages`` output rows' inputs a block keeps in flight (a ring of 1-3
+    stages of four input rows each), or 0 for the scalar path; ``row_cap``
+    bytes of one input row's slot in a stage; ``out_vec`` bytes per output
+    store; ``grid`` blocks of ``POOL_THREADS``, block ``b`` taking output
+    rows ``b, b + grid, ...``; ``smem`` bytes of dynamic shared memory a
+    block."""
+
+    stages: int
+    row_cap: int
+    out_vec: int
+    grid: int
+    smem: int
+
+
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def pool_plans(d: int, h: int, w: int, c: int, itemsize: int,
+               aligned: bool = True) -> list:
+    """Every launch of the row-streaming pool of a ``(d, h, w, c)`` volume
+    of ``itemsize``-byte values that fits the H100, its input and output
+    starting on 16-byte boundaries when ``aligned``: for each ring depth a
+    block's shared memory holds, deepest first, each count of resident
+    blocks an SM holds with it (at most ``POOL_BLOCKS_PER_SM``), most first.
+
+    The vector path (TMA copies into a ring of 1 to ``POOL_MAX_STAGES``
+    stages) needs an input row of ``w * c * itemsize`` bytes that is a
+    multiple of 16 and aligned tensors; otherwise the scalar path
+    (``stages`` 0). The grid is never more blocks than output rows; each
+    output row leaves in the widest store (16 bytes at most) that divides
+    it. Raises ``ValueError`` for an empty output or a row too long for one
+    block.
+    """
+    rows = (d // 2) * (h // 2)
+    row, out = w * c * itemsize, (w // 2) * c * itemsize
+    if rows <= 0 or out <= 0:
+        raise ValueError(f"pool_plan: ({d}, {h}, {w}, {c}) pools to nothing")
+    row_cap, out_cap = _round16(row), _round16(out)
+    out_vec = 16
+    while out % out_vec or (not aligned and out_vec > itemsize):
+        out_vec //= 2
+    vec = aligned and row % 16 == 0
+    plans = []
+    for stages in range(POOL_MAX_STAGES, 0, -1) if vec else (0,):
+        smem = max(stages, 1) * 4 * row_cap + out_cap
+        if smem > SMEM_PER_BLOCK:
+            continue
+        per_sm = min(POOL_BLOCKS_PER_SM,
+                     SMEM_PER_SM // (smem + SMEM_PER_BLOCK_RESERVED))
+        grids = {min(rows, TC_SMS * n) for n in range(1, per_sm + 1)}
+        plans += [PoolPlan(stages, row_cap, out_vec, g, smem)
+                  for g in sorted(grids, reverse=True)]
+    if not plans:
+        raise ValueError(f"pool_plan: an input row of {row} bytes does not "
+                         "fit one block's shared memory four times")
+    return plans
+
+
+def pool_plan(d: int, h: int, w: int, c: int, itemsize: int,
+              aligned: bool = True) -> PoolPlan:
+    """The plan :func:`maxpool2_rows` launches, the first of
+    :func:`pool_plans`: the deepest ring with the most blocks it leaves room
+    for. A deep ring keeps the most bytes in flight per SM; phase 2 of
+    ``chip_smoke.py`` times it against the others at every path shape."""
+    return pool_plans(d, h, w, c, itemsize, aligned)[0]
 
 
 def maxpool2_plain(x: torch.Tensor) -> torch.Tensor:
@@ -760,6 +849,98 @@ def maxpool2_plain(x: torch.Tensor) -> torch.Tensor:
     ``(D, H, W, C)`` (odd extents floor)."""
     y = F.max_pool3d(x.permute(3, 0, 1, 2)[None], 2)
     return y[0].permute(1, 2, 3, 0).contiguous()
+
+
+_POOL_ROWS = {torch.bfloat16: "ctunet_maxpool2_rows",
+              torch.float32: "ctunet_maxpool2_rows_f32",
+              torch.int8: "ctunet_maxpool2_rows_q"}
+
+
+def maxpool2_rows(x: torch.Tensor, plan: PoolPlan = None) -> torch.Tensor:
+    """The row-streaming max pool, the kernel of K2 (bf16, f32) and K2q
+    (int8): ``(D, H, W, C)`` -> ``(D//2, H//2, W//2, C)``, the max of each
+    2x2x2 window (odd extents floor, NaN kept).
+
+    CPU tensor: the plain version. CUDA tensor: ``csrc/maxpool_rows.cu``
+    on the current stream with ``plan`` (by default :func:`pool_plan`'s;
+    ``chip_smoke.py`` times the others of :func:`pool_plans`), or an
+    error.
+    """
+    if x.device.type == "cpu":
+        return (maxpool2_q_plain(x) if x.dtype == torch.int8
+                else maxpool2_plain(x))
+    _require_cuda(x, "maxpool2_rows")
+    if x.dtype not in _POOL_ROWS:
+        raise TypeError(f"maxpool2_rows: bfloat16, float32 or int8, got "
+                        f"{x.dtype}")
+    _check(x, "x", x.dtype)
+    d, h, w, c = x.shape
+    out = torch.empty((d // 2, h // 2, w // 2, c), dtype=x.dtype,
+                      device=x.device)
+    if out.numel() == 0:
+        return out
+    if plan is None:
+        plan = pool_plan(d, h, w, c, x.element_size(),
+                         aligned=x.data_ptr() % 16 == 0
+                         and out.data_ptr() % 16 == 0)
+    fn = build.function("maxpool_rows", _POOL_ROWS[x.dtype],
+                        [_P, _P] + [_I] * 10 + [_P])
+    rc = fn(x.data_ptr(), out.data_ptr(), d, h, w, c, plan.stages,
+            plan.grid, plan.row_cap, plan.out_vec, plan.smem,
+            *build.stream_args(x))
+    build.check(rc, "maxpool2_rows")
+    maxpool2_rows.launches += 1
+    return out
+
+
+maxpool2_rows.launches = 0
+
+
+def maxpool2(x: torch.Tensor) -> torch.Tensor:
+    """K2 on bf16 or f32 ``(D, H, W, C)`` -> ``(D//2, H//2, W//2, C)``.
+
+    CPU tensor: the plain version. CUDA tensor: :func:`maxpool2_rows`
+    (``csrc/maxpool_rows.cu``) on the current stream (f32: through
+    :func:`maxpool2_f32`), or an error.
+    """
+    if x.device.type == "cpu":
+        return maxpool2_plain(x)
+    if x.dtype == torch.float32:
+        out = maxpool2_f32(x)
+    elif x.dtype == torch.bfloat16:
+        out = maxpool2_rows(x)
+    else:
+        raise TypeError(f"maxpool2: bfloat16 or float32, got {x.dtype}")
+    if out.numel():  # an empty volume launches nothing
+        maxpool2.launches += 1
+    return out
+
+
+maxpool2.launches = 0
+
+
+def maxpool2_f32(x: torch.Tensor) -> torch.Tensor:
+    """K2's f32 kernel on ``(D, H, W, C)``: :func:`maxpool2_rows` in f32.
+
+    CPU tensor: the plain version. CUDA tensor: the kernel on the current
+    stream, or an error.
+    """
+    if x.device.type == "cpu":
+        return maxpool2_plain(x)
+    if x.dtype != torch.float32:
+        raise TypeError(f"maxpool2_f32: float32, got {x.dtype}")
+    out = maxpool2_rows(x)
+    if out.numel():
+        maxpool2_f32.launches += 1
+    return out
+
+
+maxpool2_f32.launches = 0
+
+
+# The kernel K2 and K2q launched before maxpool2_rows (csrc/maxpool.cu: one
+# thread per output element). No path launches it: phase 2 of chip_smoke.py
+# times it beside the row-streaming kernel.
 
 
 def _launch_pool(x: torch.Tensor, dtype, symbol: str,
@@ -779,43 +960,22 @@ def _launch_pool(x: torch.Tensor, dtype, symbol: str,
     return out
 
 
-def maxpool2(x: torch.Tensor) -> torch.Tensor:
-    """K2 on bf16 or f32 ``(D, H, W, C)`` -> ``(D//2, H//2, W//2, C)``.
-
-    CPU tensor: the plain version. CUDA tensor: the ``csrc/maxpool.cu``
-    kernel on the current stream (f32: :func:`maxpool2_f32`), or an error.
-    """
+def maxpool2_direct(x: torch.Tensor) -> torch.Tensor:
+    """The direct pool (``csrc/maxpool.cu``) on a bf16 CUDA tensor, for
+    timing; the plain version on a CPU tensor. Counts no launches."""
     if x.device.type == "cpu":
         return maxpool2_plain(x)
-    if x.dtype == torch.float32:
-        out = maxpool2_f32(x)
-    else:
-        out = _launch_pool(x, torch.bfloat16, "ctunet_maxpool2", "maxpool2")
-    if out.numel():  # an empty volume launches nothing
-        maxpool2.launches += 1
-    return out
+    return _launch_pool(x, torch.bfloat16, "ctunet_maxpool2",
+                        "maxpool2_direct")
 
 
-maxpool2.launches = 0
-
-
-def maxpool2_f32(x: torch.Tensor) -> torch.Tensor:
-    """K2's f32 kernel on ``(D, H, W, C)``: the f32 instantiation of
-    ``csrc/maxpool.cu`` (16-byte loads where ``C % 4 == 0``).
-
-    CPU tensor: the plain version. CUDA tensor: the kernel on the current
-    stream, or an error.
-    """
+def maxpool2_f32_direct(x: torch.Tensor) -> torch.Tensor:
+    """The direct pool in f32 (16-byte loads where ``C % 4 == 0``), as
+    :func:`maxpool2_direct`."""
     if x.device.type == "cpu":
         return maxpool2_plain(x)
-    out = _launch_pool(x, torch.float32, "ctunet_maxpool2_f32",
-                       "maxpool2_f32")
-    if out.numel():
-        maxpool2_f32.launches += 1
-    return out
-
-
-maxpool2_f32.launches = 0
+    return _launch_pool(x, torch.float32, "ctunet_maxpool2_f32",
+                        "maxpool2_f32_direct")
 
 
 # --------------------------------------------------------------------------
@@ -1130,15 +1290,26 @@ def maxpool2_q_plain(x: torch.Tensor) -> torch.Tensor:
 def maxpool2_q(x: torch.Tensor) -> torch.Tensor:
     """K2q on int8 ``(D, H, W, C)`` -> ``(D//2, H//2, W//2, C)``.
 
-    CPU tensor: the plain version. CUDA tensor: the int8 instantiation of
-    ``csrc/maxpool.cu`` on the current stream, or an error.
+    CPU tensor: the plain version. CUDA tensor: :func:`maxpool2_rows` in
+    int8 on the current stream, or an error.
     """
     if x.device.type == "cpu":
         return maxpool2_q_plain(x)
-    out = _launch_pool(x, torch.int8, "ctunet_maxpool2_q", "maxpool2_q")
+    if x.dtype != torch.int8:
+        raise TypeError(f"maxpool2_q: int8, got {x.dtype}")
+    out = maxpool2_rows(x)
     if out.numel():
         maxpool2_q.launches += 1
     return out
 
 
 maxpool2_q.launches = 0
+
+
+def maxpool2_q_direct(x: torch.Tensor) -> torch.Tensor:
+    """The direct pool (``csrc/maxpool.cu``) on an int8 CUDA tensor, as
+    :func:`maxpool2_direct`."""
+    if x.device.type == "cpu":
+        return maxpool2_q_plain(x)
+    return _launch_pool(x, torch.int8, "ctunet_maxpool2_q",
+                        "maxpool2_q_direct")

@@ -21,7 +21,8 @@ K7a/K7b, their routing, and the f32 engines.
   tensors. An f32 call of each wrapper asks for its f32 entry (K1, K6 and
   K5: ``ctunet_conv3d_tc_f32``, the f32 tensor-core conv, counted on
   ``conv3d_tc_f32`` too; K3, K7a and K7b: ``ctunet_upconv_tc_f32``, the
-  f32 tensor-core upsampling, counted on ``upconv_tc_f32`` too) and never
+  f32 tensor-core upsampling, counted on ``upconv_tc_f32`` too; K2:
+  ``ctunet_maxpool2_rows_f32``, counted on ``maxpool2_rows`` too) and never
   for ``conv3d_tc``, ``upconv_tc`` or a bf16 symbol, and counts on its f32
   kernel; the engines
   (``build_predict``, ``build_predict_q`` with an f32 head) build and run
@@ -258,9 +259,11 @@ def emulate_convt_f32(a, b, wa, wb, bias):
 
 
 def emulate_maxpool_f32(x):
-    """``csrc/maxpool.cu`` in f32: from -inf, each of the 8 window values
-    ``in[2o + (a, b, d)]`` is taken when it is larger or NaN (a NaN, once
-    taken, stays); odd extents floor."""
+    """``csrc/maxpool.cu`` in f32 (``maxpool2_f32_direct``; the path's
+    f32 pool, ``csrc/maxpool_rows.cu``, is emulated in
+    ``test_torch_port_maxpool_rows.py``): from -inf, each of the 8 window
+    values ``in[2o + (a, b, d)]`` is taken when it is larger or NaN (a NaN,
+    once taken, stays); odd extents floor."""
     d, h, w = (s // 2 for s in x.shape[:3])
     m = torch.full((d, h, w, x.shape[3]), -torch.inf, dtype=x.dtype)
     for a, b, c in itertools.product((0, 1), repeat=3):
@@ -374,7 +377,7 @@ F32_ENTRY = {
     "conv3d_bn_relu": ("conv3d_tc_f32", "ctunet_conv3d_tc_f32"),
     "conv3d_bias_act": ("conv3d_tc_f32", "ctunet_conv3d_tc_f32"),
     "conv3d5_bias_act": ("conv3d_tc_f32", "ctunet_conv3d_tc_f32"),
-    "maxpool2": ("maxpool", "ctunet_maxpool2_f32"),
+    "maxpool2": ("maxpool_rows", "ctunet_maxpool2_rows_f32"),
     "upconv_bn_relu": ("upconv_tc_f32", "ctunet_upconv_tc_f32"),
     "convt_k2s2": ("upconv_tc_f32", "ctunet_upconv_tc_f32"),
     "convt_k2s2_dual": ("upconv_tc_f32", "ctunet_upconv_tc_f32"),
@@ -383,7 +386,7 @@ BF16_ENTRY = {
     "conv3d_bn_relu": ("conv3d_tc", "ctunet_conv3d_tc"),
     "conv3d_bias_act": ("conv3d_tc", "ctunet_conv3d_tc"),
     "conv3d5_bias_act": ("conv3d_tc", "ctunet_conv3d_tc"),
-    "maxpool2": ("maxpool", "ctunet_maxpool2"),
+    "maxpool2": ("maxpool_rows", "ctunet_maxpool2_rows"),
     "upconv_bn_relu": ("upconv_tc", "ctunet_upconv_tc"),
     "convt_k2s2": ("upconv_tc", "ctunet_upconv_tc"),
     "convt_k2s2_dual": ("upconv_tc", "ctunet_upconv_tc"),
@@ -400,12 +403,14 @@ def test_f32_call_asks_for_the_f32_entry(card, name):
     assert counts[name] == 1 and counts[counter] == 1
     assert counts["conv3d_tc"] == counts["upconv_tc"] == 0
     # the f32 convs launch through conv3d_tc_f32, the f32 upsamplings
-    # through upconv_tc_f32, which count as well
+    # through upconv_tc_f32, the f32 pool through maxpool2_rows, which count
+    # as well
     tcf = counts["conv3d_f32"] + counts["conv3d5_f32"]
     utf = counts["upconv_f32"] + counts["convt_f32"]
     assert counts["conv3d_tc_f32"] == tcf
     assert counts["upconv_tc_f32"] == utf
-    assert sum(counts.values()) == 2 + tcf + utf
+    assert counts["maxpool2_rows"] == counts["maxpool2_f32"]
+    assert sum(counts.values()) == 2 + tcf + utf + counts["maxpool2_rows"]
 
 
 @pytest.mark.parametrize("name", sorted(BF16_ENTRY))
@@ -483,14 +488,14 @@ def test_engine_builds_and_runs_on_the_card_in_its_dtype(card, monkeypatch,
                for o in out)
     asked = collections.Counter(sym for _, sym in card)
     if tengine.ENGINE_CONFIGS[name]["family"] == "generic":
-        f32 = {"ctunet_conv3d_tc_f32": 12, "ctunet_maxpool2_f32": 4,
+        f32 = {"ctunet_conv3d_tc_f32": 12, "ctunet_maxpool2_rows_f32": 4,
                "ctunet_upconv_tc_f32": 4}
-        bf16 = {"ctunet_conv3d_tc": 12, "ctunet_maxpool2": 4,
+        bf16 = {"ctunet_conv3d_tc": 12, "ctunet_maxpool2_rows": 4,
                 "ctunet_upconv_tc": 4}
     else:
-        f32 = {"ctunet_conv3d_tc_f32": 18, "ctunet_maxpool2_f32": 4,
+        f32 = {"ctunet_conv3d_tc_f32": 18, "ctunet_maxpool2_rows_f32": 4,
                "ctunet_upconv_tc_f32": 4}
-        bf16 = {"ctunet_conv3d_tc": 18, "ctunet_maxpool2": 4,
+        bf16 = {"ctunet_conv3d_tc": 18, "ctunet_maxpool2_rows": 4,
                 "ctunet_upconv_tc": 4}
     assert asked == (f32 if dtype == F32 else bf16)
     counts = kernels.launches()
@@ -530,7 +535,7 @@ def test_int8_engine_with_an_f32_head_builds_and_runs_on_the_card(
     assert full.dtype == flap.dtype == F32
     assert collections.Counter(sym for _, sym in card) == {
         "ctunet_conv3d_tc_f32": 2, "ctunet_conv3d_tc_q": 10,
-        "ctunet_maxpool2_q": 4, "ctunet_upconv_tc_q": 4}
+        "ctunet_maxpool2_rows_q": 4, "ctunet_upconv_tc_q": 4}
     counts = kernels.launches()
     assert counts["conv3d_f32"] == counts["conv3d_tc_f32"] == 2
     assert counts["conv3d_tc"] == 0

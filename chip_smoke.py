@@ -42,7 +42,10 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
    direct CUDA-core kernels they replaced. Each with the kernel's time beside the
    plain version's, one PyTorch library call's where one exists (cuDNN,
    TF32 off), and the card's bound (f32 products at the 3xTF32 rate,
-   ``F32_TC_FLOP_PER_S``).
+   ``F32_TC_FLOP_PER_S``). Then the kernels at the launch shapes of phase
+   9's windows (:func:`check_windows`): K1q, K2q, K3q and the bf16 K1, K2,
+   K3 of the int8 engine's calibration forward at the serving window, K6
+   forward and input gradients at the fg-crop training window.
 3. bf16 path: serves synthetic broken skulls (``spherical_shell`` with a
    hole punched; atlas ``spherical_shell(radius_frac=0.42)``) through the
    ``Model`` test path with the committed ``unetsp_10k`` weights, checks
@@ -130,6 +133,21 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
    ``pallas`` and on ``xla`` (cuDNN), the weight gradients' time by CUDA
    events, a ``torch.profiler`` pass, the synthesis ms per volume and the
    peak memory.
+9. Foreground-crop serving: ``Model`` with
+   ``examples/UNetSPDO/FlapRecSP2O_serve_int8.ini`` as written (int8 +
+   AdaQuant, ``b_fg_crop`` at margin 24, ``i_serve_scan = 4``) plus
+   ``b_serve_profile`` on 8 synthetic broken skulls (:data:`FG_SKULLS`,
+   an atlas registered to them), whose windows, K-batches (3 and 4) and
+   single int8 build :func:`fg_expect` predicts and the phase asserts;
+   12 K1q, 4 K2q and 4 K3q per volume on their kernels; the files equal
+   to the same int8 engine on the plain versions and to per-volume
+   dispatch at the same windows, pasted the loop's way; Dice against the
+   plain f32 model on the whole volume (phase 4's floors, on the
+   calibration volume and pooled); the profile, volumes/s and the engine
+   ms at the window. Then fg-crop training (``FlapRecSP2O.ini``,
+   ``conv_impl = chain``, ``b_fg_crop_train``): 2 train + 1 eval steps,
+   finite losses, ``fg_lost_voxels`` 0, K6 31 / 16 a step, the
+   checkpoint, and ms per step at the window.
 
 The last two lines of output are one JSON object ``{"kernels": [...]}``
 and ``{"ok": true, "device": {...}}``. Any failure exits non-zero and
@@ -180,6 +198,16 @@ LEGACY_TRAIN = (("UNet4_2IC", 3), ("recAE_v2_fixed", 2))
 # step; each one a conv3d_tc launch in bf16
 K5_PER_TRAIN_STEP, K5_PER_EVAL_STEP = 18 + 17, 18
 N_TRAIN_F32 = 2  # train steps of phase 7's f32 training run (1 eval step)
+# phase 9's skulls: (radius as a share of the shortest side, centre). Every
+# margin-24 plan shrinks H and W, the offsets differ, and volumes 4-7 plan
+# inside the window of 0-3: one warm-up dispatch, a K = 3 and a K = 4
+# batch, one int8 build. Volumes 0-2 complete train fg-crop training.
+FG_SKULLS = ((0.30, (112, 150, 156)), (0.29, (108, 158, 148)),
+             (0.28, (116, 146, 160)), (0.30, (110, 154, 150)),
+             (0.27, (114, 152, 154)), (0.26, (106, 146, 150)),
+             (0.28, (112, 160, 156)), (0.25, (118, 150, 144)))
+FG_SEED = 700  # the caps' seeds: FG_SEED + volume index
+FG_TRAIN_STEPS = 2  # train steps of phase 9's fg-crop training (1 eval)
 # f32 engine vs the plain f32 model: the JAX engine tests' tolerance
 # (tests/test_engine.py: atol 5e-4, rtol 1e-3)
 F32_ATOL, F32_RTOL = 5e-4, 1e-3
@@ -310,7 +338,7 @@ def pool_shapes():
 
 
 def check_pool(device, shape=SHAPE, reps_big: int = 20,
-               reps_small: int = 100):
+               reps_small: int = 100, rows=None, extras: bool = True):
     """K2 and K2q, the row-streaming pool ``maxpool2_rows``, against their
     plain versions at every launch shape of :func:`pool_shapes`, through the
     wrapper each path calls (``maxpool2`` in bf16 and f32, ``maxpool2_q`` in
@@ -334,7 +362,9 @@ def check_pool(device, shape=SHAPE, reps_big: int = 20,
     ``(entries, failures)``:
     ``maxpool2``, ``maxpool2_f32`` and ``maxpool2_q`` at their first shape,
     ``maxpool2_rows`` at its largest launch (f32, 8 channels at full
-    resolution)."""
+    resolution). ``rows`` (default all of :func:`pool_shapes`) and
+    ``extras`` (the small odd volumes and the NaN-seeded ones) narrow the
+    check to other launches, such as a crop window's."""
     import torch
     import torch.nn.functional as F
 
@@ -365,7 +395,7 @@ def check_pool(device, shape=SHAPE, reps_big: int = 20,
         x_l = x.permute(3, 0, 1, 2)[None]
         return device_ms(lambda: F.max_pool3d(x_l, 2), reps, device)
 
-    for (dt, c, level), paths in pool_shapes().items():
+    for (dt, c, level), paths in (rows or pool_shapes()).items():
         dtype, wrapper, f32_counter, direct, plain, name = kinds[dt]
         run = getattr(kc, wrapper)
         shp = lv[level] + (c,)
@@ -439,6 +469,8 @@ def check_pool(device, shape=SHAPE, reps_big: int = 20,
         log(f"  POOL sum {dt} {p}: {n} launches per volume, maxpool2_rows "
             f"{t:.4f} ms, direct {t_d:.4f} ms, library {t_l:.4f} ms, "
             f"bound {t_b:.4f} ms")
+    if not extras:
+        return entries, failures
 
     # no path shape takes the scalar path (rows of bytes not a multiple of
     # 16) or an odd W on the vector path: one small volume of each, per dtype
@@ -541,7 +573,7 @@ def conv_tc_shapes():
     return dict(sorted(rows.items()))
 
 
-def check_conv_tc(device, shape=SHAPE):
+def check_conv_tc(device, shape=SHAPE, rows=None):
     """``conv3d_tc`` against its plain version within ``bf16_tol`` at every
     shape of :func:`conv_tc_shapes`, called through the wrapper its path
     calls (K1 ``conv3d_bn_relu``, K6 ``conv3d_bias_act`` without ReLU, K5
@@ -550,7 +582,8 @@ def check_conv_tc(device, shape=SHAPE):
     the plain version's (one run), cuDNN's bf16 ``F.conv3d`` and the bound.
     Random normal weights scaled by
     their fan-in, f32 biases, ReLU'd normal inputs from a seed. Logs one
-    ``TC`` line per shape and each path's sums (time x launches). Returns
+    ``TC`` line per shape and each path's sums (time x launches). ``rows``
+    (default :func:`conv_tc_shapes`) narrows it to other launches. Returns
     ``(entries, failures)``."""
     import torch
     import torch.nn.functional as F
@@ -562,7 +595,7 @@ def check_conv_tc(device, shape=SHAPE):
     d, h, w = shape
     lv = [(d >> i, h >> i, w >> i) for i in range(5)]
     entries, failures, sums = {}, [], {}
-    for (k, ci, co, level), paths in conv_tc_shapes().items():
+    for (k, ci, co, level), paths in (rows or conv_tc_shapes()).items():
         shp = lv[level]
         if k == 5 and not any(p.endswith("/volume") for p in paths):
             # a shape only an input gradient of legacy training launches
@@ -651,7 +684,7 @@ def upconv_tc_shapes():
 
 
 def check_upconv_tc(sd, device, shape=SHAPE, reps_big: int = 3,
-                    reps_small: int = 20):
+                    reps_small: int = 20, rows=None):
     """``upconv_tc`` against the plain versions within ``bf16_tol`` at
     every shape of :func:`upconv_tc_shapes`, through the wrapper its path
     calls (K3 ``upconv_bn_relu`` with UNetSP's trained decoder weights, K7a
@@ -661,7 +694,8 @@ def check_upconv_tc(sd, device, shape=SHAPE, reps_big: int = 3,
     before, same inputs, same call), the plain version's, cuDNN's bf16
     ``F.conv_transpose3d`` of the same function (K3: the k4/s2/p1
     transposed conv of ``cat(a, ones, b)``) and the bound. Logs one ``UTC``
-    line per shape and each path's sums (time x launches). Returns
+    line per shape and each path's sums (time x launches); ``rows`` (default
+    :func:`upconv_tc_shapes`) narrows it to other launches. Returns
     ``(entries, failures)``: each wrapper's first shape, and under
     ``upconv_tc`` its largest launch (K7b (14+14)->28)."""
     import torch
@@ -681,7 +715,7 @@ def check_upconv_tc(sd, device, shape=SHAPE, reps_big: int = 3,
     def randn(*shp):
         return torch.randn(*shp, generator=gen, device=device)
 
-    for name, ca, cb, co, level, path in upconv_tc_shapes():
+    for name, ca, cb, co, level, path in rows or upconv_tc_shapes():
         shp2 = lv[level]
         if name == "upconv_bn_relu":
             j = ca
@@ -1429,18 +1463,22 @@ def check_kernels_q(sd, device, shape=SHAPE, reps_big: int = 5,
     return entries, failures
 
 
-def punched_shell(shape, seed: int):
-    """A synthetic broken skull: a shell with one spherical cap removed."""
+def punched_shell(shape, seed: int, radius_frac: float = 0.38, center=None):
+    """A synthetic broken skull: a shell (radius ``radius_frac`` of the
+    shortest side, centred at ``center`` or, jittered by ``seed``, at the
+    canvas centre) with one spherical cap removed."""
     import numpy as np
 
     from ctunet_tpu_torch.data import spherical_shell
 
-    full = spherical_shell(shape, seed=seed)
+    full = spherical_shell(shape, seed=seed, radius_frac=radius_frac,
+                           center=center)
     rng = np.random.default_rng(seed)
-    r = 0.38 * min(shape)
+    r = radius_frac * min(shape)
     v = rng.normal(size=3)
     v[0] = -abs(v[0])  # the cap sits on the upper half
-    c = np.asarray(shape, np.float64) / 2 + r * v / np.linalg.norm(v)
+    c = (np.asarray(shape, np.float64) / 2 if center is None
+         else np.asarray(center, np.float64)) + r * v / np.linalg.norm(v)
     zz, yy, xx = np.ogrid[tuple(slice(0, s) for s in shape)]
     hole = ((zz - c[0]) ** 2 + (yy - c[1]) ** 2 + (xx - c[2]) ** 2
             <= (0.35 * r) ** 2)
@@ -1675,7 +1713,9 @@ def serve_int8(device, work: str, shape=SHAPE, n_volumes: int = N_VOLUMES,
                adaquant_steps: int = ADAQUANT_STEPS):
     """Serve ``n_volumes`` synthetic volumes through ``Model`` with the
     settings of ``examples/UNetSPDO/FlapRecSP2O_serve_int8.ini`` (int8,
-    AdaQuant) but whole volumes (``fg_crop`` off, ``serve_scan`` 1). Checks
+    AdaQuant, its rounding search on the first volume's margin-16
+    foreground window) but whole volumes (``fg_crop`` off, ``serve_scan``
+    1). Checks
     the files, the int8 launch counts, the masks against the same int8
     engine on the plain versions (identical), and against the plain f32
     model (Dice floors). Returns ``(launches, stats, failures)``."""
@@ -1722,7 +1762,12 @@ def serve_int8(device, work: str, shape=SHAPE, n_volumes: int = N_VOLUMES,
                         f"times, maxpool2_q {counts['maxpool2_q']} + "
                         f"maxpool2 {counts['maxpool2']}")
     build_s = m.int8_build_seconds
+    log(f"  int8 build for {sorted(m.int8_engines)}: AdaQuant's rounding "
+        f"searched on {m.int8_hint_shapes} (the first volume's margin-16 "
+        f"window), {build_s:.1f} s (470.7 s when it searched the whole "
+        "volume, on an H100 80GB HBM3 at 700 W)")
     stats = dict(volumes=m.n_served, loop_s=m.serve_seconds,
+                 hint=list(m.int8_hint_shapes.values()),
                  build_s=build_s, adaquant_steps=adaquant_steps,
                  vol_per_s=m.n_served / m.serve_seconds,
                  vol_per_s_after_build=m.n_served / (m.serve_seconds
@@ -2894,6 +2939,395 @@ def serve_f32(device, work: str, shape=SHAPE, n_volumes: int = N_VOLUMES,
     return launches, stats, failures
 
 
+@functools.lru_cache(maxsize=None)
+def fg_skulls(shape=SHAPE, complete: bool = False):
+    """Phase 9's skulls (:data:`FG_SKULLS`) at ``shape``: broken (a cap
+    removed) or complete, uint8."""
+    from ctunet_tpu_torch.data import spherical_shell
+
+    # the centres scale with the canvas (a smaller one rehearses the phase)
+    skulls = [(r, tuple(c * n / m for c, n, m in zip(cen, shape, SHAPE)))
+              for r, cen in FG_SKULLS]
+    if complete:
+        return tuple(spherical_shell(shape, radius_frac=r, center=c)
+                     for r, c in skulls)
+    return tuple(punched_shell(shape, FG_SEED + i, r, c)
+                 for i, (r, c) in enumerate(skulls))
+
+
+def fg_expect(vols, margin: int, multiple: int, scan: int):
+    """Where the serving loop must serve ``vols`` under ``b_fg_crop`` and
+    ``i_serve_scan`` = ``scan``, worked out here from ``ops.foreground``'s
+    planner alone: groups of ``scan`` volumes share the running maximum of
+    their plans' sizes, each volume cut at its plan's offsets clamped into
+    the canvas; a new window's first volume is served alone (and builds
+    its engine), the rest of the group in one batch. Returns ``([(offsets,
+    size)] per volume, [batch sizes], [window sizes built])``."""
+    from ctunet_tpu_torch.ops import foreground
+
+    plans = [foreground.plan_crop(v, margin=margin, multiple=multiple)
+             for v in vols]
+    assert len(vols) % scan == 0 and all(plans), plans
+    canvas = vols[0].shape
+    size, wins, batches, built = (0, 0, 0), [], [], []
+    for g in range(0, len(vols), scan):
+        group = plans[g:g + scan]
+        new = tuple(min(c, max([size[a]] + [p[1][a] for p in group]))
+                    for a, c in enumerate(canvas))
+        if new != size:
+            built.append(new)
+        batches.append(scan - (new != size))
+        size = new
+        wins += [(tuple(min(o, c - s) for o, c, s in zip(p[0], canvas, size)),
+                  size) for p in group]
+    return wins, batches, built
+
+
+def fg_atlas(shape=SHAPE):
+    """Phase 9's atlas: a shell registered to its skulls (their mean
+    radius and centre), as a dataset is registered to its atlas. The
+    canvas-centred 0.42 shell of the other phases lies outside these
+    skulls' windows, and the whole-volume model follows it there."""
+    import numpy as np
+
+    from ctunet_tpu_torch.data import spherical_shell
+
+    r = float(np.mean([r for r, _ in FG_SKULLS]))
+    c = np.mean([c for _, c in FG_SKULLS], 0) * np.asarray(shape) / SHAPE
+    return spherical_shell(shape, radius_frac=r, center=tuple(c)).astype(
+        np.float32)
+
+
+def fg_windows(shape=SHAPE):
+    """(phase 9's int8 serving window, its fg-crop training window)."""
+    from ctunet_tpu_torch import default_params, load_params, steps
+
+    ini = load_params(INT8_INI, default_params())
+    _, _, built = fg_expect(fg_skulls(shape), int(ini["fg_margin"]), 16,
+                            int(ini["serve_scan"]))
+    margin = int(load_params(TRAIN_INI, default_params())["fg_margin"])
+    train = steps.fg_crop_size_for(
+        fg_skulls(shape, True)[:FG_TRAIN_STEPS + 1], shape, margin=margin,
+        multiple=16)
+    return built[0], train
+
+
+def check_windows(sd, device, shape=SHAPE):
+    """The kernels at the launch shapes of phase 9's windows (both from
+    :func:`fg_windows`): K1q and K3q (:func:`check_kernels_q`, exact), K2
+    in bf16 and K2q (exact), the bf16 K1 and K3 of the int8 engine's
+    calibration forward at the serving window, and K6 (forward and input
+    gradients, within ``bf16_tol``) at the training window; each with its
+    time, the direct kernel's, the plain version's, cuDNN's where it takes
+    the dtype, and the bound. Returns ``({}, failures)``: the kernel line's
+    rows stay those of the full canvas."""
+    serve_w, train_w = fg_windows(shape)
+    log(f"  phase 9's windows: int8 serving {serve_w}, fg-crop training "
+        f"{train_w}")
+    failures = []
+    pools = {k: v for k, v in pool_shapes().items()
+             if k[0] in ("bf16", "int8") and "UNetSP" in v}
+    k1 = {k: {"K1/volume": v["K1/volume"]} for k, v in
+          conv_tc_shapes().items() if "K1/volume" in v}
+    k6 = {k: {"K6/step": v["K6/step"]} for k, v in conv_tc_shapes().items()
+          if "K6/step" in v}
+    k3 = [r for r in upconv_tc_shapes() if r[0] == "upconv_bn_relu"]
+    for check in (lambda: check_kernels_q(sd, device, serve_w),
+                  lambda: check_pool(device, serve_w, rows=pools,
+                                     extras=False),
+                  lambda: check_conv_tc(device, serve_w, rows=k1),
+                  lambda: check_upconv_tc(sd, device, serve_w, rows=k3),
+                  lambda: check_conv_tc(device, train_w, rows=k6)):
+        failures += check()[1]
+    return {}, failures
+
+
+def fg_crop(device, work: str, shape=SHAPE, before=None):
+    """Phase 9: ``Model`` with the settings of
+    ``examples/UNetSPDO/FlapRecSP2O_serve_int8.ini`` as written (int8 with
+    AdaQuant, ``b_fg_crop``, ``i_fg_margin`` 24, ``i_serve_scan`` 4) and
+    ``b_serve_profile`` on the 8 broken skulls of :data:`FG_SKULLS`, then
+    fg-crop training (:func:`train_fg`). Serving checks: the windows, batches
+    and builds that :func:`fg_expect` predicts; the files; 12 K1q, 4 K2q
+    and 4 K3q per volume, each on its kernel; the masks against the same
+    int8 engine on the plain versions and against the same engine called
+    volume by volume at the same window, pasted the loop's way; Dice
+    against the plain f32 model on the whole volume, on the calibration
+    volume (as phase 4) and pooled over the volumes. The atlas is
+    registered to these skulls (:func:`fg_atlas`). ``before``: the
+    earlier phases' stats, for phase 4's engine time. Returns ``(launches,
+    stats, failures)``."""
+    import numpy as np
+    import torch
+
+    from ctunet_tpu_torch import (Model, default_params, engine_q,
+                                  load_params)
+    from ctunet_tpu_torch.checkpoint import UNETSP_10K, load_any
+    from ctunet_tpu_torch.data.atlas import register_atlas
+    from ctunet_tpu_torch.models import build_model
+    from ctunet_tpu_torch.ops import foreground, kernels
+    from ctunet_tpu_torch.trainer import paste_window
+    from ctunet_tpu_torch.utils import nifti
+
+    failures = []
+    vols = fg_skulls(shape)
+    n = len(vols)
+    data = os.path.join(work, "data")
+    os.makedirs(data)
+    affine = np.diag([0.5, 0.45, 0.45, 1.0])
+    paths = []
+    for i, v in enumerate(vols):
+        paths.append(os.path.join(data, f"skull_{i:03d}.nii.gz"))
+        nifti.write(paths[-1], nifti.NiftiImage(v, affine))
+    csv = os.path.join(data, "files.csv")
+    with open(csv, "w") as f:
+        f.write("image,mask\n" + "".join(f"{p},\n" for p in paths))
+    atlas = fg_atlas(shape)
+    register_atlas(shape, atlas)
+    params = load_params(INT8_INI, default_params())
+    ini = {k: params[k] for k in ("use_int8", "int8_adaquant", "fg_crop",
+                                  "fg_margin", "serve_scan")}
+    if ini != dict(use_int8=True, int8_adaquant=True, fg_crop=True,
+                   fg_margin=24, serve_scan=4):
+        failures.append(f"{INT8_INI} no longer sets {ini}")
+    wins, batches, built = fg_expect(vols, ini["fg_margin"], 16,
+                                     ini["serve_scan"])
+    log(f"  expected: windows {sorted(set(w[1] for w in wins))}, offsets "
+        f"{[w[0] for w in wins]}, K-batches {batches}, int8 builds {built}")
+    params.update(
+        name="chip_smoke_fg", workspace_path=os.path.join(work, "ws"),
+        test_files_csv=csv, resume_model=UNETSP_10K,
+        int8_adaquant_steps=ADAQUANT_STEPS, serve_profile=True)
+    if device.type != "cuda":
+        params["device"] = device.type
+    want = {"conv3d_q_requant": 12 * n, "maxpool2_q": 4 * n,
+            "upconv_q_requant": 4 * n, "conv3d_tc_q": 12 * n,
+            "upconv_tc_q": 4 * n}
+    kernels.reset_launches()
+    m = Model(params=params)
+    counts = kernels.launches()
+    launches = {k: counts[k] for k in want}
+    log(f"  launches over {n} volumes: {counts} (int8 want {want}; the bf16 "
+        "ones are the calibration forward)")
+    if launches != want:
+        failures.append(f"fg int8 launch counts {launches} != {want}")
+    launches["maxpool2_rows"] = counts["maxpool2_rows"]
+    if counts["maxpool2_rows"] != counts["maxpool2_q"] + counts["maxpool2"]:
+        failures.append("fg: maxpool2_rows launches are not K2q + K2's")
+    shapes = sorted(m.int8_engines)
+    log(f"  int8 engines built for {shapes} (AdaQuant searched on "
+        f"{m.int8_hint_shapes}) in {m.int8_build_seconds:.1f} s; K-batches "
+        f"{m.scan_batches}")
+    if shapes != [b + (2,) for b in built] or m.scan_batches != batches:
+        failures.append(f"fg: engines {shapes} / batches {m.scan_batches}, "
+                        f"want {built} / {batches}")
+    build_s = m.int8_build_seconds
+    stats = dict(volumes=m.n_served, loop_s=m.serve_seconds, build_s=build_s,
+                 window=list(built[0]) if built else None,
+                 hint=m.int8_hint_shapes.get(shapes[0]) if shapes else None,
+                 batches=m.scan_batches, profile_s=m.serve_profile_s,
+                 vol_per_s=m.n_served / m.serve_seconds,
+                 vol_per_s_after_build=m.n_served / (m.serve_seconds
+                                                     - build_s))
+    log(f"  Model test loop: {m.n_served} volumes in {m.serve_seconds:.3f} s "
+        f"= {stats['vol_per_s']:.3f} volumes/s, of which the int8 build "
+        f"{build_s:.3f} s; without it {stats['vol_per_s_after_build']:.3f} "
+        f"volumes/s; serving profile (s): {json.dumps(m.serve_profile_s)}")
+    masks = read_masks(os.path.join(data, "pred_chip_smoke_fg"), paths,
+                       shape, affine, failures)
+    qfn = m.int8_engines.get(shapes[0]) if shapes else None
+    if qfn is None:
+        failures.append(f"fg: no int8 engine was built: {m.int8_engines}")
+        return launches, stats, failures
+
+    # the references: the same int8 engine on the plain versions and called
+    # volume by volume, at each volume's window, pasted as the loop pastes;
+    # the plain f32 model on the whole volume
+    sd = load_any(UNETSP_10K)
+    model = build_model("UNetSP").to(device).eval()
+    model.load_state_dict(sd)
+    at = torch.from_numpy(atlas).to(device)
+    plain_q = None
+    floors = {"sk": 0.98, "fl": 0.95}
+    dices = {"sk": [], "fl": []}
+    pooled = {"sk": [0, 0], "fl": [0, 0]}  # 2 |a & b|, |a| + |b|
+    crop_only = {"sk": [], "fl": []}  # the f32 model on the window
+    outside = 0
+    same = {"plain": True, "single": True}
+    for i, (p, v, (offs, size)) in enumerate(zip(paths, vols, wins)):
+        base = os.path.basename(p).replace(".nii.gz", "")
+        sl = foreground.crop_slices(offs, size)
+        full = torch.from_numpy(v).to(device, torch.float32)
+        x = torch.stack([full[sl], at[sl]], -1)[None].to(torch.bfloat16)
+        if plain_q is None:
+            plain_q = engine_q.build_predict_q(
+                "UNetSP", sd, x[0], device=device, plain=True,
+                import_scales=qfn.scales, round_opt=qfn.round_opt)
+        x32 = torch.stack([full, at], -1)[None]
+        with torch.inference_mode():
+            outs = {"plain": plain_q(x), "single": qfn(x), "f32": model(x32),
+                    "f32_window": model(x32[0][sl][None].contiguous())}
+        for j, sfx in enumerate(("sk", "fl")):
+            got = masks.get((base, sfx))
+            ref = torch.argmax(outs["f32"][j][0], -1).to(torch.uint8)
+            ref = ref.cpu().numpy()
+            for k in ("plain", "single"):
+                win = torch.argmax(outs[k][j], -1).to(torch.uint8)
+                pasted = paste_window(win.cpu().numpy(), v[None], offs,
+                                      shape)[0]
+                if got is None or not np.array_equal(got, pasted):
+                    same[k] = False
+                    failures.append(f"fg {base} {sfx}: Model's file differs "
+                                    f"from the {k} engine's window")
+            win32 = torch.argmax(outs["f32_window"][j], -1).to(torch.uint8)
+            crop_only[sfx].append(dice(paste_window(
+                win32.cpu().numpy(), v[None], offs, shape)[0], ref))
+            if got is not None:
+                dices[sfx].append(dice(got, ref))
+                pooled[sfx][0] += 2 * int(((got > 0) & (ref > 0)).sum())
+                pooled[sfx][1] += int((got > 0).sum()) + int((ref > 0).sum())
+                out = np.ones(shape, bool)
+                out[sl] = False
+                outside += int((ref[out] != got[out]).sum())
+        del full, x, x32, outs
+    # phase 4's floors, held as phase 4 holds them (on the volume the
+    # engine was calibrated on) and over all the volumes served (pooled);
+    # each volume's Dice is logged
+    for sfx, floor in floors.items():
+        calib = dices[sfx][0] if dices[sfx] else float("nan")
+        over = pooled[sfx][0] / max(pooled[sfx][1], 1)
+        stats.update({f"dice_{sfx}_calib": calib, f"dice_{sfx}_pooled": over,
+                      f"dice_{sfx}_min": min(dices[sfx], default=None),
+                      f"dice_{sfx}_f32_window_min": min(crop_only[sfx])})
+        log(f"  fg {sfx}: Dice vs the plain f32 model on the whole volume: "
+            f"calibration volume {calib:.6f}, all {n} pooled {over:.6f} "
+            f"(floor {floor} for both); per volume "
+            f"{[round(d, 6) for d in dices[sfx]]}; the f32 model on the same "
+            f"windows, pasted the same way: "
+            f"{[round(d, 6) for d in crop_only[sfx]]}")
+        for what, d in (("calibration volume", calib), ("pooled", over)):
+            if not d >= floor:
+                failures.append(f"fg {sfx}: Dice vs the f32 model ({what}) "
+                                f"{d} < {floor}")
+    log(f"  files identical to the plain-version int8 engine: "
+        f"{same['plain']}; K-batch masks identical to per-volume dispatch: "
+        f"{same['single']}; voxels outside the windows where the f32 model "
+        f"disagrees with the fill class: {outside} (of "
+        f"{2 * n * math.prod(shape)})")
+    stats["outside_disagree"] = outside
+    x0 = torch.stack([torch.from_numpy(vols[0]).to(device, torch.float32)[
+        foreground.crop_slices(*wins[0])], at[foreground.crop_slices(
+            *wins[0])]], -1)[None].to(torch.bfloat16)
+    stats["engine_ms"] = time_ms(lambda: qfn(x0), 3, device)
+    whole = (before or {}).get(4, {}).get("engine_ms")
+    log(f"  int8 engine at the window {wins[0][1]}: {stats['engine_ms']:.2f} "
+        f"ms/volume (phase 4, whole 224x304x304: "
+        f"{'not run' if whole is None else f'{whole:.2f} ms'}); "
+        f"{card_line() if device.type == 'cuda' else 'no card'}")
+    stats["busy_share"] = (stats["engine_ms"] * m.n_served
+                           / (1e3 * (m.serve_seconds - build_s)))
+    del plain_q, model, x0
+
+    got, tstats, errs = train_fg(device, work, shape, before)
+    failures += errs
+    stats["train"] = tstats
+    launches.update(got)
+    return launches, stats, failures
+
+
+def train_fg(device, work: str, shape=SHAPE, before=None,
+             n_train: int = FG_TRAIN_STEPS, time_steps: int = 3):
+    """Phase 9's fg-crop training: ``Model`` with the training settings of
+    ``examples/UNetSPDO/FlapRecSP2O.ini``, ``conv_impl = "chain"`` and
+    ``b_fg_crop_train`` on complete skulls of :data:`FG_SKULLS` (``n_train``
+    train volumes, 1 validation volume): ``n_train`` train steps and 1 eval
+    step on the window it plans. Checks: finite losses, ``fg_lost_voxels``
+    0, K6 launches 31 a train step and 16 an eval step (each a
+    ``conv3d_tc`` launch), the checkpoint written; then the ms per step at
+    the window beside phase 5's whole-canvas ``chain`` step. Returns
+    ``(launches, stats, failures)``."""
+    import numpy as np
+    import torch
+
+    from ctunet_tpu_torch import Model, default_params, load_params, steps
+    from ctunet_tpu_torch.ops import kernels
+    from ctunet_tpu_torch.problem import FlapRecWithShapePriorDoubleOut
+    from ctunet_tpu_torch.utils import nifti
+
+    failures = []
+    vols = fg_skulls(shape, complete=True)
+    csvs = []
+    for sub, idx in (("fg_train", range(n_train)), ("fg_val", [n_train])):
+        folder = os.path.join(work, sub)
+        os.makedirs(folder)
+        rows = []
+        for i in idx:
+            rows.append(os.path.join(folder, f"skull_{i:03d}.nii.gz"))
+            nifti.write(rows[-1], nifti.NiftiImage(vols[i], np.eye(4)))
+        csvs.append(os.path.join(folder, "files.csv"))
+        with open(csvs[-1], "w") as f:
+            f.write("image,mask\n" + "".join(f"{p},\n" for p in rows))
+    params = load_params(TRAIN_INI, default_params())
+    params.update(
+        name="chip_smoke_fg_train", conv_impl="chain", n_epochs=1,
+        autosave_epochs=0, test_flag=False, fg_crop_train=True,
+        workspace_path=os.path.join(work, "ws_train"),
+        train_files_csv=csvs[0], validation_files_csv=csvs[1],
+        resume_model="", log_every=1)
+    if device.type != "cuda":
+        params["device"] = device.type
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    m = Model(params=params)
+    sync(device)
+    wall = time.perf_counter() - t0
+    counts = kernels.launches()
+    k6 = n_train * K6_PER_TRAIN_STEP + K6_PER_EVAL_STEP
+    want = {"conv3d_bias_act": k6, "conv3d_tc": k6}
+    launches = {k: counts[k] for k in want}
+    losses = [float(v) for v in m.step_losses]
+    hist = {k: v[-1][1] for k, v in m.writer.history.items()}
+    log(f"  fg-crop training on {m.fg_train_size}: launches {launches} (want "
+        f"{want}); losses {losses}; epoch scalars {json.dumps(hist)}")
+    if launches != want:
+        failures.append(f"fg training launch counts {launches} != {want}")
+    if len(losses) != n_train or not all(
+            math.isfinite(v) for v in losses + list(hist.values())):
+        failures.append(f"fg training: losses not finite {losses} {hist}")
+    lost = [hist.get(f"{ph}/epoch/fg_lost_voxels") for ph in ("train", "val")]
+    if lost != [0, 0]:
+        failures.append(f"fg training: fg_lost_voxels {lost} != 0")
+    if not os.path.exists(m.params["model_path"]):
+        failures.append(f"fg training: no checkpoint {m.params['model_path']}")
+    stats = dict(window=list(m.fg_train_size or ()),
+                 train_loop_s=m.train_seconds, model_wall_s=wall,
+                 losses=losses, fg_lost=lost)
+
+    # ms per step at the window, as phase 5 times its whole-canvas step
+    handler = FlapRecWithShapePriorDoubleOut()
+    step = steps.make_train_step(
+        m.state.model, handler,
+        {k: params.get(k) for k in ("ce_lambda", "dice_lambda")},
+        atlas=m._atlas, compute_dtype=torch.bfloat16,
+        fg_crop_size=m.fg_train_size, fg_margin=int(params["fg_margin"]))
+    vol = torch.from_numpy(vols[0][None].astype(np.float32)).to(device)
+    gen = torch.Generator(device=device).manual_seed(5)
+    times = []
+    for _ in range(time_steps + 1):
+        sync(device)
+        t = time.perf_counter()
+        step(m.state, {"image": vol}, gen)
+        sync(device)
+        times.append(1e3 * (time.perf_counter() - t))
+    stats["chain_ms_per_step"] = float(np.mean(times[1:]))
+    whole = (before or {}).get(5, {}).get("chain_ms_per_step")
+    log(f"  fg-crop chain step at {m.fg_train_size}: "
+        f"{stats['chain_ms_per_step']:.1f} ms (phase 5, whole 224x304x304: "
+        f"{'not run' if whole is None else f'{whole:.1f} ms'}; host clock "
+        "around a synchronized step, first left out)")
+    return launches, stats, failures
+
+
 def main() -> int:
     import torch
 
@@ -2945,7 +3379,10 @@ def main() -> int:
             ("bf16 upconv_tc (K3, K7a, K7b) at every shape of the paths",
              lambda: check_upconv_tc(sd, device)),
             ("f32 kernels (K1, K2, K3, K5, K7a, K7b) at every f32 shape of "
-             "the paths", lambda: check_kernels_f32(sd, device))):
+             "the paths", lambda: check_kernels_f32(sd, device)),
+            ("K1q, K2q, K3q and the bf16 K1, K2, K3 at phase 9's int8 "
+             "serving window, K6 at its training window",
+             lambda: check_windows(sd, device))):
         log(f"  -- {label}")
         try:
             got, errs = check()
@@ -2976,7 +3413,12 @@ def main() -> int:
             (8, f"legacy training, UNet4_2IC ({LEGACY_TRAIN[0][1]} steps) "
                 f"and recAE_v2_fixed ({LEGACY_TRAIN[1][1]} steps) {size} "
                 "bf16 conv_impl=pallas + 1 eval step each, save, serve 1 "
-                "volume each", train_legacy)):
+                "volume each", train_legacy),
+            (9, f"fg-crop int8 serving, {len(FG_SKULLS)} UNetSP volumes "
+                f"{size} with FlapRecSP2O_serve_int8.ini as written (crop, "
+                "K-volume batches of 4, the serving profile), then fg-crop "
+                f"training ({FG_TRAIN_STEPS} + 1 steps)",
+             lambda device, work: fg_crop(device, work, before=phase_stats))):
         log(f"== phase {phase}: main path, {label}, through Model")
         t0 = time.perf_counter()
         got = {}

@@ -515,15 +515,19 @@ def build_predict_q_opt(
     adaquant_steps: int = 250,
     adaquant_lr: float = 0.03,
     learn_scales: bool = False,
+    calib_batch=None,
     **kw,
 ) -> Callable:
     """:func:`build_predict_q` with AdaQuant rounding
-    (``engine_q.build_predict_q_opt``): a first build exports the
-    calibrated scales, :func:`quant_opt.optimize_rounding` optimizes the
-    integer weights on the calibration volume with autograd, and the
-    served engine is rebuilt with the overrides and the (possibly refined)
-    scales. Needs autograd enabled. (The JAX package's smaller
-    ``calib_batch`` window serves foreground-crop serving, not ported.)
+    (``engine_q.build_predict_q_opt``, ``ctunet_tpu/engine_q.py:843-890``):
+    a first build exports the scales calibrated on ``calib_volume``,
+    :func:`quant_opt.optimize_rounding` optimizes the integer weights with
+    autograd on ``calib_batch`` (``(N, D, H, W, C)`` float volumes, a 4-D
+    one a batch of one; ``calib_volume`` when None), and the served engine
+    is rebuilt on ``calib_volume`` with the overrides and the (possibly
+    refined) scales. The serving loop passes as ``calib_batch`` the
+    volume's margin-16 foreground window whenever it is smaller than the
+    serving input, cropped or whole. Needs autograd enabled.
 
     :raises Unsupported: for a model ``quant_opt`` does not simulate.
     """
@@ -534,9 +538,13 @@ def build_predict_q_opt(
     scales: Dict[str, Any] = {}
     build_predict_q(model_class, state_dict, calib_volume,
                     export_scales=scales, **kw)
+    cb = (calib_volume.float() if calib_batch is None
+          else torch.as_tensor(calib_batch, dtype=torch.float32))
+    if cb.ndim == 4:  # a single volume -> a batch of one
+        cb = cb[None]
     refined: Dict[str, Any] = {}
     ropt = quant_opt.optimize_rounding(
-        model_class, state_dict, calib_volume.float()[None], scales,
+        model_class, state_dict, cb, scales,
         steps=adaquant_steps, lr=adaquant_lr, learn_scales=learn_scales,
         out_scales=refined, bf16_head=float(kw.get("bf16_head") or 0),
         device=kw.get("device"))

@@ -10,8 +10,8 @@ and the optimizer state in place and returns the same ``TrainState``.
 The optimizer is the port's own (:class:`Optimizer`): the JAX package builds
 its update from optax transforms whose arithmetic differs from
 ``torch.optim`` (see the class), and the port is held against the JAX
-package. The foreground-crop training functions (``steps.py:108-206``) wait
-for ``ops/foreground.py`` (ROADMAP Queue 1 item 9).
+package. ``b_fg_crop_train`` cuts every sample to a static foreground
+window on the device before the synthesis (:func:`make_fg_crop_fn`).
 """
 
 from __future__ import annotations
@@ -21,6 +21,9 @@ from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
+
+# Spatial divisibility of the ported (4-block) models: 2^n_pool_levels.
+POOL_MULTIPLE = 16
 
 
 @dataclasses.dataclass
@@ -86,6 +89,81 @@ def make_crop_fn(train_patch, atlas: Optional[torch.Tensor]):
     return crop
 
 
+def make_fg_crop_fn(crop_size, atlas: Optional[torch.Tensor],
+                    margin: int = 16, multiple: int = 16):
+    """Batched foreground cropping with atlas alignment
+    (``steps.py:108-182``), on the device and without a host round trip:
+    per sample, the first nonzero index of each axis profile less
+    ``margin``, snapped down to ``multiple`` and clamped so the static
+    ``crop_size`` window stays on the canvas, gives the offsets; image,
+    flap and atlas are gathered at them. The foreground is image OR flap
+    (in pairs mode the flap fills the defect outside the broken skull's
+    box). ``crop(gen, batch) -> (batch', atlas')``; ``batch'`` carries
+    ``fg_lost``, each sample's foreground voxels outside its window."""
+    size = tuple(int(s) for s in crop_size)
+
+    def starts_of(fg):  # (B, D, H, W) bool -> (B, 3) int64
+        offs = []
+        for ax in range(3):
+            other = tuple(i for i in range(1, 4) if i != ax + 1)
+            prof = fg.to(torch.uint8).amax(dim=other)
+            lo = torch.argmax(prof, -1)  # the first nonzero; 0 when empty
+            lo = (torch.clamp(lo - margin, min=0) // multiple) * multiple
+            offs.append(torch.clamp(lo, max=fg.shape[ax + 1] - size[ax]))
+        return torch.stack(offs, -1)
+
+    def gather(v, starts):
+        """``v`` ``(B, D, H, W)`` (or ``(D, H, W)``, shared) -> each
+        sample's window ``(B, *size)``."""
+        out = []
+        for i, st in enumerate(starts):
+            w = v if v.ndim == 3 else v[i]
+            for ax in range(3):
+                idx = st[ax] + torch.arange(size[ax], device=w.device)
+                w = w.index_select(ax, idx)
+            out.append(w)
+        return torch.stack(out)
+
+    def crop(gen, batch):
+        del gen  # deterministic given the data
+        images = batch["image"]
+        fg = images != 0
+        if "flap" in batch:
+            fg = fg | (batch["flap"] != 0)
+        starts = starts_of(fg)
+        out = dict(batch)
+        out["image"] = gather(images, starts)
+        if "flap" in batch:
+            out["flap"] = gather(batch["flap"], starts)
+        fg_i = fg.to(torch.int32)
+        out["fg_lost"] = (fg_i.sum((1, 2, 3))
+                          - gather(fg_i, starts).sum((1, 2, 3)))
+        atlas_b = None if atlas is None else gather(atlas, starts)
+        return out, atlas_b
+
+    return crop
+
+
+def fg_crop_size_for(volumes, canvas_shape, margin: int = 16,
+                     multiple: int = 16):
+    """The static window covering every volume's foreground plan
+    (``steps.py:185-206``): the elementwise max of the ``plan_crop`` sizes
+    of the ``(D, H, W)`` numpy ``volumes``, or None when one volume gains
+    nothing from cropping or the window is the canvas."""
+    from .ops import foreground
+
+    sizes = None
+    for vol in volumes:
+        plan = foreground.plan_crop(vol, margin=margin, multiple=multiple)
+        if plan is None:
+            return None
+        sizes = (plan[1] if sizes is None
+                 else tuple(max(a, b) for a, b in zip(sizes, plan[1])))
+    if sizes is None or all(s >= c for s, c in zip(sizes, canvas_shape)):
+        return None
+    return tuple(min(s, c) for s, c in zip(sizes, canvas_shape))
+
+
 def make_synth_fn(handler, from_pairs: bool = False) -> Callable:
     """Batched on-device synthesis: ``(gen, batch) -> (images, targets)``
     with ``images`` ``(B, D, H, W)`` and the target ``(B, D, H, W, 2)``, or
@@ -108,23 +186,42 @@ def make_synth_fn(handler, from_pairs: bool = False) -> Callable:
     return synth
 
 
-def _prepare(atlas, train_patch, device):
+def _prepare(atlas, train_patch, device, fg_crop_size=None,
+             fg_margin: int = 16):
+    assert not (train_patch and fg_crop_size), (
+        "train_patch and fg_crop_size are mutually exclusive")
     if atlas is not None:
         atlas = torch.as_tensor(np.asarray(atlas, np.float32), device=device)
     crop = None if train_patch is None else make_crop_fn(train_patch, atlas)
+    if fg_crop_size is not None:
+        crop = make_fg_crop_fn(fg_crop_size, atlas, margin=fg_margin,
+                               multiple=POOL_MULTIPLE)
     return atlas, crop
+
+
+def _cut(crop, gen, batch, atlas):
+    """Apply the step's crop: ``(batch', atlas', fg_lost or None)``."""
+    if crop is None:
+        return batch, atlas, None
+    batch, atlas = crop(gen, batch)
+    return batch, atlas, batch.pop("fg_lost", None)
 
 
 def make_train_step(model, handler, loss_cfg: Dict[str, Any], atlas=None,
                     compute_dtype=torch.bfloat16, from_pairs: bool = False,
-                    train_patch=None):
+                    train_patch=None, fg_crop_size=None,
+                    fg_margin: int = 16):
     """Build the training step (``steps.py:226-312``).
 
     ``step(state, batch, gen) -> (state, terms)`` with ``batch``
     ``{'image': (B,D,H,W) f32[, 'flap': ...]}`` on the device and ``gen``
     the ``torch.Generator`` of the synthesis draws. With ``train_patch``
     the volumes (and the atlas, at matched offsets) are randomly cropped
-    before synthesis. ``terms`` are detached scalars on the device.
+    before synthesis; with ``fg_crop_size`` (exclusive with it) they are
+    cut to that static foreground window (:func:`make_fg_crop_fn`, planned
+    with ``fg_margin`` and the pool multiple 16) and the terms gain
+    ``fg_lost_voxels``, the batch's largest count of foreground voxels
+    outside the window. ``terms`` are detached scalars on the device.
     """
     if not (loss_cfg.get("ce_lambda") or loss_cfg.get("dice_lambda")):
         raise ValueError(
@@ -133,12 +230,11 @@ def make_train_step(model, handler, loss_cfg: Dict[str, Any], atlas=None,
             "config (the reference example INIs set both to 1).")
     synth = make_synth_fn(handler, from_pairs)
     atlas_c, crop = _prepare(atlas, train_patch,
-                             next(model.parameters()).device)
+                             next(model.parameters()).device, fg_crop_size,
+                             fg_margin)
 
     def step(state: TrainState, batch, gen):
-        atlas_x = atlas_c
-        if crop is not None:
-            batch, atlas_x = crop(gen, batch)
+        batch, atlas_x, fg_lost = _cut(crop, gen, batch, atlas_c)
         with torch.no_grad():
             images, targets = synth(gen, batch)
             x = _net_input(images, atlas_x, compute_dtype)
@@ -149,31 +245,37 @@ def make_train_step(model, handler, loss_cfg: Dict[str, Any], atlas=None,
         loss.backward()
         state.optimizer.step(value=loss.detach())
         state.step += 1
-        return state, {k: v.detach() for k, v in terms.items()}
+        terms = {k: v.detach() for k, v in terms.items()}
+        if fg_lost is not None:
+            terms["fg_lost_voxels"] = fg_lost.max()
+        return state, terms
 
     return step
 
 
 def make_eval_step(model, handler, loss_cfg: Dict[str, Any], atlas=None,
                    compute_dtype=torch.bfloat16, from_pairs: bool = False,
-                   train_patch=None):
+                   train_patch=None, fg_crop_size=None,
+                   fg_margin: int = 16):
     """Validation step: synthesize targets, forward on the running
-    BatchNorm statistics, losses (``steps.py:315-358``).
+    BatchNorm statistics, losses (``steps.py:315-358``); the crops as in
+    :func:`make_train_step`.
     ``step(state, batch, gen) -> (terms, (out, targets))``."""
     synth = make_synth_fn(handler, from_pairs)
     atlas_c, crop = _prepare(atlas, train_patch,
-                             next(model.parameters()).device)
+                             next(model.parameters()).device, fg_crop_size,
+                             fg_margin)
 
     @torch.no_grad()
     def step(state: TrainState, batch, gen):
-        atlas_x = atlas_c
-        if crop is not None:
-            batch, atlas_x = crop(gen, batch)
+        batch, atlas_x, fg_lost = _cut(crop, gen, batch, atlas_c)
         images, targets = synth(gen, batch)
         x = _net_input(images, atlas_x, compute_dtype)
         model.eval()
         out = model(x)
         _, terms = handler.compute_losses(out, targets, loss_cfg)
+        if fg_lost is not None:
+            terms = dict(terms, fg_lost_voxels=fg_lost.max())
         return terms, (out, targets)
 
     return step

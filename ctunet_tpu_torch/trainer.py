@@ -25,10 +25,16 @@ and/or tests according to the flags. CLI: ``ctunet-tpu-torch <cfg.ini>`` /
   family, ``xla`` a library conv (and ``chain`` at k=5, as in JAX).
   ``b_packed_train`` and ``b_remat`` are TPU memory-layout choices of the
   JAX package: they are accepted and the same dense graph runs.
-- ``test_flag``: every test volume whole through the engine in
+  ``b_fg_crop_train`` trains and evaluates on a static foreground window
+  (``s_fg_train_size``, or planned over every train and validation
+  volume), cut per sample on the device (``steps.make_fg_crop_fn``).
+- ``test_flag``: every test volume through the engine in
   ``compute_dtype`` (``engine.py``: bf16 or f32 on the card), or with
-  ``use_int8`` the calibrated int8 engine
-  (``engine_q.py``), writing ``pred_<name>/<file>_{sk,fl,i}`` NIfTI files
+  ``use_int8`` the calibrated int8 engine (``engine_q.py``), whole or,
+  with ``b_fg_crop``, on its foreground window (``i_fg_margin``) pasted
+  back into the canvas; ``i_serve_scan`` K groups K volumes per
+  ``predict`` call, ``b_serve_profile`` prints where the loop waits;
+  writing ``pred_<name>/<file>_{sk,fl,i}`` NIfTI files
   (``<file>_{fl,i}`` for the single-output handlers ``FlapRec`` and
   ``FlapRecWithShapePrior``). The legacy k=5 models (``recAE_v2_fixed``,
   ``UNet4_2IC``) are served by the float engine in every case: they have
@@ -45,6 +51,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures as cf
+import itertools
 import os
 import signal
 import sys
@@ -63,27 +70,19 @@ from .data import atlas as atlas_mod
 from .data.pipeline import HostLoader, device_prefetch, upload
 from .device import resolve_device
 from .models import build_model
+from .ops import foreground
+from .steps import POOL_MULTIPLE
 from .utils import (default_params, makedir, print_params_dict,
                     set_cfg_params, tic, toc_eps)
 from .utils.tb_writer import make_writer
 
-# Spatial divisibility of the ported (4-block) models: 2^n_pool_levels.
-POOL_MULTIPLE = 16
-
 # (params key, is-set test, where the feature stands) for settings that
 # ctunet_tpu serves and this port does not yet.
 _NOT_PORTED = (
-    ("fg_crop_train", bool,
-     "foreground-crop training, ROADMAP Queue 1 item 9"),
     ("profile_dir", bool,
      "profiler trace of the first epoch, ROADMAP Queue 1 item 19"),
-    ("fg_crop", bool, "foreground-crop serving, ROADMAP Queue 1 item 9"),
-    ("serve_scan", lambda v: int(v or 1) > 1,
-     "K-volume batching, ROADMAP Queue 1 item 9"),
     ("patch_inference", bool,
      "sliding-window inference, ROADMAP Queue 1 item 10"),
-    ("serve_profile", bool,
-     "serving-stage profile, ROADMAP Queue 1 item 19"),
     ("distributed", bool, "multi-process runs, ROADMAP Queue 1 item 18"),
     # 0 and 1 mean one device (ctunet_tpu/trainer.py:162-176)
     ("mesh_data", lambda v: int(v or 0) > 1,
@@ -96,6 +95,51 @@ _NOT_PORTED = (
      "parameters held in another dtype than float32, ROADMAP Queue 1 "
      "item 20"),
 )
+
+def _np_corners(offs, sizes):
+    """The 8 corner coordinates of a crop box (canvas coordinates)."""
+    return [tuple(o if lo else o + s - 1
+                  for o, s, lo in zip(offs, sizes, bits))
+            for bits in itertools.product((True, False), repeat=len(offs))]
+
+
+def paste_window(mask: np.ndarray, images: np.ndarray, offsets,
+                 full_shape) -> np.ndarray:
+    """A window's ``(1, d, h, w)`` mask pasted at ``offsets`` into the
+    ``full_shape`` canvas (``ctunet_tpu/trainer.py:1224-1242``). The fill
+    is the class the window holds at its first corner whose voxel of the
+    unpadded input ``images`` ``(1, D, H, W)`` is 0 (the margin leaves one
+    unless the box touches the canvas edge on every axis); 0 if none."""
+    bg = 0
+    for corner in _np_corners(offsets, mask.shape[-3:]):
+        probe = tuple(min(c, s - 1) for c, s in zip(corner, images.shape[1:]))
+        if images[(0,) + probe] == 0:
+            bg = int(mask[(0,) + tuple(c - o for c, o in zip(corner,
+                                                             offsets))])
+            break
+    return foreground.paste_full(mask, offsets, full_shape, bg)
+
+
+def int8_calib_hint(volume: np.ndarray, atlas=None, crop_offsets=None,
+                    fg_margin: int = 16):
+    """The AdaQuant calibration window of one served volume
+    (``ctunet_tpu/trainer.py:1270-1298``): ``volume`` ``(d, h, w)``, the
+    padded volume or its crop at ``crop_offsets`` on the canvas, planned
+    at margin ``min(16, fg_margin)``, stacked with the padded ``atlas`` at
+    the same canvas offsets. ``(1, d', h', w', C)`` f32 on the host, or
+    None when the plan gains nothing."""
+    plan16 = foreground.plan_crop(volume, margin=min(16, fg_margin),
+                                  multiple=POOL_MULTIPLE)
+    if plan16 is None:
+        return None
+    chans = [volume[foreground.crop_slices(*plan16)]]
+    if atlas is not None:
+        g_offs = (plan16[0] if crop_offsets is None else
+                  tuple(o + p for o, p in zip(crop_offsets, plan16[0])))
+        chans.append(np.asarray(atlas)[foreground.crop_slices(g_offs,
+                                                              plan16[1])])
+    return np.stack(chans, -1).astype(np.float32)[None]
+
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -171,6 +215,7 @@ class Model:
         self.best_model = {"epoch": 1, "value": None}
         self.losses_and_metrics: Dict[str, list] = {}
         self.step_losses: list = []  # per-batch train losses, last epoch
+        self.fg_train_size = None  # the b_fg_crop_train window, when used
         self.train_seconds = 0.0
         self._atlas = None
         self._from_pairs = False
@@ -184,6 +229,12 @@ class Model:
         self.serve_seconds = 0.0
         self.int8_build_seconds = 0.0  # part of serve_seconds
         self.int8_engines: Dict = {}  # shape -> int8 predict, None = bf16
+        # input shape -> shape of the window AdaQuant searched on (None: the
+        # whole calibration input)
+        self.int8_hint_shapes: Dict = {}
+        self._calib_hint = None  # -> the last dispatched volume's window
+        self.scan_batches: list = []  # volumes per K-batch predict call
+        self.serve_profile_s: Dict[str, float] = {}  # b_serve_profile
 
         if self.params.get("train_flag") is True:
             self.train()
@@ -342,9 +393,14 @@ class Model:
         loss_cfg = {k: p.get(k)
                     for k in ("ce_lambda", "dice_lambda", "save_dice_plots")}
         tps = int(p.get("train_patch_size") or 0)
+        train_patch = (tps, tps, tps) if tps > 0 else None
         common = dict(atlas=self._atlas, compute_dtype=self.compute_dtype,
-                      from_pairs=self._from_pairs,
-                      train_patch=(tps, tps, tps) if tps > 0 else None)
+                      from_pairs=self._from_pairs, train_patch=train_patch)
+        fg_size = (None if train_patch is not None
+                   else self._fg_train_size(self._sample_shape()[0]))
+        if fg_size is not None:
+            common.update(fg_crop_size=fg_size, fg_margin=self._fg_margin)
+        self.fg_train_size = fg_size
         train_step = steps.make_train_step(model, self.problem_handler,
                                            loss_cfg, **common)
         eval_step = steps.make_eval_step(model, self.problem_handler,
@@ -380,6 +436,52 @@ class Model:
             for sig, h in prev_handlers.items():
                 signal.signal(sig, h)
             self.writer.close()
+
+    def _fg_train_size(self, im_shape):
+        """The static foreground window of ``b_fg_crop_train``
+        (``ctunet_tpu/trainer.py:356-423``): ``s_fg_train_size`` when set,
+        else the elementwise max of the ``plan_crop`` sizes over every
+        train and validation volume (image OR flap for pair datasets), at
+        ``fg_margin`` and the pool multiple; None (train whole volumes)
+        when cropping gains nothing."""
+        p = self.params
+        if not p.get("fg_crop_train"):
+            return None
+        margin = self._fg_margin = int(p.get("fg_margin") or 16)
+        override = str(p.get("fg_train_size") or "").strip()
+        if override:
+            size = tuple(int(v) for v in
+                         override.replace("x", ",").split(","))
+            assert len(size) == 3, f"s_fg_train_size: {override!r}"
+            assert all(s % POOL_MULTIPLE == 0 for s in size), (
+                f"s_fg_train_size {size} must divide by {POOL_MULTIPLE}")
+            return size
+        if self.data.get("train_loader") is None:
+            return None
+        sets = [self.data[k].dataset for k in ("train_loader",
+                                               "validation_loader")
+                if self.data.get(k) is not None]
+
+        def fg_volumes():
+            for ds in sets:
+                for i in range(len(ds)):
+                    sample = ds[i]
+                    vol = np.asarray(sample["image"], np.float32)
+                    if "flap" in sample:
+                        vol = np.maximum(vol, np.asarray(sample["flap"],
+                                                         np.float32))
+                    yield vol
+
+        size = steps.fg_crop_size_for(fg_volumes(), im_shape, margin=margin,
+                                      multiple=POOL_MULTIPLE)
+        if size is None:
+            print("fg_crop_train: no shrink on this dataset; training whole "
+                  "volumes")
+        else:
+            print(f"fg_crop_train: {im_shape} -> {size} (scanned "
+                  f"{sum(map(len, sets))} train+val volumes, margin {margin}, "
+                  f"snap {POOL_MULTIPLE})")
+        return size
 
     def _train_epochs(self, n_epochs, train_step, eval_step,
                       interrupted) -> None:
@@ -526,13 +628,17 @@ class Model:
         self._forward_pass_test()
 
     def _make_whole_volume_predict(self, atlas=None):
-        """``predict(images)`` on ``(B, D, H, W)`` device volumes: stacks the
-        atlas channel on the device in ``compute_dtype`` and runs the engine
-        in that dtype (or, with ``use_engine = False``, the plain model in
+        """``predict(images, offsets=None)`` on ``(B, D, H, W)`` device
+        volumes (``ctunet_tpu/trainer.py:851-1001``): stacks the atlas
+        channel on the device in ``compute_dtype`` and runs the engine in
+        that dtype (or, with ``use_engine = False``, the plain model in
         ``compute_dtype``, as ``ctunet_tpu``'s ``steps.make_predict_fn``
-        serves ``model.apply``, ``trainer.py:1001-1003``). With
+        serves ``model.apply``). Images smaller than the padded ``atlas``
+        are foreground crops: image ``i``'s atlas channel is the atlas
+        sliced at ``offsets[i]``, its window's offsets on the canvas. With
         ``use_int8`` the int8 engine serves instead, built lazily on the
-        first volume of each shape (``ctunet_tpu/trainer.py:857-999``)."""
+        first volume of each input shape (the crop window's in crop
+        serving)."""
         dtype = self.compute_dtype
         if self.params.get("use_engine", True):
             fwd = engine.build_predict(self.params["model_class"],
@@ -550,10 +656,16 @@ class Model:
                      else upload(np.asarray(atlas, np.float32), self.device,
                                  dtype))
 
-        def predict(images: torch.Tensor):
+        def predict(images: torch.Tensor, offsets=None):
             chans = [images.to(dtype)]
             if atlas_dev is not None:
-                chans.append(atlas_dev.expand(images.shape))
+                win = tuple(images.shape[1:])
+                if win == tuple(atlas_dev.shape):
+                    chans.append(atlas_dev.expand(images.shape))
+                else:
+                    chans.append(torch.stack([
+                        atlas_dev[foreground.crop_slices(o, win)]
+                        for o in offsets]))
             x = torch.stack(chans, -1)
             if not use_q:
                 return fwd(x)
@@ -567,10 +679,14 @@ class Model:
 
     def _build_int8(self, x0: torch.Tensor):
         """The int8 engine calibrated on ``x0`` ``(D, H, W, C)``: AdaQuant
-        first (``int8_adaquant``), then plain int8. Only
-        ``engine_q.Unsupported``, raised while planning before any launch,
-        moves on to the next mode; ``None`` means the float engine serves
-        (in ``compute_dtype``).
+        first (``int8_adaquant``), then plain int8. AdaQuant's rounding
+        search runs on the calibration window of the volume just
+        dispatched (:func:`int8_calib_hint`) when it has fewer voxels than
+        ``x0``, in whole-volume and crop serving alike
+        (``ctunet_tpu/trainer.py:915-929``); the scales calibrate on
+        ``x0``. Only ``engine_q.Unsupported``, raised while planning
+        before any launch, moves on to the next mode; ``None`` means the
+        float engine serves (in ``compute_dtype``).
         A failing kernel build or launch is never caught here."""
         from . import engine_q
 
@@ -582,11 +698,16 @@ class Model:
             bf16_head=float(p.get("int8_bf16_head") or 0))
         builders = [("int8", engine_q.build_predict_q, {})]
         if p.get("int8_adaquant"):
+            hint = self._calib_hint() if self._calib_hint else None
+            extra = dict(adaquant_steps=int(p.get("int8_adaquant_steps")
+                                            or 250),
+                         learn_scales=bool(p.get("int8_learn_scales")))
+            if hint is not None and hint[0].size < x0.numel():
+                extra["calib_batch"] = hint
+            self.int8_hint_shapes[tuple(x0.shape)] = (
+                tuple(hint.shape[1:]) if "calib_batch" in extra else None)
             builders.insert(0, ("int8+adaquant", engine_q.build_predict_q_opt,
-                                dict(adaquant_steps=int(
-                                    p.get("int8_adaquant_steps") or 250),
-                                     learn_scales=bool(
-                                         p.get("int8_learn_scales")))))
+                                extra))
         t0 = time.perf_counter()
         for label, builder, extra in builders:
             # the serving loop runs under inference_mode; AdaQuant needs
@@ -601,62 +722,198 @@ class Model:
                           "next serving mode.")
                     continue
             self.int8_build_seconds += time.perf_counter() - t0
+            window = extra.get("calib_batch")
             print(f"serving: calibrated {label} engine for "
-                  f"{tuple(x0.shape)} in {time.perf_counter() - t0:.1f} s")
+                  f"{tuple(x0.shape)} in {time.perf_counter() - t0:.1f} s"
+                  + ("" if window is None else
+                     f" (rounding searched on {tuple(window.shape[1:])})"))
             return qfn
         print("serving the float engine.")
         return None
 
     def _forward_pass_test(self) -> None:
-        """Serve every test volume (``trainer.py:1120``): pad to the pool
-        multiple, upload through pinned memory, run the engine, take the
-        argmax on the device, and write the masks on a small thread pool
-        while the next volumes are in flight (``prefetch_depth``)."""
+        """Serve every test volume (``ctunet_tpu/trainer.py:1120-1441``):
+        pad to the pool multiple; with ``fg_crop`` plan the foreground
+        window (``fg_margin``) and serve only it; upload through pinned
+        memory, run the engine, take the argmax on the device, paste the
+        window's masks back into the canvas on the host, and write them
+        on a small thread pool while the next volumes are in flight
+        (``prefetch_depth``). With ``serve_scan`` K > 1, groups of K
+        volumes of one canvas share a running-max window and all but a
+        new window's first volume go through one ``predict`` call.
+        ``serve_profile`` prints (and keeps in ``serve_profile_s``) the
+        seconds the loop blocks on each stage."""
         print("Phase: test.")
-        if self.params.get("largest_cc"):
+        p = self.params
+        if p.get("largest_cc"):
             from .ops.postprocess import largest_cc
 
             self.problem_handler.postprocess = largest_cc
         atlas_p = self._atlas
         if atlas_p is not None:
             apads = [(0, -s % POOL_MULTIPLE) for s in np.shape(atlas_p)]
-            if any(p[1] for p in apads):
+            if any(a[1] for a in apads):
                 atlas_p = np.pad(np.asarray(atlas_p), apads)
         predict = self._make_whole_volume_predict(atlas_p)
-
-        depth = max(1, int(self.params.get("prefetch_depth") or 2))
+        fg_on = bool(p.get("fg_crop"))
+        fg_margin = int(p.get("fg_margin") or 16)
+        serve_scan = max(1, int(p.get("serve_scan") or 1))
+        depth = max(1, int(p.get("prefetch_depth") or 2))
         pending: collections.deque = collections.deque()
         write_futs = []
+        prof: Dict[str, float] = collections.defaultdict(float)
+        prof_on = bool(p.get("serve_profile"))
+        scan_static: Dict = {}  # canvas -> running window size
+        warmed: set = set()
+
+        def _t(key, fn, *a, **k):
+            if not prof_on:
+                return fn(*a, **k)
+            t0 = time.perf_counter()
+            r = fn(*a, **k)
+            prof[key] += time.perf_counter() - t0
+            return r
+
+        def hardify(out):
+            # argmax on the device: only uint8 masks cross the link
+            return tuple(torch.argmax(o, -1).to(torch.uint8)
+                         for o in (out if isinstance(out, tuple) else (out,)))
+
+        def unpad(m, images, crop_info):
+            a = m.cpu().numpy()
+            if crop_info is not None:
+                a = paste_window(a, images, *crop_info)
+            return a[(slice(None),) + tuple(slice(0, s)
+                                            for s in images.shape[1:])]
 
         def flush_one(pool):
-            masks, batch = pending.popleft()
+            masks, batch, crop_info = pending.popleft()
             images = batch["image"]
-            sl = (slice(None),) + tuple(slice(0, s) for s in images.shape[1:])
-            host = tuple(m.cpu().numpy()[sl] for m in masks)
+            host = _t("fetch+unpack", lambda: tuple(
+                unpad(m, images, crop_info) for m in masks))
             write_futs.append(pool.submit(
                 self.write_predictions, host if len(host) > 1 else host[0],
-                batch["filepath"], self.params["name"], images))
+                batch["filepath"], p["name"], images))
 
+        def enqueue(masks, batch, crop_info, pool):
+            pending.append((masks, batch, crop_info))
+            self.n_served += batch["image"].shape[0]
+            if len(pending) >= depth:
+                flush_one(pool)
+
+        def dispatch_one(batch, cropped, crop_info, pool):
+            """Upload one ``(1, d, h, w)`` volume, dispatch, enqueue."""
+            vol, offs = cropped[0], None if crop_info is None else crop_info[0]
+            # the AdaQuant window of this volume, built only if a build
+            # needs it (ctunet_tpu/trainer.py:1270-1298)
+            self._calib_hint = lambda: int8_calib_hint(
+                vol, atlas_p, offs, fg_margin)
+            up = _t("upload", upload, cropped, self.device, torch.float32)
+            out = _t("dispatch", lambda: hardify(
+                predict(up, None if offs is None else [offs])))
+            enqueue(out, batch, crop_info, pool)
+
+        def dispatch_single(batch, padded, plan, pool):
+            crop_info = None
+            if plan is not None:
+                offs, sizes = plan
+                crop_info = (offs, padded.shape[1:])
+                padded = np.ascontiguousarray(
+                    padded[(slice(None),) + foreground.crop_slices(offs,
+                                                                   sizes)])
+            dispatch_one(batch, padded, crop_info, pool)
+
+        def dispatch_group(group, pool):
+            """K volumes of one canvas share a pool-aligned window, the
+            running max of their planned sizes; each is cut at its own
+            offsets, clamped into the canvas (the window start only moves
+            down, so each box stays covered). A new window is warmed by
+            one single dispatch (its int8 engine builds there); the rest
+            go as one stacked upload and one ``predict`` call
+            (``ctunet_tpu/trainer.py:1331-1398``)."""
+            items, group[:] = list(group), []
+            if not items:
+                return
+            canvas = items[0][1].shape
+            if len(items) == 1 or any(it[1].shape != canvas for it in items):
+                for it in items:
+                    dispatch_single(*it, pool)
+                return
+            canvas_sp = canvas[1:]
+            size = canvas_sp
+            if fg_on and all(it[2] is not None for it in items):
+                need = (max(it[2][1][ax] for it in items) for ax in range(3))
+                cur = scan_static.get(canvas_sp, (0, 0, 0))
+                size = tuple(min(c, s + (-s % POOL_MULTIPLE)) for c, s in zip(
+                    canvas_sp, (max(n, q) for n, q in zip(need, cur))))
+                scan_static[canvas_sp] = size
+            if size == canvas_sp:
+                offs_k = [(0, 0, 0)] * len(items)
+                crop_infos = [None] * len(items)
+                vols = [it[1][0] for it in items]
+            else:
+                offs_k = [tuple(min(o, c - s) for o, c, s in
+                                zip(it[2][0], canvas_sp, size))
+                          for it in items]
+                crop_infos = [(o, canvas_sp) for o in offs_k]
+                vols = [it[1][0][foreground.crop_slices(o, size)]
+                        for it, o in zip(items, offs_k)]
+            if size not in warmed:
+                warmed.add(size)
+                dispatch_one(items.pop(0)[0], np.ascontiguousarray(
+                    vols.pop(0)[None]), crop_infos.pop(0), pool)
+                offs_k.pop(0)
+                if not items:
+                    return
+            stacked = np.stack(vols)  # contiguous, one pinned upload
+            up = _t("upload", upload, stacked, self.device, torch.float32)
+            outs = _t("dispatch", lambda: hardify(predict(up, offs_k)))
+            self.scan_batches.append(len(items))
+            for k, (batch, _, _) in enumerate(items):
+                enqueue(tuple(o[k:k + 1] for o in outs), batch,
+                        crop_infos[k], pool)
+
+        n_batches = 0
+        group: list = []
         t0 = time.perf_counter()
         with torch.inference_mode(), cf.ThreadPoolExecutor(2) as pool:
-            for batch in self.data["test_loader"]:
+            it = iter(self.data["test_loader"])
+            while True:
+                batch = _t("decode-wait", next, it, None)
+                if batch is None:
+                    break
+                n_batches += 1
                 images = batch["image"]
                 pads = [(0, -s % POOL_MULTIPLE) for s in images.shape[1:]]
-                x = upload(np.pad(images, [(0, 0)] + pads), self.device,
-                           torch.float32)
-                out = predict(x)
-                outs = out if isinstance(out, tuple) else (out,)
-                # argmax on the device: only uint8 masks cross the link
-                pending.append((tuple(torch.argmax(o, -1).to(torch.uint8)
-                                      for o in outs), batch))
-                self.n_served += images.shape[0]
-                if len(pending) >= depth:
-                    flush_one(pool)
+                padded = _t("pad", np.pad, images, [(0, 0)] + pads)
+                plan = None
+                if fg_on and padded.shape[0] == 1:
+                    plan = foreground.plan_crop(padded[0], margin=fg_margin,
+                                                multiple=POOL_MULTIPLE)
+                if serve_scan > 1 and padded.shape[0] == 1:
+                    group.append((batch, padded, plan))
+                    if len(group) >= serve_scan:
+                        dispatch_group(group, pool)
+                else:
+                    dispatch_single(batch, padded, plan, pool)
+            dispatch_group(group, pool)
             while pending:
                 flush_one(pool)
+            t_drain = time.perf_counter()
             for f in write_futs:
                 self.out_paths = f.result()
+            prof["write-drain"] += time.perf_counter() - t_drain
         self.serve_seconds = time.perf_counter() - t0
+        self._calib_hint = None  # let the last volume go
+        if prof_on and n_batches:
+            prof["other"] = self.serve_seconds - sum(prof.values())
+            self.serve_profile_s = dict(prof)
+            print("serving profile (loop-blocking seconds, "
+                  f"{n_batches} batches, {self.serve_seconds:.2f}s total):")
+            for k, v in sorted(prof.items(),
+                               key=lambda kv: (kv[0] == "other", -kv[1])):
+                print(f"  {k:<14s} {v:8.2f}s  ({v / n_batches * 1000:7.1f} "
+                      "ms/batch)")
 
 
 def cli() -> None:

@@ -8,8 +8,10 @@ settings this slice does not serve must raise, and a missing card must be
 an error. The engine against ``ctunet_tpu.engine.build_predict(...,
 interpret=True)`` is in the slow lane (about 40 s per model here).
 ``train_flag`` is served since the training slice (its tests are
-``test_torch_port_train_*``); ``fg_crop_train`` took its place among the
-settings that raise.
+``test_torch_port_train_*``), the foreground-crop settings (``fg_crop``,
+``serve_scan``, ``serve_profile``, ``fg_crop_train``) since the
+foreground-crop slice (``test_torch_port_foreground.py``,
+``test_torch_port_fg_train.py``).
 """
 
 import glob
@@ -35,6 +37,7 @@ from ctunet_tpu_torch.data.datasets import NiftiImageDataset
 from ctunet_tpu_torch.data.pipeline import HostLoader
 from ctunet_tpu_torch.device import resolve_device
 from ctunet_tpu_torch.ops import hard_segm, largest_cc
+from ctunet_tpu_torch.ops.foreground import crop_slices, plan_crop
 from ctunet_tpu_torch.trainer import cli
 from ctunet_tpu_torch.utils import nifti
 
@@ -140,7 +143,49 @@ def test_model_serves_non_multiple_shapes(tmp_path):
 
 @pytest.mark.parametrize("key,value", [
     ("fg_crop_train", True), ("serve_profile", True), ("fg_crop", True),
-    ("serve_scan", 4), ("patch_inference", True), ("distributed", True),
+    ("serve_scan", 4),
+])
+def test_fg_and_scan_settings_are_served(tmp_path, key, value):
+    """The settings of the foreground-crop slice, once refused, are read
+    and served: masks at the canvas shape, the profile's stages, the
+    K-batch, the training window."""
+    shape = (32, 64, 64)  # the shells' margin-2 windows are smaller
+    csv = make_dataset(str(tmp_path / "data"), n=2, shape=shape, seed=3)
+    register_atlas(shape, spherical_shell(shape, radius_frac=0.42))
+    params = dict(test_flag=True, name="fgs", model_class="UNetSP",
+                  problem_handler="FlapRecWithShapePriorDoubleOut",
+                  device="cpu", workspace_path=str(tmp_path / "ws"),
+                  test_files_csv=csv, resume_model=UNETSP_10K,
+                  compute_dtype="float32", fg_margin=2)
+    if key == "fg_crop_train":
+        params.update(train_flag=True, train_files_csv=csv,
+                      validation_files_csv=csv, n_epochs=1, batch_size=1,
+                      ce_lambda=1.0, dice_lambda=1.0, resume_model="",
+                      fg_train_size="16,16,32")
+    params[key] = value
+    m = Model(params=params)
+    assert m.n_served == 2
+    files = sorted(glob.glob(str(tmp_path / "data" / "pred_fgs" / "*")))
+    assert len(files) == 6
+    assert all(nifti.read(f).data.shape == shape for f in files)
+    if key == "fg_crop_train":
+        assert m.fg_train_size == (16, 16, 32)
+        assert m.writer.history["val/epoch/fg_lost_voxels"][-1][1] >= 0
+    elif key == "serve_profile":
+        assert set(m.serve_profile_s) >= {"decode-wait", "dispatch", "other"}
+    elif key == "serve_scan":
+        assert m.scan_batches == [1]  # the warm-up dispatch, then 1
+    else:  # served on the crop: outside it, the fill class
+        vol = nifti.read(files[1]).data
+        offs, size = plan_crop(vol, margin=2, multiple=16)
+        sk = nifti.read(files[2]).data
+        out = np.ones(shape, bool)
+        out[crop_slices(offs, size)] = False
+        assert out.any() and len(np.unique(sk[out])) == 1
+
+
+@pytest.mark.parametrize("key,value", [
+    ("patch_inference", True), ("distributed", True),
     ("mesh_data", 2), ("mesh_spatial", 2), ("profile_dir", "trace"),
 ])
 def test_unported_settings_raise(tmp_path, key, value):

@@ -45,7 +45,10 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
    ``F32_TC_FLOP_PER_S``). Then the kernels at the launch shapes of phase
    9's windows (:func:`check_windows`): K1q, K2q, K3q and the bf16 K1, K2,
    K3 of the int8 engine's calibration forward at the serving window, K6
-   forward and input gradients at the fg-crop training window.
+   forward and input gradients at the fg-crop training window. Then every
+   launch shape of phase 10 (:func:`check_512`, UNetSPSmall at
+   224x512x512, 4-64 channels): K2 / K2q, the bf16 K1, K6 and K3, K1q and
+   K3q, the f32 K1 and K3, the same way.
 3. bf16 path: serves synthetic broken skulls (``spherical_shell`` with a
    hole punched; atlas ``spherical_shell(radius_frac=0.42)``) through the
    ``Model`` test path with the committed ``unetsp_10k`` weights, checks
@@ -148,6 +151,20 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
    ``conv_impl = chain``, ``b_fg_crop_train``): 2 train + 1 eval steps,
    finite losses, ``fg_lost_voxels`` 0, K6 31 / 16 a step, the
    checkpoint, and ms per step at the window.
+10. The 5-block family: ``examples/UNetSPDO/FlapRecSP2O_512.ini``
+   (UNetSPSmall, the committed ``unetspsmall_3k`` weights) through
+   ``Model`` at 224x512x512 on synthetic broken skulls with a registered
+   atlas: bf16 whole volumes as written (15 K1, 5 K2, 5 K3 a volume; the
+   masks against the plain-version engine and the plain f32 model), f32
+   (within atol 5e-4 / rtol 1e-3 of the plain f32 model, TF32 off), int8
+   PTQ (equal to the same engine on the plain versions; Dice against the
+   f32 model printed), ``b_patch_inference`` (147 patches of 128^3 at
+   overlap 0.5, the blend against the same window over the plain-version
+   engine, ms per volume beside whole-volume serving), then ``conv_impl =
+   chain`` training (39 K6 a train step, 20 an eval step, asserted; ms per
+   step beside ``xla``, peak memory) and one volume served from the
+   trained weights. Where the 3k model draws no flap on these skulls the
+   phase says so and holds the flap's probabilities instead of its Dice.
 
 The last two lines of output are one JSON object ``{"kernels": [...]}``
 and ``{"ok": true, "device": {...}}``. Any failure exits non-zero and
@@ -171,6 +188,28 @@ import traceback
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 SHAPE = (224, 304, 304)  # examples/UNetSPDO/FlapRecSP2O.ini
+UNETSP_WIDTHS = (7, 14, 28, 56)  # UNetSP's encoder widths (i_size 7)
+# phase 10: examples/UNetSPDO/FlapRecSP2O_512.ini, UNetSPSmall (5 blocks,
+# i_size 4) on its 224x512x512 canvas
+INI_512 = os.path.join(ROOT, "examples", "UNetSPDO", "FlapRecSP2O_512.ini")
+SHAPE_512 = (224, 512, 512)
+SMALL_WIDTHS = (4, 8, 16, 32, 64)
+# phase 10's rows of the kernel line: keys ``name + AT_512``, apart from the
+# UNetSP canvas's rows of the same kernels
+AT_512 = "@512"
+# each kernel function's row in phase 10 takes the shape of a wrapper that
+# launches it
+KERNEL_OF = {"conv3d_tc": "conv3d_bn_relu", "upconv_tc": "upconv_bn_relu",
+             "maxpool2_rows": "maxpool2", "conv3d_tc_q": "conv3d_q_requant",
+             "upconv_tc_q": "upconv_q_requant",
+             "conv3d_tc_f32": "conv3d_bn_relu_f32",
+             "upconv_tc_f32": "upconv_bn_relu_f32"}
+N_512 = 2  # volumes served whole in bf16 (f32, int8, patches: the first)
+SEED_512 = 1000  # the caps' seeds: SEED_512 + volume index
+N_TRAIN_512 = 2  # train steps of phase 10's training run (1 eval step)
+# K6 launches per step of UNetSPSmall's 20 convs: every forward, every
+# input gradient but the network input's
+K6_PER_TRAIN_STEP_5, K6_PER_EVAL_STEP_5 = 20 + 19, 20
 N_VOLUMES = 3
 # the int8 serving settings (AdaQuant at the INI's default 250 steps)
 INT8_INI = os.path.join(ROOT, "examples", "UNetSPDO",
@@ -373,7 +412,7 @@ def check_pool(device, shape=SHAPE, reps_big: int = 20,
 
     gen = torch.Generator(device=device).manual_seed(2)
     d, h, w = shape
-    lv = [(d >> i, h >> i, w >> i) for i in range(5)]
+    lv = [(d >> i, h >> i, w >> i) for i in range(6)]
     kinds = {  # dtype, wrapper, its f32 counter, direct, plain, entry
         "bf16": (torch.bfloat16, "maxpool2", None, kc.maxpool2_direct,
                  kc.maxpool2_plain, "maxpool2"),
@@ -514,7 +553,7 @@ def check_pool(device, shape=SHAPE, reps_big: int = 20,
     return entries, failures
 
 
-def unetsp_convs(widths=(7, 14, 28, 56), cin: int = 2):
+def unetsp_convs(widths=UNETSP_WIDTHS, cin: int = 2):
     """UNetSP's 16 k=3 convs as ``(ci, co, level, served)``: each encoder
     level's two units, then decoder block j's two at level ``n - 1 - j``;
     ``served`` marks the K1 launches of the bf16 engine (it fuses each
@@ -593,7 +632,7 @@ def check_conv_tc(device, shape=SHAPE, rows=None):
     gen = torch.Generator(device=device).manual_seed(4)
     bf = torch.bfloat16
     d, h, w = shape
-    lv = [(d >> i, h >> i, w >> i) for i in range(5)]
+    lv = [(d >> i, h >> i, w >> i) for i in range(6)]
     entries, failures, sums = {}, [], {}
     for (k, ci, co, level), paths in (rows or conv_tc_shapes()).items():
         shp = lv[level]
@@ -709,7 +748,7 @@ def check_upconv_tc(sd, device, shape=SHAPE, reps_big: int = 3,
     gen = torch.Generator(device=device).manual_seed(3)
     bf = torch.bfloat16
     d, h, w = shape
-    lv = [(d >> i, h >> i, w >> i) for i in range(5)]
+    lv = [(d >> i, h >> i, w >> i) for i in range(6)]
     entries, failures, sums = {}, [], {}
 
     def randn(*shp):
@@ -840,7 +879,7 @@ def check_kernel_train(device, shape=SHAPE, reps: int = 3):
 
     gen = torch.Generator(device=device).manual_seed(2)
     d, h, w = shape
-    lv = [(d >> i, h >> i, w >> i) for i in range(5)]
+    lv = [(d >> i, h >> i, w >> i) for i in range(6)]
     entries, failures = {}, []
 
     def randn(*shp, dtype):
@@ -1060,7 +1099,7 @@ def f32_shapes():
 
 
 def check_kernels_f32(sd, device, shape=SHAPE, reps_big: int = 2,
-                      reps_small: int = 10):
+                      reps_small: int = 10, rows=None):
     """The f32 kernels of the f32 paths against their plain versions,
     within ``f32_tol``, at every shape of :func:`f32_shapes`, through the
     wrapper each path calls: K1 ``conv3d_bn_relu`` and K5
@@ -1085,7 +1124,8 @@ def check_kernels_f32(sd, device, shape=SHAPE, reps_big: int = 2,
     each path's sums (time x launches). Returns ``(entries, failures)``,
     entries keyed ``<wrapper>_f32`` (its first shape), ``conv3d_tc_f32``
     (K5 64->16 at 112x152x152) and ``upconv_tc_f32`` (its largest launch,
-    K7b (14+14)->28 to 224x304x304)."""
+    K7b (14+14)->28 to 224x304x304). ``rows`` (default :func:`f32_shapes`)
+    narrows it to other launches (K3 rows then take ``sd``'s decoder)."""
     import torch
     import torch.nn.functional as F
 
@@ -1099,7 +1139,7 @@ def check_kernels_f32(sd, device, shape=SHAPE, reps_big: int = 2,
     gen = torch.Generator(device=device).manual_seed(6)
     f32 = torch.float32
     d, h, w = shape
-    lv = [(d >> i, h >> i, w >> i) for i in range(5)]
+    lv = [(d >> i, h >> i, w >> i) for i in range(6)]
     entries, failures, sums = {}, [], {}
     kernel_of = {"conv3d_bn_relu": "conv3d_f32",
                  "conv3d5_bias_act": "conv3d5_f32",
@@ -1116,7 +1156,7 @@ def check_kernels_f32(sd, device, shape=SHAPE, reps_big: int = 2,
     def cl(t):  # channels-last (..., C) -> NCDHW view for cuDNN
         return t.permute(3, 0, 1, 2)[None]
 
-    for key, paths in f32_shapes().items():
+    for key, paths in (rows or f32_shapes()).items():
         name = key[0]
         direct, peak = None, F32_TC_FLOP_PER_S
         if name in ("conv3d_bn_relu", "conv3d5_bias_act", "conv3d5_train"):
@@ -1267,7 +1307,7 @@ def check_kernels_f32(sd, device, shape=SHAPE, reps_big: int = 2,
     return entries, failures
 
 
-def k1q_shapes(widths=(7, 14, 28, 56), cin: int = 2):
+def k1q_shapes(widths=UNETSP_WIDTHS, cin: int = 2):
     """The int8 engine's K1q launches per volume as ``{(ci, co, level):
     (unit tag of its weights, launches)}``: each encoder level's two units,
     and each decoder block's unit 1 (its unit 0 is fused into K3q), which
@@ -1281,7 +1321,8 @@ def k1q_shapes(widths=(7, 14, 28, 56), cin: int = 2):
 
 
 def check_kernels_q(sd, device, shape=SHAPE, reps_big: int = 5,
-                    reps_small: int = 50, reps_plain: int = 1):
+                    reps_small: int = 50, reps_plain: int = 1,
+                    model_class: str = "UNetSP", widths=UNETSP_WIDTHS):
     """K1q and K3q against their plain versions at every shape of the
     int8 path (K1q's 8 distinct shapes, K3q's 4), in zp mode, plus one
     symmetric-mode shape each; with the layers the int8 engine quantizes
@@ -1296,7 +1337,9 @@ def check_kernels_q(sd, device, shape=SHAPE, reps_big: int = 5,
     line per shape and the per-volume sums (time x launches). Returns
     ``(entries, failures)``: each wrapper's first shape, and under
     ``conv3d_tc_q`` / ``upconv_tc_q`` their largest launch (7->7 and
-    (14+14)->7 at full resolution)."""
+    (14+14)->7 at full resolution). ``model_class`` and its encoder
+    ``widths`` select the engine (UNetSPSmall: 15 K1q and 5 K3q shapes,
+    the first K3q from level 5)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1309,12 +1352,12 @@ def check_kernels_q(sd, device, shape=SHAPE, reps_big: int = 5,
 
     gen = torch.Generator(device=device).manual_seed(1)
     d, h, w = shape
-    lv = [(d >> i, h >> i, w >> i) for i in range(5)]
+    lv = [(d >> i, h >> i, w >> i) for i in range(6)]
     x_cal = np.stack([punched_shell(shape, 800),
                       spherical_shell(shape, radius_frac=0.42)], -1)
     x_cal = torch.from_numpy(x_cal.astype(np.float32)).to(device)
     t0 = time.perf_counter()
-    pq = engine_q.build_predict_q("UNetSP", sd, x_cal, device=device)
+    pq = engine_q.build_predict_q(model_class, sd, x_cal, device=device)
     layers = pq.layers
     log(f"  calibration + quantization of the layers: "
         f"{time.perf_counter() - t0:.1f} s")
@@ -1366,9 +1409,10 @@ def check_kernels_q(sd, device, shape=SHAPE, reps_big: int = 5,
 
     # K1q: every distinct shape, zp mode, then 7->7 at full resolution in
     # symmetric mode (inputs 0..127, the same weights and requant)
+    n_lv, w0 = len(widths), widths[0]
     k1q = [(ci, co, lvl, tag, n, True)
-           for (ci, co, lvl), (tag, n) in k1q_shapes().items()]
-    k1q.append((7, 7, 0, "d0.1", 0, False))
+           for (ci, co, lvl), (tag, n) in k1q_shapes(widths).items()]
+    k1q.append((w0, w0, 0, "d0.1", 0, False))
     sums = [0.0, 0.0, 0.0]
     for ci, co, lvl, tag, n, zp in k1q:
         shp = lv[lvl]
@@ -1397,7 +1441,7 @@ def check_kernels_q(sd, device, shape=SHAPE, reps_big: int = 5,
                 f"{'' if zp else ' symmetric'}")
         b_ms = record("conv3d_q_requant", "conv3d_tc_q", case, got, ref, ms,
                       d_ms, p_ms, l_ms, nbytes, nops, launched,
-                      (ci, co, lvl, zp) == (7, 7, 0, True))
+                      (ci, co, lvl, zp) == (w0, w0, 0, True))
         log(f"    plan mf={plan.mf} nf={plan.nf} tx={1 << plan.tx_log2} "
             f"u={plan.u} cc={plan.cc} chunks={plan.chunks}; {n} launches "
             "per volume")
@@ -1405,20 +1449,21 @@ def check_kernels_q(sd, device, shape=SHAPE, reps_big: int = 5,
         sums[1] += n * d_ms
         sums[2] += n * b_ms
         del x, got, ref, x_l
-    log(f"  TCQ sum: 12 K1q launches per volume, conv3d_tc_q {sums[0]:.3f} "
+    log(f"  TCQ sum: {3 * n_lv} K1q launches per volume, conv3d_tc_q "
+        f"{sums[0]:.3f} "
         f"ms, direct {sums[1]:.3f} ms, bound {sums[2]:.4f} ms")
 
     # K3q: decoder block j from half-resolution level 4 - j, zp mode, then
     # (14+14)->7 in symmetric mode
     sums = [0.0, 0.0, 0.0]
-    for j, zp in ((0, True), (1, True), (2, True), (3, True), (3, False)):
-        shp2 = lv[4 - j]
+    for j, zp in [(j, True) for j in range(n_lv)] + [(n_lv - 1, False)]:
+        shp2 = lv[n_lv - j]
         wa, wb, wone, s_, b_ = layers[f"u{j}.0"]
         a = rand_q(shp2 + (wa.shape[3],), zp)
         b = None if wb is None else rand_q(shp2 + (wb.shape[3],), zp)
         ca, co = wa.shape[3], wa.shape[4]
         cb = 0 if wb is None else wb.shape[3]
-        big = j == 3
+        big = j == n_lv - 1
         reps = reps_big if big else reps_small
         args = (a, b, wa, wb, wone, s_, b_, zp)
         before = ut.upconv_tc_q.launches
@@ -1450,7 +1495,7 @@ def check_kernels_q(sd, device, shape=SHAPE, reps_big: int = 5,
             f"{'' if zp else ' symmetric'}")
         b_ms = record("upconv_q_requant", "upconv_tc_q", case, got, ref, ms,
                       d_ms, p_ms, l_ms, nbytes, nops, launched,
-                      (j, zp) == (3, True))
+                      (j, zp) == (n_lv - 1, True))
         log(f"    plan np={plan.np} mf={plan.mf} nf={plan.nf} "
             f"tx={1 << plan.tx_log2} cg={plan.cg} chunks={plan.chunks}")
         if zp:
@@ -1458,7 +1503,8 @@ def check_kernels_q(sd, device, shape=SHAPE, reps_big: int = 5,
             sums[1] += d_ms
             sums[2] += b_ms
         del a, b, got, ref, x_l
-    log(f"  UTCQ sum: 4 K3q launches per volume, upconv_tc_q {sums[0]:.3f} "
+    log(f"  UTCQ sum: {n_lv} K3q launches per volume, upconv_tc_q "
+        f"{sums[0]:.3f} "
         f"ms, direct {sums[1]:.3f} ms, bound {sums[2]:.4f} ms")
     return entries, failures
 
@@ -3328,6 +3374,480 @@ def train_fg(device, work: str, shape=SHAPE, before=None,
     return launches, stats, failures
 
 
+def small_rows():
+    """Every launch shape of phase 10's UNetSPSmall (``SMALL_WIDTHS``) for
+    the phase-2 checks: ``(pools, convs, k3, f32)``: K2 (bf16, f32) and K2q
+    per volume; the bf16 k=3 convs, K1 per volume (15) and K6 per train
+    step (20 forward + 19 input gradients); K3 per volume (decoder block j
+    from level 5 - j); the f32 K1 and K3 per f32 volume."""
+    pools = {(dt, c, lv): {"UNetSPSmall": 1}
+             for dt in ("bf16", "f32", "int8")
+             for lv, c in enumerate(SMALL_WIDTHS)}
+    convs, f32 = {}, {}
+
+    def add(rows, key, path):
+        rows.setdefault(key, {}).setdefault(path, 0)
+        rows[key][path] += 1
+
+    for i, (ci, co, lv, served) in enumerate(unetsp_convs(SMALL_WIDTHS)):
+        if served:
+            add(convs, (3, ci, co, lv), "K1/volume")
+            add(f32, ("conv3d_bn_relu", ci, co, lv), "UNetSPSmall")
+        add(convs, (3, ci, co, lv), "K6/step")
+        if i:
+            add(convs, (3, co, ci, lv), "K6/step")
+    n = len(SMALL_WIDTHS)
+    k3 = [("upconv_bn_relu", j, None, None, n - j, "UNetSPSmall")
+          for j in range(n)]
+    for name, j, _, _, lv, path in k3:
+        add(f32, (name, j, None, None, lv), path)
+    return pools, dict(sorted(convs.items())), k3, f32
+
+
+def check_512(device, shape=SHAPE_512):
+    """The kernels at every launch shape of phase 10 (:func:`small_rows`,
+    UNetSPSmall at ``shape``): K2 / K2q (equal by value), the bf16 K1 and
+    K6 forward and input gradients and K3 (within ``bf16_tol``), K1q and
+    K3q (exact, on layers quantized from a calibration of UNetSPSmall on
+    one synthetic volume), the f32 K1 and K3 (within ``f32_tol``), with the
+    trained ``unetspsmall_3k`` decoder in every K3; each timed beside the
+    direct kernel, the plain version, the library call where it takes the
+    dtype, and the bound. Returns ``(entries, failures)``, each entry
+    keyed ``name + AT_512`` (the kernel line gives phase 10 rows of their
+    own): every wrapper at its first shape, and each kernel function at
+    the first shape of the wrapper that launches it (:data:`KERNEL_OF`)."""
+    from ctunet_tpu_torch.checkpoint import UNETSPSMALL_3K, load_any
+
+    sd = load_any(UNETSPSMALL_3K)
+    pools, convs, k3, f32 = small_rows()
+    entries, failures = {}, []
+    for check in (
+            lambda: check_pool(device, shape, rows=pools, extras=False),
+            lambda: check_conv_tc(device, shape, rows=convs),
+            lambda: check_upconv_tc(sd, device, shape, rows=k3),
+            lambda: check_kernels_q(sd, device, shape,
+                                    model_class="UNetSPSmall",
+                                    widths=SMALL_WIDTHS),
+            lambda: check_kernels_f32(sd, device, shape, rows=f32)):
+        got, errs = check()
+        for k, v in got.items():
+            entries.setdefault(k, v)
+        failures += errs
+    for kernel, wrapper in KERNEL_OF.items():
+        if wrapper in entries:
+            entries.setdefault(kernel, entries[wrapper])
+    return {k + AT_512: v for k, v in entries.items()}, failures
+
+
+def small_skulls(shape, n: int, seed: int = SEED_512):
+    """Phase 10's broken skulls (a cap removed from a 0.42 shell whose
+    centre ``spherical_shell`` jitters by up to 1.5 voxels) and their
+    registered atlas, the complete canvas-centred 0.42 shell."""
+    import numpy as np
+
+    from ctunet_tpu_torch.data import spherical_shell
+
+    vols = [punched_shell(shape, seed + i, 0.42) for i in range(n)]
+    return vols, spherical_shell(shape, radius_frac=0.42).astype(np.float32)
+
+
+def spsmall(device, work: str, shape=SHAPE_512, n_volumes: int = N_512,
+            n_train: int = N_TRAIN_512, time_steps: int = 2, before=None):
+    """Phase 10, the 5-block family: ``examples/UNetSPDO/
+    FlapRecSP2O_512.ini`` (UNetSPSmall, ``unetspsmall_3k``) through
+    ``Model`` at ``shape``: bf16 whole volumes as written, f32, int8 (PTQ,
+    no AdaQuant), sliding windows (``b_patch_inference``: 128^3 patches at
+    0.5 overlap, the default ``patch_batch``), then training
+    (``conv_impl = chain``) and serving from the trained weights. Checks
+    the files, every run's launch counts (15 K1 / K1q, 5 K2 / K2q, 5 K3 /
+    K3q a volume or a patch; K6 39 a train step and 20 an eval step), the
+    bf16 masks against the plain-version engine (Dice >= 0.999 on decided
+    voxels) and the plain f32 model (no further than the plain bf16
+    engine), the f32 engine within atol 5e-4 / rtol 1e-3 of the plain f32
+    model, the int8 engine equal to itself on the plain versions, the
+    patch blend against the same window over the plain-version engine, and
+    finite training losses. Where the f32 model draws no flap on these
+    skulls the flap is held by its probabilities (the kernel engine's mean
+    distance from the f32 model no larger than the plain bf16 engine's)
+    instead of its Dice; the patch blend holds both heads so, against the
+    same window over the plain f32 model. ``before``: the earlier phases'
+    stats, printed beside. Returns ``(launches, stats, failures)``, the
+    launches under the kernel line's row names (the f32 K1 and K3 as
+    ``conv3d_bn_relu_f32`` / ``upconv_bn_relu_f32``)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from ctunet_tpu_torch import (Model, default_params, engine, engine_q,
+                                  load_params, steps)
+    from ctunet_tpu_torch.checkpoint import UNETSPSMALL_3K, load_any
+    from ctunet_tpu_torch.data import make_dataset
+    from ctunet_tpu_torch.data.atlas import register_atlas
+    from ctunet_tpu_torch.models import build_model
+    from ctunet_tpu_torch.ops import kernels
+    from ctunet_tpu_torch.ops.sliding_window import (grid_starts,
+                                                     make_sliding_window_fn)
+    from ctunet_tpu_torch.problem import FlapRecWithShapePriorDoubleOut
+    from ctunet_tpu_torch.utils import nifti
+
+    mc, f32, bf = "UNetSPSmall", torch.float32, torch.bfloat16
+    failures, stats, launches = [], {}, collections.Counter()
+    cuda = device.type == "cuda"
+    vols, atlas = small_skulls(shape, n_volumes)
+    data = os.path.join(work, "data")
+    os.makedirs(data)
+    affine = np.diag([0.45, 0.45, 0.45, 1.0])
+    paths = []
+    for i, v in enumerate(vols):
+        paths.append(os.path.join(data, f"skull_{i:03d}.nii.gz"))
+        nifti.write(paths[-1], nifti.NiftiImage(v, affine))
+    csv, csv1 = (os.path.join(data, f) for f in ("files.csv", "first.csv"))
+    for f, ps in ((csv, paths), (csv1, paths[:1])):
+        with open(f, "w") as fh:
+            fh.write("image,mask\n" + "".join(f"{p},\n" for p in ps))
+    register_atlas(shape, atlas)
+    ini = load_params(INI_512, default_params())
+    log(f"  {INI_512}: {ini['model_class']}, {ini['compute_dtype'] or 'bf16'}"
+        f", b_patch_inference {ini['patch_inference']}, patch "
+        f"{ini['patch_size']} at overlap {ini['patch_overlap']}, "
+        f"patch_batch {ini['patch_batch']} (default)")
+    base = dict(ini, workspace_path=os.path.join(work, "ws"),
+                test_files_csv=csv, resume_model=UNETSPSMALL_3K, n_workers=2)
+    if not cuda:
+        base["device"] = device.type
+    per_vol = {"conv3d_bn_relu": 15, "maxpool2": 5, "upconv_bn_relu": 5,
+               "conv3d_tc": 15, "upconv_tc": 5, "maxpool2_rows": 5}
+
+    def run(label, want, n, **extra):
+        """``Model`` on the INI with ``extra``; its launch counts against
+        ``want`` (per volume, times ``n``), its files."""
+        name = f"sp512_{label}"
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        m = Model(params=dict(base, name=name, **extra))
+        sync(device)
+        wall = time.perf_counter() - t0
+        counts = kernels.launches()
+        want = {k: v * n for k, v in want.items()}
+        got = {k: counts[k] for k in want}
+        log(f"  {label}: {m.n_served} volume(s) in {wall:.1f} s (loop "
+            f"{m.serve_seconds:.2f} s); launches {got} (want {want})")
+        if got != want:
+            failures.append(f"{label} launch counts {got} != {want}")
+        launches.update({k: v for k, v in got.items() if v})
+        ps = paths if extra.get("test_files_csv") != csv1 else paths[:1]
+        masks = read_masks(os.path.join(data, f"pred_{name}"), ps, shape,
+                           affine, failures)
+        return m, masks
+
+    sd = load_any(UNETSPSMALL_3K)
+    x0 = torch.from_numpy(np.stack([vols[0].astype(np.float32), atlas],
+                                   -1)[None]).to(device)
+    key = os.path.basename(paths[0]).replace(".nii.gz", "")
+    model = build_model(mc).to(device).eval()
+    model.load_state_dict(sd)
+    with torch.inference_mode():
+        ref = [t[0] for t in model(x0)]  # the plain f32 model, TF32 off
+    ref_mask = [torch.argmax(r, -1).to(torch.uint8) for r in ref]
+    flap_drawn = bool(ref_mask[1].any())
+    log(f"  plain f32 model on volume 0: skull {int(ref_mask[0].sum())} "
+        f"voxels, flap {int(ref_mask[1].sum())} voxels"
+        + ("" if flap_drawn else " -- the 3k model draws no flap on these "
+           "skulls: the flap is held by its probabilities, not its Dice"))
+    stats["flap_drawn"] = flap_drawn
+
+    # ---- bf16, whole volumes, the INI as written -------------------------
+    m, masks = run("bf16", per_vol, n_volumes)
+    st = dict(vol_per_s=m.n_served / m.serve_seconds)
+    k_pred = engine.build_predict(mc, sd, bf, device)
+    p_pred = engine.build_predict(mc, sd, bf, device, plain=True)
+    with torch.inference_mode():
+        outs = {"kernel": k_pred(x0), "plain": p_pred(x0)}
+    for i, sfx in enumerate(("sk", "fl")):
+        prob = {k: v[i][0] for k, v in outs.items()}
+        mask = {k: torch.argmax(v, -1).to(torch.uint8)
+                for k, v in prob.items()}
+        if prob["kernel"].dtype != f32 or not bool(
+                torch.isfinite(prob["kernel"]).all()):
+            failures.append(f"bf16 {sfx}: the double_softmax head is not "
+                            "finite f32")
+        got = masks.get((key, sfx))
+        if got is None or not np.array_equal(got,
+                                             mask["kernel"].cpu().numpy()):
+            failures.append(f"bf16 {sfx}: Model's file differs from the "
+                            "engine")
+        decided = torch.ones(shape, dtype=torch.bool, device=device)
+        for k in ("kernel", "plain"):
+            decided &= (prob[k][..., 1] - prob[k][..., 0]).abs() > DECIDED
+        dec = decided.cpu().numpy()
+        mk, mp = mask["kernel"].cpu().numpy(), mask["plain"].cpu().numpy()
+        mf = ref_mask[i].cpu().numpy()
+        d = dict(decided=dice(mk[dec], mp[dec]), kernel_f32=dice(mk, mf),
+                 plain_f32=dice(mp, mf),
+                 kernel_f32_mean_abs=float((prob["kernel"] - ref[i]).abs()
+                                           .mean()),
+                 plain_f32_mean_abs=float((prob["plain"] - ref[i]).abs()
+                                          .mean()),
+                 max_abs_kernel_plain=float((prob["kernel"] - prob["plain"])
+                                            .abs().max()))
+        log(f"  bf16 {sfx}: {int(mp.sum())} fg voxels; Dice kernel vs plain "
+            f"engine {d['decided']:.6f} (the {int(dec.sum())} decided); vs "
+            f"the f32 model: kernel {d['kernel_f32']:.6f}, plain bf16 "
+            f"{d['plain_f32']:.6f}; mean |p - p_f32| kernel "
+            f"{d['kernel_f32_mean_abs']:.3e}, plain bf16 "
+            f"{d['plain_f32_mean_abs']:.3e}; max |p_kernel - p_plain| "
+            f"{d['max_abs_kernel_plain']:.3e}")
+        st.update({f"{sfx}_{k}": v for k, v in d.items()})
+        if sfx == "sk" or flap_drawn:
+            if not d["decided"] >= 0.999:
+                failures.append(f"bf16 {sfx}: Dice on decided voxels "
+                                f"{d['decided']} < 0.999")
+            if not d["kernel_f32"] >= d["plain_f32"] - 1e-3:
+                failures.append(f"bf16 {sfx}: kernel engine further from "
+                                f"the f32 model ({d['kernel_f32']}) than the "
+                                f"plain bf16 engine ({d['plain_f32']})")
+        elif not (d["kernel_f32_mean_abs"]
+                  <= d["plain_f32_mean_abs"] * 1.01 + 1e-6):
+            failures.append(f"bf16 {sfx} (no flap drawn): kernel engine's "
+                            "probabilities further from the f32 model than "
+                            "the plain bf16 engine's")
+    del outs
+    st["engine_ms"] = time_ms(lambda: k_pred(x0), 3, device)
+    st["plain_engine_ms"] = time_ms(lambda: p_pred(x0), 1, device)
+    log(f"  bf16 engine {st['engine_ms']:.2f} ms/volume (plain versions "
+        f"{st['plain_engine_ms']:.2f}); Model loop {st['vol_per_s']:.3f} "
+        f"volumes/s over {m.n_served} volumes, the first's set-up included "
+        f"(not a steady rate); UNetSP at "
+        f"224x304x304 (phase 3): "
+        f"{(before or {}).get(3, {}).get('engine_ms', float('nan')):.2f} ms")
+    profile_device(lambda: k_pred(x0), device, what="one UNetSPSmall volume")
+    stats["bf16"] = st
+
+    # ---- f32, one volume -------------------------------------------------
+    m, masks = run("f32", {
+        "conv3d_bn_relu": 15, "maxpool2": 5, "upconv_bn_relu": 5,
+        "conv3d_f32": 15, "conv3d_tc_f32": 15, "maxpool2_f32": 5,
+        "upconv_f32": 5, "upconv_tc_f32": 5, "conv3d_tc": 0, "upconv_tc": 0,
+        "maxpool2_rows": 5}, 1, test_files_csv=csv1,
+        compute_dtype="float32")
+    f_pred = engine.build_predict(mc, sd, f32, device)
+    with torch.inference_mode():
+        got = f_pred(x0)
+    st = {}
+    for i, sfx in enumerate(("sk", "fl")):
+        err, worst = prob_check(f"f32 {sfx}", got[i][0], ref[i], failures)
+        n_diff, n_open = mask_check(f"f32 {sfx}", got[i][0], ref[i],
+                                    masks.get((key, sfx)), failures)
+        log(f"  f32 {sfx}: max |p - p_plain f32 model| {err:.3e} (worst / "
+            f"allowance {worst:.3f}); {n_diff} decided voxels differ, "
+            f"{n_open} near-ties left out")
+        st.update({f"{sfx}_max_err": err, f"{sfx}_worst": worst})
+    del got
+    st["engine_ms"] = time_ms(lambda: f_pred(x0), 3, device)
+    log(f"  f32 engine {st['engine_ms']:.2f} ms/volume")
+    stats["f32"] = st
+    del f_pred
+
+    # ---- int8 (PTQ, round to nearest), one volume -----------------------
+    q_vol = {"conv3d_q_requant": 15, "maxpool2_q": 5, "upconv_q_requant": 5,
+             "conv3d_tc_q": 15, "upconv_tc_q": 5}
+    # the calibration forward is the bf16 engine's, as in the JAX package
+    want = dict(per_vol, **q_vol, maxpool2_rows=10)
+    m, masks = run("int8", want, 1, test_files_csv=csv1, use_int8=True,
+                   int8_adaquant=False)
+    (shp_q, qfn), = m.int8_engines.items()
+    st = dict(build_s=m.int8_build_seconds)
+    if qfn is None:
+        failures.append("int8: Model served the float engine")
+    else:
+        q_plain = engine_q.build_predict_q(mc, sd, x0[0], device=device,
+                                           plain=True,
+                                           import_scales=qfn.scales)
+        with torch.inference_mode():
+            got, want_q = qfn(x0), q_plain(x0)
+        same = all(torch.equal(a, b) for a, b in zip(got, want_q))
+        if not same:
+            failures.append("int8: the kernels' outputs differ from the "
+                            "same engine on the plain versions")
+        for i, sfx in enumerate(("sk", "fl")):
+            mq = torch.argmax(got[i][0], -1).to(torch.uint8).cpu().numpy()
+            if not np.array_equal(masks.get((key, sfx)), mq):
+                failures.append(f"int8 {sfx}: Model's file differs from the "
+                                "engine")
+            st[f"dice_{sfx}_f32"] = dice(mq, ref_mask[i].cpu().numpy())
+            st[f"{sfx}_mean_abs_f32"] = float((got[i][0] - ref[i]).abs()
+                                              .mean())
+        log(f"  int8: built in {st['build_s']:.1f} s; outputs "
+            f"{'equal' if same else 'DIFFER'} to the plain-version engine "
+            f"on the same scales; Dice vs the f32 model: skull "
+            f"{st['dice_sk_f32']:.6f}, flap {st['dice_fl_f32']:.6f}; mean "
+            f"|p - p_f32| {st['sk_mean_abs_f32']:.3e} / "
+            f"{st['fl_mean_abs_f32']:.3e}")
+        del got, want_q, q_plain
+        st["engine_ms"] = time_ms(lambda: qfn(x0), 3, device)
+        log(f"  int8 engine {st['engine_ms']:.2f} ms/volume")
+    stats["int8"] = st
+    del m, qfn
+
+    # ---- sliding windows (b_patch_inference), one volume ----------------
+    ps = int(ini["patch_size"])
+    n_patch = len(grid_starts(shape, (ps,) * 3, float(ini["patch_overlap"])))
+    m, masks = run("patch", per_vol, n_patch, test_files_csv=csv1,
+                   patch_inference=True)
+    sw = {}
+    # the same window over the kernel engine, the plain-version engine and
+    # the plain f32 model (the probabilities' reference)
+    for label, fwd, dt in (("kernel", k_pred, bf), ("plain", p_pred, bf),
+                           ("f32", model, f32)):
+        sw[label] = make_sliding_window_fn(
+            fwd, patch_size=ps, overlap=float(ini["patch_overlap"]),
+            atlas=atlas, compute_dtype=dt,
+            patch_batch=int(ini["patch_batch"]))
+    with torch.inference_mode():
+        blends = {k: fn(x0[..., 0]) for k, fn in sw.items()}
+    st = dict(patches=n_patch)
+    for i, sfx in enumerate(("sk", "fl")):
+        prob = {k: v[i][0] for k, v in blends.items()}
+        mk = torch.argmax(prob["kernel"], -1).to(torch.uint8)
+        mp = torch.argmax(prob["plain"], -1).to(torch.uint8)
+        if not np.array_equal(masks.get((key, sfx)), mk.cpu().numpy()):
+            failures.append(f"patch {sfx}: Model's file differs from the "
+                            "kernel engine's sliding window")
+        decided = ((prob["kernel"][..., 1] - prob["kernel"][..., 0]).abs()
+                   > DECIDED) & ((prob["plain"][..., 1]
+                                  - prob["plain"][..., 0]).abs() > DECIDED)
+        dec = decided.cpu().numpy()
+        mk, mp = mk.cpu().numpy(), mp.cpu().numpy()
+        err = float((prob["kernel"] - prob["plain"]).abs().max())
+        d = dice(mk[dec], mp[dec])
+        k_abs, p_abs = (float((prob[k] - prob["f32"]).abs().mean())
+                        for k in ("kernel", "plain"))
+        st.update({f"{sfx}_dice_decided": d, f"{sfx}_max_abs": err,
+                   f"{sfx}_kernel_f32_mean_abs": k_abs,
+                   f"{sfx}_plain_f32_mean_abs": p_abs,
+                   f"{sfx}_dice_whole_f32": dice(mk, ref_mask[i].cpu()
+                                                 .numpy())})
+        log(f"  patch {sfx}: blend vs the plain-version window: Dice "
+            f"{d:.6f} on the {int(dec.sum())} decided voxels, max |dp| "
+            f"{err:.3e}; mean |p - p_f32| against the f32 model's window: "
+            f"kernel {k_abs:.3e}, plain bf16 {p_abs:.3e}; Dice vs the "
+            f"whole-volume f32 model {st[f'{sfx}_dice_whole_f32']:.6f}")
+        if (sfx == "sk" or mp.any()) and not d >= 0.999:
+            failures.append(f"patch {sfx}: Dice on decided voxels {d} < "
+                            "0.999")
+        # both heads, flap drawn or not: a wrong blend or head moves the
+        # kernel window away from the f32 model's
+        if not k_abs <= p_abs * 1.01 + 1e-6:
+            failures.append(f"patch {sfx}: kernel window's probabilities "
+                            f"further from the f32 model's window ({k_abs})"
+                            f" than the plain bf16 window's ({p_abs})")
+    del blends
+    st["ms_per_volume"] = time_ms(lambda: sw["kernel"](x0[..., 0]), 1,
+                                  device)
+    log(f"  patch serving {st['ms_per_volume']:.1f} ms/volume ({n_patch} "
+        f"patches of {ps}^3, engine and f32 blend) vs whole-volume "
+        f"{stats['bf16']['engine_ms']:.2f} ms")
+    stats["patch"] = st
+    del sw, k_pred, p_pred, m
+
+    # ---- training, chain, then serving from the trained weights ---------
+    train_csv = make_dataset(os.path.join(work, "train"), n=n_train,
+                             shape=shape, seed=60)
+    val_csv = make_dataset(os.path.join(work, "val"), n=1, shape=shape,
+                           seed=90)
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    k6 = n_train * K6_PER_TRAIN_STEP_5 + K6_PER_EVAL_STEP_5
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    m = Model(params=dict(
+        base, name="sp512_train", test_files_csv=csv1, train_flag=True,
+        conv_impl="chain", n_epochs=1, autosave_epochs=0,
+        train_files_csv=train_csv, validation_files_csv=val_csv,
+        resume_model="", log_every=1,
+        # the INI's Hausdorff plots: a host distance transform per eval
+        # volume (tens of seconds at this size), no device work
+        save_hd_plots=False))
+    sync(device)
+    wall = time.perf_counter() - t0
+    counts = kernels.launches()
+    want = dict(per_vol, conv3d_bias_act=k6)
+    want["conv3d_tc"] += k6
+    got = {k: counts[k] for k in want}
+    log(f"  training: {n_train} train + 1 eval steps, then 1 volume "
+        f"served, in {wall:.1f} s; launches {got} (want {want}: K6 "
+        f"{K6_PER_TRAIN_STEP_5} a train step, {K6_PER_EVAL_STEP_5} an eval "
+        "step)")
+    if got != want:
+        failures.append(f"training launch counts {got} != {want}")
+    launches.update({k: v for k, v in got.items() if v})
+    losses = [float(v) for v in m.step_losses]
+    hist = {k: v[-1][1] for k, v in m.writer.history.items()}
+    if len(losses) != n_train or not all(map(math.isfinite, losses)) or \
+            not all(math.isfinite(v) for v in hist.values()):
+        failures.append(f"training: losses not finite: {losses} {hist}")
+    if not os.path.exists(m.params["model_path"]):
+        failures.append(f"training: no checkpoint {m.params['model_path']}")
+    read_masks(os.path.join(data, "pred_sp512_train"), paths[:1], shape,
+               affine, failures)
+    st = dict(losses=losses, model_wall_s=wall)
+    if cuda:
+        st["peak_mem_gb"] = torch.cuda.max_memory_allocated(device) / 2**30
+    log(f"  train losses {losses}; epoch scalars {json.dumps(hist)}; peak "
+        f"memory {st.get('peak_mem_gb', float('nan')):.2f} GiB")
+
+    # ms per step: chain (K6) and xla (cuDNN), from the same weights
+    handler = FlapRecWithShapePriorDoubleOut()
+    loss_cfg = {k: ini.get(k) for k in ("ce_lambda", "dice_lambda")}
+    vol = torch.from_numpy(nifti_data(
+        os.path.join(work, "train", "skull_000.nii.gz"))[None]).to(device)
+    start = m.state.model.state_dict()
+    del m
+    for impl in ("chain", "xla"):
+        net = build_model(mc).to(device)
+        net.load_state_dict(copy.deepcopy(start))
+        net.configure(impl, bf)
+        state = steps.TrainState(net, steps.make_optimizer(
+            ini, net.parameters()))
+        step = steps.make_train_step(net, handler, loss_cfg, atlas=atlas,
+                                     compute_dtype=bf)
+        gen = torch.Generator(device=device).manual_seed(5)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+        times = []
+        kernels.reset_launches()
+        for _ in range(time_steps + 1):
+            sync(device)
+            t = time.perf_counter()
+            step(state, {"image": vol}, gen)
+            sync(device)
+            times.append(1e3 * (time.perf_counter() - t))
+        n_k6 = kernels.launches()["conv3d_bias_act"]
+        if impl == "chain" and n_k6 != (time_steps + 1) * K6_PER_TRAIN_STEP_5:
+            failures.append(f"chain step: {n_k6} K6 launches over "
+                            f"{time_steps + 1} steps")
+        st[f"{impl}_ms_per_step"] = float(np.mean(times[1:]))
+        if cuda:
+            st[f"{impl}_step_peak_mem_gb"] = (
+                torch.cuda.max_memory_allocated(device) / 2**30)
+        del net, state, step
+    whole = (before or {}).get(5, {}).get("chain_ms_per_step", float("nan"))
+    log(f"  ms/step at batch 1 (host clock around a synchronized step, first "
+        f"left out): chain {st['chain_ms_per_step']:.1f} (K6 "
+        f"{K6_PER_TRAIN_STEP_5} a step, asserted), xla (cuDNN) "
+        f"{st['xla_ms_per_step']:.1f}; peak memory chain "
+        f"{st.get('chain_step_peak_mem_gb', float('nan')):.2f} GiB, xla "
+        f"{st.get('xla_step_peak_mem_gb', float('nan')):.2f} GiB; UNetSP "
+        f"224x304x304 chain (phase 5): {whole:.1f} ms")
+    stats["train"] = st
+    rows = {"conv3d_f32": "conv3d_bn_relu_f32",
+            "upconv_f32": "upconv_bn_relu_f32"}
+    return ({rows.get(k, k): v for k, v in launches.items()}, stats,
+            failures)
+
+
 def main() -> int:
     import torch
 
@@ -3382,7 +3902,10 @@ def main() -> int:
              "the paths", lambda: check_kernels_f32(sd, device)),
             ("K1q, K2q, K3q and the bf16 K1, K2, K3 at phase 9's int8 "
              "serving window, K6 at its training window",
-             lambda: check_windows(sd, device))):
+             lambda: check_windows(sd, device)),
+            ("phase 10's UNetSPSmall at 224x512x512: K2 and K2q, the bf16 "
+             "K1, K6 and K3, K1q and K3q, the f32 K1 and K3",
+             lambda: check_512(device))):
         log(f"  -- {label}")
         try:
             got, errs = check()
@@ -3418,7 +3941,12 @@ def main() -> int:
                 f"{size} with FlapRecSP2O_serve_int8.ini as written (crop, "
                 "K-volume batches of 4, the serving profile), then fg-crop "
                 f"training ({FG_TRAIN_STEPS} + 1 steps)",
-             lambda device, work: fg_crop(device, work, before=phase_stats))):
+             lambda device, work: fg_crop(device, work, before=phase_stats)),
+            (10, f"the 5-block family, FlapRecSP2O_512.ini (UNetSPSmall, "
+                 f"unetspsmall_3k) at {'x'.join(map(str, SHAPE_512))}: bf16 "
+                 f"whole volumes ({N_512}), f32, int8, sliding windows, "
+                 f"training ({N_TRAIN_512} + 1 steps) and 1 volume served",
+             lambda device, work: spsmall(device, work, before=phase_stats))):
         log(f"== phase {phase}: main path, {label}, through Model")
         t0 = time.perf_counter()
         got = {}
@@ -3436,6 +3964,9 @@ def main() -> int:
         if not got or min(got.values()) == 0:
             failures.append(f"phase {phase}: a kernel of the path was never "
                             f"launched: {got}")
+        if phase == 10:  # the 5-block family's launches: rows of their own
+            launches.update({k + AT_512: v for k, v in got.items()})
+            continue
         # a later phase's count of an earlier kernel (phase 5 serves one
         # volume on K1-K3) does not replace the phase that owns it; the
         # bf16 convs of phases 3, 5 and 6 all launch conv3d_tc, their K3,
@@ -3447,10 +3978,6 @@ def main() -> int:
     launches.update(shared)
 
     log(f"== total {time.perf_counter() - t_all:.1f} s")
-    if failures:
-        for f in failures:
-            print(f"FAIL: {f}", file=sys.stderr)
-        return 1
 
     sources = {
         "conv3d_tc": ("ctunet_tpu_torch/csrc/conv3d_tc.cu",
@@ -3512,13 +4039,25 @@ def main() -> int:
     }
     kernels = []
     for name, (src, repl) in sources.items():
-        e = entries[name]
-        kernels.append(dict(
-            name=f"{name} [{e['case']}]", route="cuda", source=src,
-            replaces=repl, launches=launches.get(name, 0),
-            max_abs_err=e["max_abs_err"], ms=e["ms"], plain_ms=e["plain_ms"],
-            bound_ms=e["bound_ms"], bound_by=e["bound_by"],
-            library_ms=e["library_ms"]))
+        # the UNetSP canvas's row, then phase 10's where it launched the
+        # kernel; each row's launches are its own path's
+        for key in (name, name + AT_512):
+            if key != name and key not in launches:
+                continue
+            e = entries.get(key)
+            if e is None:
+                failures.append(f"kernel line: no phase-2 check of {key}")
+                continue
+            kernels.append(dict(
+                name=f"{name} [{e['case']}]", route="cuda", source=src,
+                replaces=repl, launches=launches.get(key, 0),
+                max_abs_err=e["max_abs_err"], ms=e["ms"],
+                plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],
+                bound_by=e["bound_by"], library_ms=e["library_ms"]))
+    if failures:
+        for f in failures:
+            print(f"FAIL: {f}", file=sys.stderr)
+        return 1
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -28,10 +28,12 @@ import torch
 
 from .models.convert import from_flax
 
-# The trained UNetSP weights committed with the package (exported from
-# .ckpts/unetsp_10k).
+# The trained weights committed with the package, exported from
+# .ckpts/unetsp_10k (UNetSP) and .ckpts/unetspsmall_3k (UNetSPSmall).
 UNETSP_10K = os.path.join(os.path.dirname(__file__), "assets",
                           "unetsp_10k.npz")
+UNETSPSMALL_3K = os.path.join(os.path.dirname(__file__), "assets",
+                              "unetspsmall_3k.npz")
 
 
 FORMAT = "ctunet_tpu_torch.train_state.v1"

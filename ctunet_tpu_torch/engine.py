@@ -2,22 +2,31 @@
 or f32 (``compute_dtype``).
 
 Counterpart of ``ctunet_tpu/engine.py::build_predict`` (``:279-636``) for
-the generic 4-block family and ``_build_legacy_predict`` (``:766-828``) for
-the legacy k=5 family. Weights are prepared once, at build time, and the
-forward runs per volume on dense channels-last tensors.
+the generic 4- and 5-block families and ``_build_legacy_predict``
+(``:766-828``) for the legacy k=5 family. Weights are prepared once, at
+build time, and the forward runs per volume on dense channels-last
+tensors.
 
-Generic family (UNetSP, UNetDO, UNet4b2i3o, UNet4b1i3o):
+Generic family (UNetSP, UNetDO, UNet4b2i3o, UNet4b1i3o; 5 blocks:
+UNetSPSmall, UNet5b2i3o):
 
 - encoder level i: K1 (conv unit 0) -> K1 (conv unit 1) -> K2 (pool);
 - decoder level idx: K3 (ConvT(k2,s2) of ``cat(a, skip)`` fused with conv
   unit 0, from the half-resolution operands) -> K1 (conv unit 1);
 - head: the 1x1 ``last_conv`` weight-split over (last decoder output,
   first skip) as two small matmuls in the compute dtype, sigmoid in f32,
-  then the two 3x2 maps of the double-output head (``engine.py:405-484``).
+  then the two 3x2 maps of the double-output head (``engine.py:405-484``);
+  ``double_softmax`` (UNetSPSmall) softmaxes both maps of the f32 sigmoid
+  and returns them in f32, as the JAX engine's packed head does
+  (``engine.py:463-484``: the head it takes whenever the last decoder
+  level and the first skip share a pack, at every shape ``Model`` serves).
 
 For UNetSP at 224x304x304 that is 12 K1, 4 K2 and 4 K3 launches per
-volume; the upconv composite is built in f64, rounded to f32 and then to
-the compute dtype.
+volume, for UNetSPSmall 15 K1, 5 K2 and 5 K3; the upconv composite is
+built in f64, rounded to f32 and then to the compute dtype. The JAX
+engine's pack-exhausted tail (one standard-space pool and a decoder
+repack, ``engine.py:549-556, 570-575``) lays the 5-block levels out in TPU
+lanes; on dense channels-last volumes it is K2 and K3 at one more level.
 
 Legacy family (recAE_v2_fixed, UNet4_2IC; :func:`build_legacy_predict`):
 
@@ -61,21 +70,25 @@ from .ops.kernels import conv3d as kc
 from .ops.kernels import convt as kt
 from .ops.kernels import upconv as ku
 
-# Structural config per ported model (``ctunet_tpu/engine.py:37-48``).
+# Structural config per model (``ctunet_tpu/engine.py:37-48``).
 ENGINE_CONFIGS = {
     "UNet4b2i3o": dict(n_blocks=4, head=None, family="generic"),
+    "UNet5b2i3o": dict(n_blocks=5, head=None, family="generic"),
     "UNet4b1i3o": dict(n_blocks=4, head=None, family="generic"),
     "UNetSP": dict(n_blocks=4, head="double", family="generic"),
+    "UNetSPSmall": dict(n_blocks=5, head="double_softmax",
+                        family="generic"),
     "UNetDO": dict(n_blocks=4, head="double", family="generic"),
     "recAE_v2_fixed": dict(n_blocks=4, head="softmax", family="legacy"),
     "UNet4_2IC": dict(n_blocks=4, head="softmax", family="legacy"),
 }
 
-# Families ctunet_tpu's engine serves that the port does not serve yet.
-NOT_PORTED = {
-    "UNet5b2i3o": "ROADMAP Queue 1 item 4 (5-block pack-exhausted tail)",
-    "UNetSPSmall": "ROADMAP Queue 1 item 4 (5-block pack-exhausted tail)",
-}
+
+def pool_multiple(model_class: str) -> int:
+    """Spatial divisibility a model needs, ``2 ** n_blocks``: 32 for the
+    5-block family, 16 for the rest (``ctunet_tpu/trainer.py:53-56``)."""
+    cfg = ENGINE_CONFIGS.get(model_class)
+    return 2 ** cfg["n_blocks"] if cfg else 16
 
 
 def conv_operands(sd, prefix: str, conv_idx: int, dtype, device):
@@ -102,6 +115,20 @@ def upconv_operands(sd, j: int, ca: Optional[int], dtype, device):
         sd[f"{p}.2.running_mean"], sd[f"{p}.2.running_var"], ca, dtype,
     )
     return tuple(None if t is None else t.to(device) for t in ops)
+
+
+def double_head(out: torch.Tensor, head: Optional[str], compute_dtype,
+                m_full, m_flap, b_flap):
+    """The heads on the f32 sigmoid ``out`` ``(..., 3)``: itself (``None``)
+    or the two 3x2 maps (``double``) in ``compute_dtype``, or both maps
+    softmaxed in f32 (``double_softmax``; ``ctunet_tpu/engine.py:472-484``
+    and ``engine_q.py:628-648``, both in f32)."""
+    if head is None:
+        return out.to(compute_dtype)
+    full, flap = out @ m_full, out @ m_flap + b_flap
+    if head == "double_softmax":
+        return torch.softmax(full, -1), torch.softmax(flap, -1)
+    return full.to(compute_dtype), flap.to(compute_dtype)
 
 
 def build_predict(
@@ -133,13 +160,13 @@ def build_predict(
         height of a constant-region skip, a TPU scheduling choice that
         changes no value; here any non-zero value selects the route.
     :returns: ``predict`` -> ``(full, flap)``, each ``(B, D, H, W, 2)`` in
-        ``compute_dtype`` (double head), or ``(B, D, H, W, 3)``; for the
-        legacy family ``(B, D, H, W, 2)`` softmax probabilities.
+        ``compute_dtype`` (double head) or softmax probabilities in f32
+        (``double_softmax``), or ``(B, D, H, W, 3)``; for the legacy family
+        ``(B, D, H, W, 2)`` softmax probabilities.
     """
-    if model_class in NOT_PORTED:
-        raise NotImplementedError(
-            f"{model_class} is not served by the PyTorch port yet: "
-            f"{NOT_PORTED[model_class]}")
+    if model_class not in ENGINE_CONFIGS:
+        raise KeyError(f"no engine config for {model_class}; one of "
+                       f"{sorted(ENGINE_CONFIGS)}")
     cfg = ENGINE_CONFIGS[model_class]
     device = resolve_device(device)
     if cfg["family"] == "legacy":
@@ -181,11 +208,8 @@ def build_predict(
         # caller leaves torch.backends.cuda.matmul.allow_tf32 at its
         # default (False); the engine sets no global flag
         lc = a @ lka + b @ lkb + lb
-        out = torch.sigmoid(lc.float())
-        if cfg["head"] is None:
-            return out.to(compute_dtype)
-        return ((out @ m_full).to(compute_dtype),
-                (out @ m_flap + b_flap).to(compute_dtype))
+        return double_head(torch.sigmoid(lc.float()), cfg["head"],
+                           compute_dtype, m_full, m_flap, b_flap)
 
     def forward_one(x: torch.Tensor):
         """One ``(D, H, W, C)`` volume through the kernels."""

@@ -1,13 +1,15 @@
 """Calibrated int8 serving engine: the U-Net forward on the int8 kernels.
 
 Counterpart of ``ctunet_tpu/engine_q.py`` (post-training quantization with
-zero-point activations) for the generic 4-block family, on dense
+zero-point activations) for the generic 4- and 5-block families, on dense
 channels-last tensors and the port's kernels:
 
 - encoder unit: K1q (``conv3d_q_requant``, zp mode), pool: K2q
   (``maxpool2_q``), decoder: K3q (``upconv_q_requant``, the composite
   ConvT(k2,s2) o conv unit 0) then K1q (unit 1) -- 12 K1q, 4 K2q and 4 K3q
-  launches per volume for UNetSP;
+  launches per volume for UNetSP, 15, 5 and 5 for UNetSPSmall (whose
+  level-4 pool is the JAX engine's standard-space "std" pool: the same
+  K2q on dense tensors);
 - activations are stored as ``q = a/s - 128`` (int8, 255 levels of a
   post-ReLU value), per-channel scales ``s = max/255`` from one calibration
   forward of the bf16 engine (:func:`calibrate`); weights fold the BN scale
@@ -205,8 +207,10 @@ def calibrate(model_class: str, state_dict, calib_volume: torch.Tensor,
     per-channel |activation| maxima of every tensor the engine's ``record``
     hook sees, in production order (``engine_q.calibrate``).
 
-    :param calib_volume: ``(D, H, W, C)``. (The JAX package also combines
-        K sampled patches for patch serving, which the port does not serve.)
+    :param calib_volume: ``(D, H, W, C)``: a volume, a foreground window
+        or, in patch serving, the central patch (the JAX package's
+        ``calibrate`` also takes a ``(K, ...)`` stack, which its serving
+        loop never passes).
     :param quantile: 1.0 records maxima; below 1 the per-channel |t|
         quantile, floored at max/64 (``engine_q.py:104-113``). The port's
         quantile runs over the volume's voxels only; the JAX one also
@@ -282,15 +286,16 @@ def build_predict_q(
     :param split_taps: a TPU packing choice (split vs full 27-tap MXU
         matrices, ``conv3d_chain_split`` vs ``conv3d_chain_q``); both give
         the same integers, and the same K1q/K3q kernels serve either value.
-    :raises Unsupported: a shape whose pool levels are not all even.
+    :raises Unsupported: a shape whose pool levels are not all even: the
+        JAX plan's refusal (``ctunet_tpu/engine_q.py:386-425``), whose
+        encoder needs even D and H at every level and, at pack 1, an even
+        packed width, i.e. an even W (packs are powers of two dividing W),
+        and whose decoder repack then always re-aligns.
     :returns: ``predict`` -> ``(full, flap)`` in ``compute_dtype`` (double
-        head) or ``(B, D, H, W, 3)``. It carries ``scales`` (the export
+        head) or in f32 (``double_softmax``), or ``(B, D, H, W, 3)``. It
+        carries ``scales`` (the export
         dict), ``round_opt`` and ``layers`` (each unit tag's int8 operands).
     """
-    if model_class in engine.NOT_PORTED:
-        raise NotImplementedError(
-            f"{model_class} is not served by the PyTorch port yet: "
-            f"{engine.NOT_PORTED[model_class]}")
     if engine.ENGINE_CONFIGS.get(model_class, {}).get("family") != "generic":
         # the legacy k=5 family has no int8 path (ctunet_tpu's
         # build_predict_q raises a ValueError too): Model serves it in bf16
@@ -426,11 +431,8 @@ def build_predict_q(
 
     def head(a, b):
         lc = a.float() @ m_a + b.float() @ m_b + bias3
-        out = torch.sigmoid(lc)
-        if cfg["head"] is None:
-            return out.to(compute_dtype)
-        return ((out @ m_full).to(compute_dtype),
-                (out @ m_flap + b_flap).to(compute_dtype))
+        return engine.double_head(torch.sigmoid(lc), cfg["head"],
+                                  compute_dtype, m_full, m_flap, b_flap)
 
     # ---- affines between int8 and float (``engine_q.py:565-590``) -------
     def to_int8(x, s):

@@ -1,7 +1,8 @@
 from .. import registry
 from .legacy import RecAEv2Fixed, UNet4_2IC
 from .unet import UNet, UNetBlock
-from .variants import UNet4b1i3o, UNet4b2i3o, UNetDO, UNetSP, double_out_head
+from .variants import (UNet4b1i3o, UNet4b2i3o, UNet5b2i3o, UNetDO, UNetSP,
+                       UNetSPSmall, double_out_head)
 
 
 def build_model(name: str):
@@ -16,8 +17,10 @@ __all__ = [
     "UNet4b1i3o",
     "UNet4_2IC",
     "UNet4b2i3o",
+    "UNet5b2i3o",
     "UNetDO",
     "UNetSP",
+    "UNetSPSmall",
     "build_model",
     "double_out_head",
 ]

@@ -75,6 +75,7 @@ class RecAEv2Fixed(nn.Module):
 
     input_channels = 1
     i_size = 8
+    n_blocks = 4  # pool levels
 
     def __init__(self):
         super().__init__()

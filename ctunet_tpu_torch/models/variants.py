@@ -1,11 +1,11 @@
-"""Named 4-block model variants and the double-output head.
+"""Named model variants and the double-output heads.
 
 Counterpart of ``ctunet_tpu/models/variants.py`` (reference
 ``ctunet/pytorch/models.py:272-387``): zero-argument classes selected from
 configs by name through the model registry. The variants subclass
-:class:`UNet` directly, so their state_dict keys are the reference's.
-The 5-block family (``UNet5b2i3o``, ``UNetSPSmall``) is not ported yet
-(ROADMAP Queue 1).
+:class:`UNet` directly, so their state_dict keys are the reference's. The
+4-block family runs at ``i_size`` 7, the 5-block family (``UNet5b2i3o``,
+``UNetSPSmall``, for 512-wide volumes) at ``i_size`` 4.
 """
 
 from __future__ import annotations
@@ -39,6 +39,15 @@ class UNet4b2i3o(UNet):
         super().__init__(input_channels=2, out_channels=3, i_size=7)
 
 
+@register_model("UNet5b2i3o")
+class UNet5b2i3o(UNet):
+    """5-block small variant (``models.py:281-287``): i_size 4."""
+
+    def __init__(self):
+        super().__init__(input_channels=2, out_channels=3, n_blocks=5,
+                         i_size=4)
+
+
 @register_model("UNet4b1i3o")
 class UNet4b1i3o(UNet):
     """Single-input variant without shape prior (``models.py:290-296``)."""
@@ -57,6 +66,21 @@ class UNetSP(UNet):
 
     def forward(self, x):
         return double_out_head(super().forward(x))
+
+
+@register_model("UNetSPSmall")
+class UNetSPSmall(UNet):
+    """Small 5-block double-output variant for 512-wide volumes
+    (``models.py:333-365``); unlike UNetSP it softmaxes both heads, in the
+    compute dtype."""
+
+    def __init__(self):
+        super().__init__(input_channels=2, out_channels=3, n_blocks=5,
+                         i_size=4)
+
+    def forward(self, x):
+        full, flap = double_out_head(super().forward(x))
+        return torch.softmax(full, -1), torch.softmax(flap, -1)
 
 
 @register_model("UNetDO")

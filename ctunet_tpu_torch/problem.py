@@ -16,7 +16,9 @@ pepper, ``FlapRecWithShapePrior`` the full cranioplasty chain
 (``ops/warp.py``), ``DenoisingAE`` noise only.
 
 Quirk Q4 is kept: the cross entropy consumes the models' post-sigmoid
-outputs as if they were logits.
+outputs as if they were logits, and UNetSPSmall's heads, already
+softmaxed, are softmaxed again for the Dice terms, as ``ctunet_tpu``
+reproduces them (``problem.py:20-21``).
 """
 
 from __future__ import annotations

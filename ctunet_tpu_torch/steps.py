@@ -22,10 +22,6 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
-# Spatial divisibility of the ported (4-block) models: 2^n_pool_levels.
-POOL_MULTIPLE = 16
-
-
 @dataclasses.dataclass
 class TrainState:
     """What a step carries: the model (parameters and BatchNorm
@@ -186,16 +182,20 @@ def make_synth_fn(handler, from_pairs: bool = False) -> Callable:
     return synth
 
 
-def _prepare(atlas, train_patch, device, fg_crop_size=None,
+def _prepare(model, atlas, train_patch, fg_crop_size=None,
              fg_margin: int = 16):
+    """The atlas on the model's device and the step's crop; the
+    foreground window snaps to the model's pool multiple
+    ``2 ** model.n_blocks`` (16, or 32 for the 5-block family)."""
     assert not (train_patch and fg_crop_size), (
         "train_patch and fg_crop_size are mutually exclusive")
     if atlas is not None:
-        atlas = torch.as_tensor(np.asarray(atlas, np.float32), device=device)
+        atlas = torch.as_tensor(np.asarray(atlas, np.float32),
+                                device=next(model.parameters()).device)
     crop = None if train_patch is None else make_crop_fn(train_patch, atlas)
     if fg_crop_size is not None:
         crop = make_fg_crop_fn(fg_crop_size, atlas, margin=fg_margin,
-                               multiple=POOL_MULTIPLE)
+                               multiple=2 ** model.n_blocks)
     return atlas, crop
 
 
@@ -219,7 +219,8 @@ def make_train_step(model, handler, loss_cfg: Dict[str, Any], atlas=None,
     the volumes (and the atlas, at matched offsets) are randomly cropped
     before synthesis; with ``fg_crop_size`` (exclusive with it) they are
     cut to that static foreground window (:func:`make_fg_crop_fn`, planned
-    with ``fg_margin`` and the pool multiple 16) and the terms gain
+    with ``fg_margin`` and the model's pool multiple, 16 or 32) and the
+    terms gain
     ``fg_lost_voxels``, the batch's largest count of foreground voxels
     outside the window. ``terms`` are detached scalars on the device.
     """
@@ -229,8 +230,7 @@ def make_train_step(model, handler, loss_cfg: Dict[str, Any], atlas=None,
             "loss would be empty. Set f_dice_lambda / f_ce_lambda in the "
             "config (the reference example INIs set both to 1).")
     synth = make_synth_fn(handler, from_pairs)
-    atlas_c, crop = _prepare(atlas, train_patch,
-                             next(model.parameters()).device, fg_crop_size,
+    atlas_c, crop = _prepare(model, atlas, train_patch, fg_crop_size,
                              fg_margin)
 
     def step(state: TrainState, batch, gen):
@@ -262,8 +262,7 @@ def make_eval_step(model, handler, loss_cfg: Dict[str, Any], atlas=None,
     :func:`make_train_step`.
     ``step(state, batch, gen) -> (terms, (out, targets))``."""
     synth = make_synth_fn(handler, from_pairs)
-    atlas_c, crop = _prepare(atlas, train_patch,
-                             next(model.parameters()).device, fg_crop_size,
+    atlas_c, crop = _prepare(model, atlas, train_patch, fg_crop_size,
                              fg_margin)
 
     @torch.no_grad()

@@ -33,7 +33,11 @@ and/or tests according to the flags. CLI: ``ctunet-tpu-torch <cfg.ini>`` /
   ``use_int8`` the calibrated int8 engine (``engine_q.py``), whole or,
   with ``b_fg_crop``, on its foreground window (``i_fg_margin``) pasted
   back into the canvas; ``i_serve_scan`` K groups K volumes per
-  ``predict`` call, ``b_serve_profile`` prints where the loop waits;
+  ``predict`` call, ``b_serve_profile`` prints where the loop waits; with
+  ``b_patch_inference`` the sliding window (``ops/sliding_window.py``:
+  ``i_patch_size`` patches at ``f_patch_overlap``, ``i_patch_batch`` per
+  engine call, Gaussian blending in f32) runs the engine per patch, one
+  volume at a time and never on a crop, as in ``ctunet_tpu``;
   writing ``pred_<name>/<file>_{sk,fl,i}`` NIfTI files
   (``<file>_{fl,i}`` for the single-output handlers ``FlapRec`` and
   ``FlapRecWithShapePrior``). The legacy k=5 models (``recAE_v2_fixed``,
@@ -71,7 +75,6 @@ from .data.pipeline import HostLoader, device_prefetch, upload
 from .device import resolve_device
 from .models import build_model
 from .ops import foreground
-from .steps import POOL_MULTIPLE
 from .utils import (default_params, makedir, print_params_dict,
                     set_cfg_params, tic, toc_eps)
 from .utils.tb_writer import make_writer
@@ -81,8 +84,6 @@ from .utils.tb_writer import make_writer
 _NOT_PORTED = (
     ("profile_dir", bool,
      "profiler trace of the first epoch, ROADMAP Queue 1 item 19"),
-    ("patch_inference", bool,
-     "sliding-window inference, ROADMAP Queue 1 item 10"),
     ("distributed", bool, "multi-process runs, ROADMAP Queue 1 item 18"),
     # 0 and 1 mean one device (ctunet_tpu/trainer.py:162-176)
     ("mesh_data", lambda v: int(v or 0) > 1,
@@ -120,16 +121,17 @@ def paste_window(mask: np.ndarray, images: np.ndarray, offsets,
     return foreground.paste_full(mask, offsets, full_shape, bg)
 
 
-def int8_calib_hint(volume: np.ndarray, atlas=None, crop_offsets=None,
-                    fg_margin: int = 16):
+def int8_calib_hint(volume: np.ndarray, multiple: int, atlas=None,
+                    crop_offsets=None, fg_margin: int = 16):
     """The AdaQuant calibration window of one served volume
     (``ctunet_tpu/trainer.py:1270-1298``): ``volume`` ``(d, h, w)``, the
     padded volume or its crop at ``crop_offsets`` on the canvas, planned
-    at margin ``min(16, fg_margin)``, stacked with the padded ``atlas`` at
-    the same canvas offsets. ``(1, d', h', w', C)`` f32 on the host, or
-    None when the plan gains nothing."""
+    at margin ``min(16, fg_margin)`` and the model's pool ``multiple``,
+    stacked with the padded ``atlas`` at the same canvas offsets.
+    ``(1, d', h', w', C)`` f32 on the host, or None when the plan gains
+    nothing."""
     plan16 = foreground.plan_crop(volume, margin=min(16, fg_margin),
-                                  multiple=POOL_MULTIPLE)
+                                  multiple=multiple)
     if plan16 is None:
         return None
     chans = [volume[foreground.crop_slices(*plan16)]]
@@ -199,6 +201,8 @@ class Model:
                 f"compute_dtype {name!r}: one of {list(_DTYPES)}")
         self.compute_dtype = _DTYPES[name]
         self.device = resolve_device(self.params.get("device"))
+        # spatial divisibility of the model: 32 for the 5-block family
+        self.pool_multiple = engine.pool_multiple(self.params["model_class"])
 
         self.problem_handler = registry.get_problem(
             self.params["problem_handler"])()
@@ -232,6 +236,8 @@ class Model:
         # input shape -> shape of the window AdaQuant searched on (None: the
         # whole calibration input)
         self.int8_hint_shapes: Dict = {}
+        # patch serving: the central patch the int8 engine calibrated on
+        self.int8_calib_patch = None
         self._calib_hint = None  # -> the last dispatched volume's window
         self.scan_batches: list = []  # volumes per K-batch predict call
         self.serve_profile_s: Dict[str, float] = {}  # b_serve_profile
@@ -249,8 +255,9 @@ class Model:
         mc, hd = self.params["model_class"], self.params["problem_handler"]
         cfg = engine.ENGINE_CONFIGS.get(mc)
         if cfg is None:
-            return  # an unported family, refused when it is built
-        model = {"double": (2, 2), "softmax": (1, 2)}.get(cfg["head"], (1, 3))
+            return  # an unknown family, refused when it is built
+        model = {"double": (2, 2), "double_softmax": (2, 2),
+                 "softmax": (1, 2)}.get(cfg["head"], (1, 3))
         handler = (2 if self.problem_handler.double_output else 1, 2)
         if model != handler:
             raise ValueError(
@@ -332,10 +339,6 @@ class Model:
         path), else ``resume_model`` when set
         (ref ``Model.initialize_models``, ``Model.py:493-508``)."""
         mc = self.params["model_class"]
-        if mc in engine.NOT_PORTED:
-            raise NotImplementedError(
-                f"{mc} is not served by ctunet_tpu_torch yet "
-                f"({engine.NOT_PORTED[mc]})")
         im_shape, self._from_pairs = self._sample_shape()
         if im_shape is not None and self.problem_handler.append_atlas:
             self._atlas = atlas_mod.load_atlas(
@@ -442,8 +445,8 @@ class Model:
         (``ctunet_tpu/trainer.py:356-423``): ``s_fg_train_size`` when set,
         else the elementwise max of the ``plan_crop`` sizes over every
         train and validation volume (image OR flap for pair datasets), at
-        ``fg_margin`` and the pool multiple; None (train whole volumes)
-        when cropping gains nothing."""
+        ``fg_margin`` and the model's pool multiple (32 for the 5-block
+        family); None (train whole volumes) when cropping gains nothing."""
         p = self.params
         if not p.get("fg_crop_train"):
             return None
@@ -453,8 +456,9 @@ class Model:
             size = tuple(int(v) for v in
                          override.replace("x", ",").split(","))
             assert len(size) == 3, f"s_fg_train_size: {override!r}"
-            assert all(s % POOL_MULTIPLE == 0 for s in size), (
-                f"s_fg_train_size {size} must divide by {POOL_MULTIPLE}")
+            mult = self.pool_multiple
+            assert all(s % mult == 0 for s in size), (
+                f"s_fg_train_size {size} must divide by {mult}")
             return size
         if self.data.get("train_loader") is None:
             return None
@@ -473,14 +477,14 @@ class Model:
                     yield vol
 
         size = steps.fg_crop_size_for(fg_volumes(), im_shape, margin=margin,
-                                      multiple=POOL_MULTIPLE)
+                                      multiple=self.pool_multiple)
         if size is None:
             print("fg_crop_train: no shrink on this dataset; training whole "
                   "volumes")
         else:
             print(f"fg_crop_train: {im_shape} -> {size} (scanned "
                   f"{sum(map(len, sets))} train+val volumes, margin {margin}, "
-                  f"snap {POOL_MULTIPLE})")
+                  f"snap {self.pool_multiple})")
         return size
 
     def _train_epochs(self, n_epochs, train_step, eval_step,
@@ -640,14 +644,7 @@ class Model:
         first volume of each input shape (the crop window's in crop
         serving)."""
         dtype = self.compute_dtype
-        if self.params.get("use_engine", True):
-            fwd = engine.build_predict(self.params["model_class"],
-                                       self.state_dict, dtype, self.device)
-        else:
-            # a copy: the trained model keeps its train settings
-            model = build_model(self.params["model_class"])
-            model.load_state_dict(self.state_dict)
-            fwd = model.to(self.device).eval().configure("xla", dtype)
+        fwd = self._float_forward()
         use_q = bool(self.params.get("use_int8")) and self.params.get(
             "use_engine", True)
         q_by_shape = self.int8_engines
@@ -677,16 +674,81 @@ class Model:
 
         return predict
 
+    def _float_forward(self):
+        """The float forward of the serving paths on ``(B, D, H, W, C)``:
+        the engine in ``compute_dtype``, or with ``use_engine = False`` the
+        plain model in ``compute_dtype``, as ``ctunet_tpu``'s
+        ``steps.make_predict_fn`` serves ``model.apply``."""
+        dtype = self.compute_dtype
+        if self.params.get("use_engine", True):
+            return engine.build_predict(self.params["model_class"],
+                                        self.state_dict, dtype, self.device)
+        # a copy: the trained model keeps its train settings
+        model = build_model(self.params["model_class"])
+        model.load_state_dict(self.state_dict)
+        return model.to(self.device).eval().configure("xla", dtype)
+
+    def _make_patch_predict(self, atlas=None):
+        """``predict(images, offsets=None)`` on ``(B, D, H, W)`` device
+        volumes by sliding windows (``ctunet_tpu/trainer.py:1006-1120``):
+        ``patch_size`` cubes at ``patch_overlap``, ``patch_batch`` per
+        forward call, each through the float engine. With ``use_int8``
+        the per-patch engine is the int8 one (AdaQuant first when
+        ``int8_adaquant``), built on the first volume served and kept for
+        every volume: calibrated on that volume's central patch, the
+        padded ``atlas`` at the same offsets, both rounded to
+        ``compute_dtype`` (``:1030-1037``), with AdaQuant's search on that
+        patch too. Only ``engine_q.Unsupported`` falls back to the float
+        engine."""
+        from .ops.sliding_window import make_sliding_window_fn
+
+        p = self.params
+        ps = int(p.get("patch_size") or 128)
+        fwd = self._float_forward()
+        use_q = bool(p.get("use_int8")) and p.get("use_engine", True)
+        sw = {}
+
+        def build(vol: torch.Tensor):
+            apply_fn = fwd
+            if use_q:
+                dt = self.compute_dtype
+                ctr = [max(0, (s - ps) // 2) for s in vol.shape]
+                box = tuple(slice(c, c + ps) for c in ctr)
+                chans = [vol[box].to(dt)]
+                if atlas is not None:
+                    chans.append(torch.as_tensor(
+                        np.asarray(atlas)[box], dtype=torch.float32).to(
+                            vol.device, dt))
+                calib = torch.stack(chans, -1)
+                self.int8_calib_patch = calib
+                qfn = self._build_int8(calib)
+                self.int8_engines[tuple(calib.shape)] = qfn
+                if qfn is not None:
+                    apply_fn = qfn
+            return make_sliding_window_fn(
+                apply_fn, patch_size=ps,
+                overlap=float(p.get("patch_overlap") or 0.5), atlas=atlas,
+                compute_dtype=self.compute_dtype,
+                patch_batch=int(p.get("patch_batch") or 1))
+
+        def predict(images: torch.Tensor, offsets=None):
+            if "fn" not in sw:
+                sw["fn"] = build(images[0])
+            return sw["fn"](images)
+
+        return predict
+
     def _build_int8(self, x0: torch.Tensor):
         """The int8 engine calibrated on ``x0`` ``(D, H, W, C)``: AdaQuant
         first (``int8_adaquant``), then plain int8. AdaQuant's rounding
         search runs on the calibration window of the volume just
         dispatched (:func:`int8_calib_hint`) when it has fewer voxels than
         ``x0``, in whole-volume and crop serving alike
-        (``ctunet_tpu/trainer.py:915-929``); the scales calibrate on
-        ``x0``. Only ``engine_q.Unsupported``, raised while planning
-        before any launch, moves on to the next mode; ``None`` means the
-        float engine serves (in ``compute_dtype``).
+        (``ctunet_tpu/trainer.py:915-929``), or on ``x0`` itself when no
+        window was set (patch serving); the scales calibrate on ``x0``.
+        Only ``engine_q.Unsupported``, raised while planning before any
+        launch, moves on to the next mode; ``None`` means the float engine
+        serves (in ``compute_dtype``).
         A failing kernel build or launch is never caught here."""
         from . import engine_q
 
@@ -722,11 +784,11 @@ class Model:
                           "next serving mode.")
                     continue
             self.int8_build_seconds += time.perf_counter() - t0
-            window = extra.get("calib_batch")
+            batch = extra.get("calib_batch")
             print(f"serving: calibrated {label} engine for "
                   f"{tuple(x0.shape)} in {time.perf_counter() - t0:.1f} s"
-                  + ("" if window is None else
-                     f" (rounding searched on {tuple(window.shape[1:])})"))
+                  + ("" if batch is None else
+                     f" (rounding searched on {tuple(batch.shape[1:])})"))
             return qfn
         print("serving the float engine.")
         return None
@@ -749,15 +811,20 @@ class Model:
             from .ops.postprocess import largest_cc
 
             self.problem_handler.postprocess = largest_cc
+        mult = self.pool_multiple
         atlas_p = self._atlas
         if atlas_p is not None:
-            apads = [(0, -s % POOL_MULTIPLE) for s in np.shape(atlas_p)]
+            apads = [(0, -s % mult) for s in np.shape(atlas_p)]
             if any(a[1] for a in apads):
                 atlas_p = np.pad(np.asarray(atlas_p), apads)
-        predict = self._make_whole_volume_predict(atlas_p)
-        fg_on = bool(p.get("fg_crop"))
+        # patch serving takes whole volumes one at a time: no crop (as in
+        # ctunet_tpu) and no K-batch (a window blends within one volume)
+        patch_on = bool(p.get("patch_inference"))
+        predict = (self._make_patch_predict(atlas_p) if patch_on
+                   else self._make_whole_volume_predict(atlas_p))
+        fg_on = bool(p.get("fg_crop")) and not patch_on
         fg_margin = int(p.get("fg_margin") or 16)
-        serve_scan = max(1, int(p.get("serve_scan") or 1))
+        serve_scan = 1 if patch_on else max(1, int(p.get("serve_scan") or 1))
         depth = max(1, int(p.get("prefetch_depth") or 2))
         pending: collections.deque = collections.deque()
         write_futs = []
@@ -806,8 +873,9 @@ class Model:
             vol, offs = cropped[0], None if crop_info is None else crop_info[0]
             # the AdaQuant window of this volume, built only if a build
             # needs it (ctunet_tpu/trainer.py:1270-1298)
-            self._calib_hint = lambda: int8_calib_hint(
-                vol, atlas_p, offs, fg_margin)
+            if not patch_on:
+                self._calib_hint = lambda: int8_calib_hint(
+                    vol, mult, atlas_p, offs, fg_margin)
             up = _t("upload", upload, cropped, self.device, torch.float32)
             out = _t("dispatch", lambda: hardify(
                 predict(up, None if offs is None else [offs])))
@@ -844,7 +912,7 @@ class Model:
             if fg_on and all(it[2] is not None for it in items):
                 need = (max(it[2][1][ax] for it in items) for ax in range(3))
                 cur = scan_static.get(canvas_sp, (0, 0, 0))
-                size = tuple(min(c, s + (-s % POOL_MULTIPLE)) for c, s in zip(
+                size = tuple(min(c, s + (-s % mult)) for c, s in zip(
                     canvas_sp, (max(n, q) for n, q in zip(need, cur))))
                 scan_static[canvas_sp] = size
             if size == canvas_sp:
@@ -884,12 +952,12 @@ class Model:
                     break
                 n_batches += 1
                 images = batch["image"]
-                pads = [(0, -s % POOL_MULTIPLE) for s in images.shape[1:]]
+                pads = [(0, -s % mult) for s in images.shape[1:]]
                 padded = _t("pad", np.pad, images, [(0, 0)] + pads)
                 plan = None
                 if fg_on and padded.shape[0] == 1:
                     plan = foreground.plan_crop(padded[0], margin=fg_margin,
-                                                multiple=POOL_MULTIPLE)
+                                                multiple=mult)
                 if serve_scan > 1 and padded.shape[0] == 1:
                     group.append((batch, padded, plan))
                     if len(group) >= serve_scan:

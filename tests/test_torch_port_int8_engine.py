@@ -158,8 +158,13 @@ def test_engine_serves_sparse_as_dense(net, jax_split):
 def test_engine_refuses_what_it_does_not_serve(net):
     _, sd, x = net
     xt = torch.from_numpy(x[0])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tq.build_predict_q("UNetSPSmall", sd, xt, device="cpu")
+    # the 5-block family is served where its 5 pool levels are even
+    # (test_torch_port_spsmall_int8.py); 16x16x32 pools to 1x1x2
+    from ctunet_tpu_torch.checkpoint import UNETSPSMALL_3K
+
+    with pytest.raises(tq.Unsupported, match="pool level 4"):
+        tq.build_predict_q("UNetSPSmall", load_any(UNETSPSMALL_3K), xt,
+                           device="cpu")
     with pytest.raises(tq.Unsupported):
         tq.build_predict_q("UNetSP", sd, xt[:, :, :24], device="cpu")
     assert issubclass(tq.Unsupported, ValueError)

@@ -134,10 +134,23 @@ def test_engine_plain_path_matches_apply(variants, name):
 
 
 def test_engine_refuses_unported_families():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tengine.build_predict("UNetSPSmall", {}, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tengine.build_predict("UNet5b2i3o", {}, device="cpu")
+    """The port's engine serves every family ``ctunet_tpu``'s does, the
+    5-block family included (``test_torch_port_spsmall.py`` holds it
+    against JAX); a family neither knows is refused."""
+    from ctunet_tpu import engine as jengine
+
+    assert set(tengine.ENGINE_CONFIGS) == set(jengine.ENGINE_CONFIGS)
+    x = torch.zeros(1, 32, 32, 32, 2)
+    for name in ("UNetSPSmall", "UNet5b2i3o"):
+        torch.manual_seed(0)
+        sd = build_model(name).state_dict()
+        out = tengine.build_predict(name, sd, torch.float32, device="cpu")(x)
+        out = out if isinstance(out, tuple) else (out,)
+        assert [tuple(o.shape) for o in out] == (
+            [(1, 32, 32, 32, 2)] * 2 if name == "UNetSPSmall"
+            else [(1, 32, 32, 32, 3)])
+    with pytest.raises(KeyError, match="no engine config"):
+        tengine.build_predict("UNet6b", {}, device="cpu")
 
 
 def test_committed_npz_equals_orbax_restore():

@@ -189,22 +189,39 @@ def test_fg_and_scan_settings_are_served(tmp_path, key, value):
     ("mesh_data", 2), ("mesh_spatial", 2), ("profile_dir", "trace"),
 ])
 def test_unported_settings_raise(tmp_path, key, value):
+    """Settings still to port raise, naming their ROADMAP item;
+    ``patch_inference`` is served since it was ported
+    (``test_torch_port_sliding_window.py``)."""
     params = dict(test_flag=False, name="x", model_class="UNetSP",
                   problem_handler="FlapRecWithShapePriorDoubleOut",
                   device="cpu", workspace_path=str(tmp_path))
     params[key] = value
+    if key == "patch_inference":
+        assert Model(params=params).params["patch_inference"] is True
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Model(params=params)
 
 
 def test_unported_model_family_raises(synth, tmp_path):
+    """UNetSPSmall serves through ``Model`` from its own weights (padded
+    to its pool multiple, 32); the 4-block UNetSP weights do not load into
+    it."""
+    from ctunet_tpu_torch.checkpoint import UNETSPSMALL_3K
+
     _, csv, _ = synth
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(params=dict(
-            test_flag=True, name="x", model_class="UNetSPSmall",
-            problem_handler="FlapRecWithShapePriorDoubleOut", device="cpu",
-            workspace_path=str(tmp_path), test_files_csv=csv,
-            resume_model=UNETSP_10K))
+    params = dict(
+        test_flag=True, name="x5", model_class="UNetSPSmall",
+        problem_handler="FlapRecWithShapePriorDoubleOut", device="cpu",
+        workspace_path=str(tmp_path), test_files_csv=csv,
+        resume_model=UNETSPSMALL_3K)
+    m = Model(params=params)
+    assert m.n_served == 2 and m.pool_multiple == 32
+    fl = glob.glob(os.path.join(os.path.dirname(csv), "pred_x5",
+                                "*_fl.nii.gz"))
+    assert len(fl) == 2 and nifti.read(fl[0]).data.shape == SHAPE
+    with pytest.raises(RuntimeError, match="d_blocks.4"):
+        Model(params=dict(params, resume_model=UNETSP_10K))
 
 
 def test_device_resolution():

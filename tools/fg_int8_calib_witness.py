@@ -91,7 +91,7 @@ def main() -> int:
         is the first served at its window."""
         offs = wins[i][0]
         hint = int8_calib_hint(vols[i][foreground.crop_slices(*wins[i])],
-                               atlas, offs, margin)
+                               16, atlas, offs, margin)
         t0 = time.perf_counter()
         qfn = engine_q.build_predict_q_opt(
             "UNetSP", sd, window(i)[0].clone(), calib_batch=hint, **common)

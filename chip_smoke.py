@@ -165,6 +165,26 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
    step beside ``xla``, peak memory) and one volume served from the
    trained weights. Where the 3k model draws no flap on these skulls the
    phase says so and holds the flap's probabilities instead of its Dice.
+11. The port's last single-device features, UNetSP at 224x304x304 on
+   ``unetsp_10k`` with a registered atlas (:func:`pickled_ops_qat`): the
+   weights saved as pickled ``nn.Module`` trees whose classes claim
+   ``ctunet.pytorch.models`` (zip format, and inside ``nn.DataParallel``
+   in torch's legacy format) and served through ``Model`` by the bf16
+   engine (12 K1, 4 K2, 4 K3 each), the masks bit-equal to the
+   ``.npz``-served ones; ``hu_window`` -> ``resample_to_spacing`` ->
+   ``pad_to_multiple(16)`` of a synthetic 180x512x512 CT at (1.25, 0.6,
+   0.6) mm on the card against the same functions on the CPU (atol
+   ``PRE_ATOL``, ms printed) and ``largest_cc_device`` on a served mask
+   equal to the host ``largest_cc``; ``Model.train`` with ``param_dtype =
+   bfloat16``, ``conv_impl = chain`` and ``profile_dir`` for 2 epochs of 1
+   train + 1 eval step (31 K6 a train step; parameters and moments bf16,
+   BatchNorm's f32; one trace, of epoch 1; the checkpoint served), its ms
+   a step beside phase 5's; ``tools/qat_tune_torch.py``'s distillation
+   (``QAT_STEPS`` at 64x128x128 and ``QAT_LR``; its collapse guard must
+   pass) and the tuned checkpoint
+   served through ``Model`` in int8 without AdaQuant (12 K1q, 4 K2q, 4
+   K3q), the masks equal to the same engine on the plain versions,
+   the int8-vs-f32 Dice before and after QAT printed (not gated).
 
 The last two lines of output are one JSON object ``{"kernels": [...]}``
 and ``{"ok": true, "device": {...}}``. Any failure exits non-zero and
@@ -175,6 +195,7 @@ imports nothing of JAX and nothing of ``ctunet_tpu``.
 from __future__ import annotations
 
 import collections
+import contextlib
 import functools
 import json
 import math
@@ -3848,6 +3869,381 @@ def spsmall(device, work: str, shape=SHAPE_512, n_volumes: int = N_512,
             failures)
 
 
+# ---- phase 11: pickled-module checkpoints, preprocessing, bf16 parameters
+# and QAT -----------------------------------------------------------------
+
+# the reference's own module path, which no installed package provides
+REF_MODULE = "ctunet.pytorch.models"
+# phase 11's synthetic CT: 180 slices of 512x512 at (1.25, 0.6, 0.6) mm,
+# resampled to 1 mm and padded to a multiple of 16 on the card
+CT_SHAPE, CT_SPACING = (180, 512, 512), (1.25, 0.6, 0.6)
+# device vs CPU preprocessing: f32 sums of at most four weighted [0, 1]
+# values per axis in another order (TF32 off)
+PRE_ATOL = 1e-5
+QAT_STEPS = 20  # distillation steps of tools/qat_tune_torch.py
+# not the tool's 1e-4: twenty steps at 1e-4 from unetsp_10k fail the
+# collapse guard in tools/qat_tune.py itself (flap Dice 0.89 on the CPU,
+# 0.996 at 1e-5), and the port's distillation step is held to that tool's
+# in tests/test_torch_port_qat.py
+QAT_LR = 1e-5
+QAT_SHAPE = (64, 128, 128)  # the tool's own size
+
+
+@contextlib.contextmanager
+def reference_classes(model):
+    """While active, :data:`REF_MODULE` (and its parents) exist in
+    ``sys.modules``, holding a subclass under the same name of every class
+    of the port's that ``model`` uses, and ``model``'s modules are of
+    those classes: what a pickle of the reference's own model names."""
+    import types
+
+    parts = REF_MODULE.split(".")
+    added = [n for n in (".".join(parts[:i + 1]) for i in range(len(parts)))
+             if n not in sys.modules]
+    for n in added:
+        sys.modules[n] = types.ModuleType(n)
+    swapped = []
+    try:
+        mod = sys.modules[REF_MODULE]
+        for m in model.modules():
+            cls = type(m)
+            if not cls.__module__.startswith("ctunet_tpu_torch"):
+                continue
+            fake = getattr(mod, cls.__name__, None)
+            if fake is None:
+                fake = type(cls.__name__, (cls,), {"__module__": REF_MODULE})
+                setattr(mod, cls.__name__, fake)
+            swapped.append((m, cls))
+            m.__class__ = fake
+        yield model
+    finally:
+        for m, cls in swapped:
+            m.__class__ = cls
+        for n in added:
+            del sys.modules[n]
+
+
+def save_reference_pt(model, path: str, legacy: bool = False,
+                      data_parallel: bool = False) -> None:
+    """``torch.save(model)`` as the reference pickles its modules
+    (:func:`reference_classes`), optionally inside ``nn.DataParallel`` and
+    in torch's legacy (non-zip) format."""
+    import torch
+    from torch import nn
+
+    with reference_classes(model):
+        obj = nn.DataParallel(model) if data_parallel else model
+        torch.save(obj, path, _use_new_zipfile_serialization=not legacy)
+
+
+def add_counts(total: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        if v:
+            total[k] = total.get(k, 0) + v
+
+
+def pickled_ops_qat(device, work: str, shape=SHAPE, before=None,
+                    qat_steps: int = QAT_STEPS, qat_shape=QAT_SHAPE,
+                    ct_shape=CT_SHAPE):
+    """Phase 11 (UNetSP at full width on ``unetsp_10k`` with a registered
+    atlas): a pickled-module ``.pt`` (zip) and the same tree in
+    ``nn.DataParallel`` (legacy format) served through ``Model`` against
+    the ``.npz``; ``hu_window``, ``resample_to_spacing`` and
+    ``pad_to_multiple`` on a synthetic CT on the card against the CPU, and
+    ``largest_cc_device`` against the host ``largest_cc``; ``Model.train``
+    with ``param_dtype = bfloat16`` and ``profile_dir`` (2 epochs of one
+    step, then one volume served); ``tools/qat_tune_torch.py``'s
+    distillation and the tuned weights served in int8 against the same
+    engine on the plain versions. Returns ``(launches, stats, failures)``.
+    """
+    import glob
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from ctunet_tpu_torch import (Model, checkpoint, default_params, engine_q,
+                                  load_params, steps)
+    from ctunet_tpu_torch.checkpoint import UNETSP_10K, load_any
+    from ctunet_tpu_torch.data import make_dataset
+    from ctunet_tpu_torch.data.synthetic import spherical_shell
+    from ctunet_tpu_torch.models import build_model
+    from ctunet_tpu_torch.ops import (hu_window, kernels, largest_cc,
+                                      largest_cc_device, pad_to_multiple,
+                                      resample_to_spacing)
+    from ctunet_tpu_torch.problem import FlapRecWithShapePriorDoubleOut
+
+    failures, launches, stats = [], {}, {}
+    cuda = device.type == "cuda"
+    data, paths, csv, atlas, affine = write_volumes(work, shape, 1)
+    base = dict(test_flag=True, model_class="UNetSP",
+                problem_handler="FlapRecWithShapePriorDoubleOut",
+                device=device.type, workspace_path=os.path.join(work, "ws"),
+                test_files_csv=csv, n_workers=2)
+    per_vol = {"conv3d_bn_relu": 12, "maxpool2": 4, "upconv_bn_relu": 4,
+               "conv3d_tc": 12, "upconv_tc": 4, "maxpool2_rows": 4}
+
+    # ---- pickled-module checkpoints ----------------------------------------
+    sd = load_any(UNETSP_10K)
+    net = build_model("UNetSP")
+    net.load_state_dict(sd)
+    pts = {"module_zip": (False, False), "module_dp_legacy": (True, True)}
+    weights = {"npz": UNETSP_10K}
+    for name, (legacy, dp) in pts.items():
+        weights[name] = os.path.join(work, f"unetsp_10k_{name}.pt")
+        save_reference_pt(net, weights[name], legacy, dp)
+    if "ctunet" in sys.modules:
+        failures.append("the reference module stayed importable")
+    masks = {}
+    for name, path in weights.items():
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        Model(params=dict(base, name=f"p11_{name}", resume_model=path))
+        wall = time.perf_counter() - t0
+        counts = kernels.launches()
+        got = {k: counts[k] for k in per_vol}
+        log(f"  {name}: served 1 volume in {wall:.2f} s (Model, load "
+            f"included), launches {got}")
+        if got != per_vol:
+            failures.append(f"pickled .pt {name}: launches {got} != "
+                            f"{per_vol}")
+        if name != "npz":
+            add_counts(launches, got)
+        masks[name] = read_masks(os.path.join(data, f"pred_p11_{name}"),
+                                 paths, shape, affine, failures)
+    for name in pts:
+        same = (masks[name].keys() == masks["npz"].keys() and all(
+            np.array_equal(masks[name][k], masks["npz"][k])
+            for k in masks["npz"]))
+        log(f"  {name}: masks bit-equal to the .npz-served ones: {same}")
+        if not same:
+            failures.append(f"pickled .pt {name}: masks differ from the "
+                            ".npz-served ones")
+    if "ctunet" in sys.modules:
+        failures.append("loading the pickled modules imported their module")
+
+    # ---- preprocessing on the card -----------------------------------------
+    rng = np.random.default_rng(11)
+    shell = spherical_shell(ct_shape, thickness=6.0, radius_frac=0.4)
+    hu = (rng.normal(40.0, 60.0, ct_shape).astype(np.float32)
+          + 1400.0 * shell.astype(np.float32))
+    host = torch.from_numpy(hu)
+    on_card = host.to(device)
+
+    def ingest(v):
+        w = hu_window(v)
+        r = resample_to_spacing(w, CT_SPACING)
+        return pad_to_multiple(r, 16)[0]
+
+    t0 = time.perf_counter()
+    want = ingest(host)
+    cpu_s = time.perf_counter() - t0
+    got = ingest(on_card)
+    err = float((got.cpu() - want).abs().max())
+    ms = time_ms(lambda: ingest(on_card), 3, device)
+    stats["preprocess"] = dict(shape=list(ct_shape), out=list(got.shape),
+                               ms=ms, cpu_s=cpu_s, max_abs_err=err)
+    log(f"  preprocessing {ct_shape} at {CT_SPACING} mm -> 1 mm, padded to "
+        f"{tuple(got.shape)}: {ms:.2f} ms on the card ({cpu_s:.2f} s on the "
+        f"host's CPU); max |card - CPU| {err:.3e} (atol {PRE_ATOL})")
+    if tuple(got.shape) != tuple(want.shape) or not err <= PRE_ATOL:
+        failures.append(f"preprocessing: card vs CPU {err} / shapes "
+                        f"{tuple(got.shape)} {tuple(want.shape)}")
+    del host, on_card, got, want
+    base_name = os.path.basename(paths[0]).replace(".nii.gz", "")
+    mask = masks["npz"].get((base_name, "sk"))
+    if mask is None:
+        failures.append("largest_cc_device: no served skull mask")
+    else:
+        mt = torch.from_numpy(np.ascontiguousarray(mask)).to(device)
+        t0 = time.perf_counter()
+        dev_cc = largest_cc_device(mt)
+        sync(device)
+        cc_s = time.perf_counter() - t0
+        host_cc = largest_cc(mask)
+        same = np.array_equal(dev_cc.cpu().numpy(), host_cc)
+        stats["largest_cc"] = dict(s=cc_s, equal=same,
+                                   voxels=int(host_cc.sum()))
+        log(f"  largest_cc_device on the served skull mask ({int(mask.sum())}"
+            f" voxels, {int(host_cc.sum())} kept): {cc_s:.3f} s on the card, "
+            f"equal to the host largest_cc: {same}")
+        if not same:
+            failures.append("largest_cc_device differs from largest_cc")
+
+    # ---- bf16 parameters, with a first-epoch trace --------------------------
+    train_csv = make_dataset(os.path.join(work, "train"), n=1, shape=shape,
+                             seed=41)
+    val_csv = make_dataset(os.path.join(work, "val"), n=1, shape=shape,
+                           seed=81)
+    prof = os.path.join(work, "profile")
+    params = load_params(TRAIN_INI, default_params())
+    params.update(
+        name="p11_bf16", conv_impl="chain", n_epochs=2, autosave_epochs=0,
+        param_dtype="bfloat16", profile_dir=prof, device=device.type,
+        workspace_path=os.path.join(work, "ws"), train_files_csv=train_csv,
+        validation_files_csv=val_csv, test_files_csv=csv, resume_model="",
+        log_every=1)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    m = Model(params=params)  # 2 x (1 train + 1 eval step), then 1 volume
+    sync(device)
+    wall = time.perf_counter() - t0
+    counts = kernels.launches()
+    k6 = 2 * (K6_PER_TRAIN_STEP + K6_PER_EVAL_STEP)
+    want = dict(per_vol, conv3d_bias_act=k6)
+    want["conv3d_tc"] += k6
+    got = {k: counts[k] for k in want}
+    log(f"  bf16 parameters: 2 epochs of 1 train + 1 eval step, then 1 "
+        f"volume served, in {wall:.1f} s; launches {got} (want {want}: "
+        f"K6 {K6_PER_TRAIN_STEP} a train step)")
+    if got != want:
+        failures.append(f"bf16-parameter training launches {got} != {want}")
+    add_counts(launches, got)
+    model = m.state.model
+    bad = []  # BatchNorm's parameters f32, every other bf16
+    for mod in model.modules():
+        is_bn = isinstance(mod, torch.nn.modules.batchnorm._BatchNorm)
+        bad += [n for n, p in mod.named_parameters(recurse=False)
+                if p.dtype != (torch.float32 if is_bn else torch.bfloat16)]
+    bn_f32 = all(b.dtype == torch.float32 for n, b in model.named_buffers()
+                 if "running" in n)
+    mom = {}
+    for p in model.parameters():
+        for v in m.state.optimizer.state[p].values():
+            mom.setdefault(str(p.dtype), set()).add(str(v.dtype))
+    log(f"  parameters off their dtype: {bad}; BN statistics f32: "
+        f"{bn_f32}; moment dtypes by parameter dtype: {mom}")
+    if bad or not bn_f32 or mom != {"torch.bfloat16": {"torch.bfloat16"},
+                                    "torch.float32": {"torch.float32"}}:
+        failures.append(f"bf16 parameters: dtypes {bad}, BN {bn_f32}, "
+                        f"moments {mom}")
+    losses = [float(v) for v in m.step_losses]  # the last epoch's
+    hist = {k: [v for _, v in h] for k, h in m.writer.history.items()}
+    log(f"  bf16 parameters: epoch scalars {json.dumps(hist)}")
+    if not losses or not all(map(math.isfinite, losses)) or not all(
+            math.isfinite(v) for h in hist.values() for v in h):
+        failures.append(f"bf16 parameters: losses {losses} {hist}")
+    traces = sorted(glob.glob(os.path.join(prof, "*.pt.trace.json")))
+    names = set()
+    for t in traces:
+        with open(t) as f:
+            names |= {e.get("name") for e in json.load(f)["traceEvents"]}
+    epochs = sorted({str(n).split(" train step")[0] for n in names
+                     if " train step " in str(n)})
+    log(f"  profile_dir: {len(traces)} trace file(s), "
+        f"{sum(os.path.getsize(t) for t in traces) / 2**20:.1f} MiB, step "
+        f"spans of {epochs}")
+    if len(traces) != 1 or epochs != ["epoch 1"]:
+        failures.append(f"profile_dir: traces {traces}, spans {epochs}")
+    saved = checkpoint.restore_checkpoint(m.params["model_path"])
+    if saved["model"]["d_blocks.0.block.0.weight"].dtype != torch.bfloat16:
+        failures.append("bf16 parameters: the checkpoint is not bf16")
+    read_masks(os.path.join(data, "pred_p11_bf16"), paths, shape, affine,
+               failures)
+    # ms a step, as phase 5 times its f32-parameter step
+    handler = FlapRecWithShapePriorDoubleOut()
+    loss_cfg = {k: params.get(k) for k in ("ce_lambda", "dice_lambda")}
+    vol = torch.from_numpy(nifti_data(
+        os.path.join(work, "train", "skull_000.nii.gz"))[None]).to(device)
+    state = steps.TrainState(model, steps.make_optimizer(
+        params, model.parameters()))
+    step = steps.make_train_step(model.configure("chain", torch.bfloat16),
+                                 handler, loss_cfg, atlas=atlas,
+                                 compute_dtype=torch.bfloat16)
+    gen = torch.Generator(device=device).manual_seed(5)
+    times = []
+    for _ in range(4):
+        sync(device)
+        t = time.perf_counter()
+        step(state, {"image": vol}, gen)
+        sync(device)
+        times.append(1e3 * (time.perf_counter() - t))
+    f32_ms = (before or {}).get(5, {}).get("chain_ms_per_step", float("nan"))
+    stats["bf16_params"] = dict(losses=losses, model_wall_s=wall,
+                                ms_per_step=float(np.mean(times[1:])),
+                                f32_params_ms_per_step=f32_ms)
+    log(f"  ms/step at batch 1, chain, bf16 parameters: "
+        f"{stats['bf16_params']['ms_per_step']:.1f} (first step left out); "
+        f"f32 parameters (phase 5): {f32_ms:.1f}")
+    del m, model, state, step
+
+    # ---- QAT: the tool's distillation, then int8 serving -------------------
+    spec = importlib.util.spec_from_file_location(
+        "qat_tune_torch", os.path.join(ROOT, "tools", "qat_tune_torch.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    tuned_path = os.path.join(work, "unetsp_10k_qat.ckpt")
+    res = tool.distill(UNETSP_10K, tuned_path, steps=qat_steps, lr=QAT_LR,
+                       shape=qat_shape, device=device.type,
+                       log=lambda s: log("  " + s))
+    if not res["saved"]:
+        failures.append(f"QAT at lr {QAT_LR}: the collapse guard failed "
+                        f"({res['guard_dice']})")
+        return launches, stats, failures
+    stats["qat"] = dict(steps=qat_steps, lr=QAT_LR, seconds=res["seconds"],
+                        ms_per_step=1e3 * res["seconds"] / qat_steps,
+                        first_loss=res["losses"][0],
+                        last_loss=res["losses"][-1],
+                        guard_dice=res["guard_dice"])
+    kernels.reset_launches()
+    qm = Model(params=dict(base, name="p11_qat", resume_model=tuned_path,
+                           use_int8=True, int8_adaquant=False))
+    counts = kernels.launches()
+    want = {"conv3d_q_requant": 12, "maxpool2_q": 4, "upconv_q_requant": 4,
+            "conv3d_tc_q": 12, "upconv_tc_q": 4}
+    got = {k: counts[k] for k in want}
+    log(f"  QAT-tuned int8 serving: launches {counts} (int8 want {want}; "
+        "the bf16 ones are the calibration forward)")
+    if got != want:
+        failures.append(f"QAT int8 launches {got} != {want}")
+    add_counts(launches, got)
+    add_counts(launches, {k: counts[k] for k in ("maxpool2_rows",)})
+    qmasks = read_masks(os.path.join(data, "pred_p11_qat"), paths, shape,
+                        affine, failures)
+    qfn = qm.int8_engines.get(shape + (2,))
+    if qfn is None:
+        failures.append(f"QAT: no int8 engine was built: {qm.int8_engines}")
+        return launches, stats, failures
+    tuned = load_any(tuned_path)
+    x = np.stack([nifti_data(paths[0]), atlas], -1)
+    xt = torch.from_numpy(x[None]).to(device, torch.bfloat16)
+    plain_q = engine_q.build_predict_q(
+        "UNetSP", tuned, xt[0], device=device, plain=True,
+        import_scales=qfn.scales)
+    ptq = engine_q.build_predict_q("UNetSP", sd, xt[0], device=device)
+    f32 = {}
+    for key, w in (("base", sd), ("tuned", tuned)):
+        f = build_model("UNetSP").to(device).eval()
+        f.load_state_dict(w)
+        f32[key] = f
+    with torch.inference_mode():
+        outs = {"qat": qfn(xt), "qat_plain": plain_q(xt), "ptq": ptq(xt),
+                "f32": f32["base"](xt.float()),
+                "f32_tuned": f32["tuned"](xt.float())}
+    for i, sfx in enumerate(("sk", "fl")):
+        mk = {k: torch.argmax(v[i][0].float(), -1).to(torch.uint8).cpu()
+              .numpy() for k, v in outs.items()}
+        same = np.array_equal(mk["qat"], mk["qat_plain"])
+        filed = np.array_equal(qmasks.get((base_name, sfx)), mk["qat"])
+        d = dict(before=dice(mk["ptq"], mk["f32"]),
+                 after=dice(mk["qat"], mk["f32"]),
+                 after_own_f32=dice(mk["qat"], mk["f32_tuned"]))
+        stats["qat"].update({f"{sfx}_identical_to_plain": same,
+                             **{f"{sfx}_dice_{k}": v for k, v in d.items()}})
+        log(f"  QAT int8 {sfx}: identical to the plain-version engine: "
+            f"{same}; Model's file equal to the engine: {filed}; int8 vs "
+            f"f32 Dice before QAT (PTQ, round to nearest) {d['before']:.6f}, "
+            f"after {d['after']:.6f} (vs the tuned f32 model "
+            f"{d['after_own_f32']:.6f})")
+        if not same:
+            failures.append(f"QAT int8 {sfx}: masks differ from the "
+                            "plain-version engine")
+        if not filed:
+            failures.append(f"QAT int8 {sfx}: Model's file differs from "
+                            "the engine")
+    return launches, stats, failures
+
+
 def main() -> int:
     import torch
 
@@ -3946,7 +4342,17 @@ def main() -> int:
                  f"unetspsmall_3k) at {'x'.join(map(str, SHAPE_512))}: bf16 "
                  f"whole volumes ({N_512}), f32, int8, sliding windows, "
                  f"training ({N_TRAIN_512} + 1 steps) and 1 volume served",
-             lambda device, work: spsmall(device, work, before=phase_stats))):
+             lambda device, work: spsmall(device, work, before=phase_stats)),
+            (11, f"pickled-module .pt files (zip, and nn.DataParallel in the "
+                 f"legacy format) served against the .npz, preprocessing of "
+                 f"a {'x'.join(map(str, CT_SHAPE))} CT on the card, "
+                 f"largest_cc_device, param_dtype = bfloat16 training with "
+                 f"profile_dir (2 epochs of 1 step), QAT ({QAT_STEPS} steps "
+                 f"at {'x'.join(map(str, QAT_SHAPE))}, lr {QAT_LR}) and its "
+                 f"int8 engine "
+                 f"at {size}",
+             lambda device, work: pickled_ops_qat(device, work,
+                                                  before=phase_stats))):
         log(f"== phase {phase}: main path, {label}, through Model")
         t0 = time.perf_counter()
         got = {}

@@ -9,18 +9,30 @@ reads it back, and the trainer resumes all of it from ``s_resume_model``
 (the reference restarts Adam's moments from zero on resume). The port reads
 no orbax: an orbax directory is exported once to a flat ``.npz``
 (``tools/export_unetsp_npz.py``; keys are flax tree paths joined by ``/``),
-which :func:`load_any` maps through ``models.convert.from_flax``. A
-reference ``.pt`` state_dict loads natively (the generic family and the
-legacy ``recAE_v2_fixed`` / ``UNet4_2IC``, whose live ``cblock_center``
-is kept), minus the ``module.`` prefix of ``nn.DataParallel`` and the dead
-``cblock.`` keys of quirk Q1; a pickled reference module is refused.
+which :func:`load_any` maps through ``models.convert.from_flax``.
+
+A reference ``.pt`` holds either a state_dict or a whole pickled
+``nn.Module`` (``Model.py:464-472``), each possibly wrapped in
+``nn.DataParallel``, in torch's zip format or its older non-zip one.
+:func:`load_pt` reads all of them through :data:`RESTRICTED_PICKLE`, an
+unpickler that runs no code of the file: every global outside a short
+allow-list of tensor rebuilds, storage types, ``OrderedDict`` and inert
+builtins becomes an empty placeholder class, and nothing is imported. A
+module's state_dict is then rebuilt from the placeholders'
+``_parameters``, ``_buffers`` and ``_modules`` trees
+(``ctunet_tpu/models/torch_port.py:154-178``), minus the ``module.``
+prefix of ``nn.DataParallel`` and the dead ``cblock.`` keys of quirk Q1.
 :func:`load_any` returns a state_dict of the port's models from any of the
-three.
+three formats.
 """
 
 from __future__ import annotations
 
+import collections
 import os
+import pickle
+import types
+import warnings
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -95,16 +107,132 @@ def load_npz(path: str) -> Dict[str, torch.Tensor]:
     return from_flax(tree["params"], tree["batch_stats"])
 
 
-def load_pt(path: str) -> Dict[str, torch.Tensor]:
-    """Reference ``.pt`` state_dict -> the port's state_dict.
+# ---------------------------------------------------------------------------
+# the restricted unpickler of reference .pt files
+# ---------------------------------------------------------------------------
 
-    Read with ``weights_only=True``: a pickled reference module (the other
-    format ``Model.py:464-472`` accepts) needs the reference's classes and
-    is refused by torch's safe unpickler.
-    """
-    loaded = torch.load(path, map_location="cpu", weights_only=True)
+# where the placeholder classes claim to live: a module that does not exist,
+# so nothing (torch's source check of legacy files included) finds a file
+_PLACEHOLDER_MODULE = "ctunet_tpu_torch.checkpoint.<pickled>"
+
+
+class Placeholder:
+    """What every global of a ``.pt`` outside the allow-list unpickles to:
+    a class with no behaviour. Constructing one ignores its arguments, and
+    the pickle's state fills its ``__dict__``, so a pickled ``nn.Module``
+    becomes a tree of these whose ``_parameters``, ``_buffers`` and
+    ``_modules`` hold the tensors. ``pickled_as`` is the ``(module,
+    name)`` the file asked for."""
+
+    pickled_as = ("", "")
+
+    def __init__(self, *args, **kwargs):
+        del args, kwargs
+
+
+def _rebuild_tensor(storage, storage_offset, size, stride, *_):
+    """``torch._utils._rebuild_tensor_v2`` without the requires-grad flag,
+    the backward hooks and the metadata the file may carry."""
+    return torch._utils._rebuild_tensor(storage, storage_offset, size,
+                                        stride)
+
+
+def _rebuild_parameter(data, *_):
+    """A parameter is kept as its tensor: no requires-grad flag, hooks or
+    (``_rebuild_parameter_with_state``) attributes set from the file."""
+    return data
+
+
+# The globals that torch.save files of state_dicts and of modules (plain,
+# in nn.DataParallel, zip and legacy format) name, as the tests find; none
+# of them runs code of the file. ``set`` is a module's
+# ``_non_persistent_buffers_set`` (protocol 2 names its module
+# ``__builtin__``); a legacy file names the dtypes. The storage types
+# (``torch.FloatStorage``, ...) never reach ``find_class``: torch's loaders
+# resolve them first.
+ALLOWED = {
+    ("torch._utils", "_rebuild_tensor_v2"): _rebuild_tensor,
+    ("torch._utils", "_rebuild_parameter"): _rebuild_parameter,
+    ("torch._utils", "_rebuild_parameter_with_state"): _rebuild_parameter,
+    ("collections", "OrderedDict"): collections.OrderedDict,
+    ("builtins", "set"): set,
+    ("__builtin__", "set"): set,
+    **{("torch", n): getattr(torch, n) for n in (
+        "float64", "float32", "float16", "bfloat16", "int64", "int32",
+        "int16", "int8", "uint8", "bool")},
+}
+
+
+class RestrictedUnpickler(pickle.Unpickler):
+    """An unpickler that imports nothing: :data:`ALLOWED` globals come
+    back as themselves, every other ``(module, name)`` as a fresh
+    :class:`Placeholder` subclass."""
+
+    def find_class(self, module, name):
+        found = ALLOWED.get((module, name))
+        if found is not None:
+            return found
+        return type(str(name), (Placeholder,), {
+            "__module__": _PLACEHOLDER_MODULE,
+            "pickled_as": (str(module), str(name))})
+
+
+def _restricted_load(file, **kwargs):
+    return RestrictedUnpickler(file, **kwargs).load()
+
+
+# the ``pickle_module`` handed to ``torch.load``: torch's loaders subclass
+# its ``Unpickler`` (keeping our ``find_class``) and call its ``load`` for
+# the legacy format's headers
+RESTRICTED_PICKLE = types.ModuleType("ctunet_tpu_torch.restricted_pickle")
+RESTRICTED_PICKLE.Unpickler = RestrictedUnpickler
+RESTRICTED_PICKLE.load = _restricted_load
+
+
+def _tree_state_dict(node, prefix: str = "") -> Dict[str, Any]:
+    """``state_dict()`` of an unpickled module tree
+    (``torch_port.py:154-178``): parameters, then the persistent buffers,
+    then the children, depth first."""
+    d = vars(node)
+    out: Dict[str, Any] = {}
+    skip = d.get("_non_persistent_buffers_set") or ()
+    for group in ("_parameters", "_buffers"):
+        for name, value in (d.get(group) or {}).items():
+            if value is not None and name not in skip:
+                out[prefix + name] = value
+    for name, child in (d.get("_modules") or {}).items():
+        if child is not None:
+            out.update(_tree_state_dict(child, prefix + name + "."))
+    return out
+
+
+def load_pt(path: str) -> Dict[str, torch.Tensor]:
+    """A reference ``.pt`` (a state_dict or a pickled module, zip or legacy
+    format) read through :data:`RESTRICTED_PICKLE` -> the port's
+    state_dict: the ``module.`` prefix of ``nn.DataParallel`` stripped and
+    the dead center block's ``cblock.`` keys (quirk Q1) dropped. Raises
+    ``ValueError`` when the file holds neither a state_dict nor a module,
+    or anything but tensors where the state_dict's values are; it never
+    loads the file again another way."""
+    with warnings.catch_warnings():
+        # the legacy format's source check of every module class, which a
+        # placeholder has none of
+        warnings.simplefilter("ignore")
+        loaded = torch.load(path, map_location="cpu", weights_only=False,
+                            pickle_module=RESTRICTED_PICKLE)
+    if isinstance(loaded, Placeholder):
+        sd = _tree_state_dict(loaded)
+    elif isinstance(loaded, dict):
+        sd = dict(loaded)
+    else:
+        raise ValueError(f"{path}: holds a {type(loaded).__name__}, neither "
+                         "a state_dict nor a pickled module")
+    bad = sorted(k for k, v in sd.items() if not isinstance(v, torch.Tensor))
+    if bad or not sd:
+        raise ValueError(f"{path}: no state_dict could be rebuilt (entries "
+                         f"that are not tensors: {bad[:8]})")
     out = {}
-    for k, v in loaded.items():
+    for k, v in sd.items():
         k = k[len("module."):] if k.startswith("module.") else k
         if not k.startswith("cblock."):  # quirk Q1: dead center block
             out[k] = v.detach().cpu()
@@ -113,8 +241,8 @@ def load_pt(path: str) -> Dict[str, torch.Tensor]:
 
 def load_any(path: str) -> Dict[str, torch.Tensor]:
     """Load model weights from a train-state ``.ckpt`` of the port, a flax
-    ``.npz`` export or a reference ``.pt`` state_dict (each carries its own
-    structure)."""
+    ``.npz`` export or a reference ``.pt`` (state_dict or pickled module;
+    each carries its own structure)."""
     path = os.path.expanduser(path)
     if not os.path.exists(path):
         raise FileNotFoundError(f"checkpoint not found: {path}")

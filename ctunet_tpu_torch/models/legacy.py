@@ -19,9 +19,10 @@ loads with ``load_state_dict``: ``dblock{1..4}`` and ``cblock_center`` are
 (``ctunet_tpu/models/torch_port.py:242-265``). Like ``models/unet.py`` the
 modules run channels-last, ``(B, D, H, W, C)``. :meth:`RecAEv2Fixed.configure`
 sets the compute dtype, as the JAX legacy models' ``dtype=`` does
-(``ctunet_tpu/models/legacy.py:36-37,65-66``): parameters stay f32 and are
-cast per call, each conv adds its bias in the compute dtype, and the head
-and softmax run in it; f32 by default. It also sets how the k=5 convs run,
+(``ctunet_tpu/models/legacy.py:36-37,65-66``): parameters are held in
+``param_dtype`` (``models.build_model``; f32 by default) and cast per
+call, each conv adds its bias in the compute dtype, and the head and
+softmax run in it; f32 by default. It also sets how the k=5 convs run,
 through ``models/unet.py::Conv3d`` (``PackedConv``,
 ``ctunet_tpu/models/unet.py:108-136``):
 

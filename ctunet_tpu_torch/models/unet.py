@@ -28,9 +28,11 @@ inside and out, like ``ctunet_tpu``: that is the layout of the port's
 kernels, so no transpose stands between two layers.
 
 ``UNet.configure(conv_impl, compute_dtype)`` selects how the k=3 convs run
-and where the compute dtype rounds (``unet.py:124-129``): parameters stay
-f32 and are cast per call, BatchNorm statistics are f32. There is no
-autocast. ``conv_impl``:
+and where the compute dtype rounds (``unet.py:124-129``): parameters are
+held in ``param_dtype`` (f32 unless ``models.build_model`` is given
+another) and cast per call, so their gradients come back in it; the
+BatchNorm scale, shift and statistics are f32. There is no autocast.
+``conv_impl``:
 
 =========  ============================================================
 ``chain``  K6 forward/dgrad + tap-dot wgrad (``ops/chain_conv_train.py``)

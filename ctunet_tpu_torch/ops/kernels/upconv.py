@@ -110,7 +110,8 @@ def prepare_upconv(up_w, up_b, conv_w, conv_b, bn_w, bn_b, bn_mean, bn_var,
     ``bias`` is the folded conv bias in f32.
     """
     kk = up_w.detach().cpu().float().permute(2, 3, 4, 1, 0).numpy()
-    kT_aug, _ = augment_upconv_kernel(kk, up_b.detach().cpu().numpy(), ca)
+    kT_aug, _ = augment_upconv_kernel(
+        kk, up_b.detach().cpu().float().numpy(), ca)
     inv, bn_bias = fold_bn(bn_w.cpu(), bn_b.cpu(), bn_mean.cpu(),
                            bn_var.cpu())
     w0 = conv_w.detach().cpu().float().permute(2, 3, 4, 1, 0).numpy()

@@ -100,6 +100,16 @@ def nonzero_voxel_core(volume: Tensor, scores: Tensor):
     return center, nz.any()
 
 
+def random_nonzero_voxel(gen: torch.Generator, volume: Tensor):
+    """A uniformly drawn nonzero voxel of ``volume``: ``((z, y, x) f32,
+    any_nonzero)`` (``synthesis.py:101-126``): one 32-bit score per voxel,
+    the nonzero voxel with the largest wins (:func:`nonzero_voxel_core`).
+    For an empty volume the centre is voxel 0 and ``any_nonzero`` False."""
+    scores = torch.randint(0, 2 ** 32, tuple(volume.shape), generator=gen,
+                           device=volume.device, dtype=torch.int64)
+    return nonzero_voxel_core(volume, scores)
+
+
 def radius_bounds(shape) -> Tuple[int, int]:
     """Bounds of the patch size (``transforms.py:265-268``)."""
     min_radius = (min(shape) // 5) - 1
@@ -135,9 +145,7 @@ def draw_blank_patch(gen: torch.Generator, image: Tensor,
     a uniformly chosen nonzero voxel, size ~ U{min_r..max_r-1}, type ~
     U{0,1,2}, ``c_diam`` ~ U(0.25, 1) * size / 4, and the coin."""
     dev = image.device
-    scores = torch.randint(0, 2 ** 32, tuple(image.shape), generator=gen,
-                           device=dev, dtype=torch.int64)
-    center, any_nz = nonzero_voxel_core(image, scores)
+    center, any_nz = random_nonzero_voxel(gen, image)
     min_r, max_r = radius_bounds(image.shape)
     size = torch.randint(min_r, max_r, (), generator=gen, device=dev).float()
     u = torch.rand(3, generator=gen, device=dev)

@@ -299,7 +299,7 @@ def _bias_correction(decay: float, count: int) -> float:
 
 class Optimizer(torch.optim.Optimizer):
     """The update of ``ctunet_tpu.steps.make_optimizer``, transform by
-    transform as optax (0.2.6) computes it, in place on f32 parameters.
+    transform as optax (0.2.6) computes it, in place on the parameters.
 
     ``name``:
 
@@ -322,6 +322,15 @@ class Optimizer(torch.optim.Optimizer):
     learning rate, applies a new scale in the step that found the plateau,
     and reduces when the count of bad steps **equals** ``patience`` (torch
     waits for one more).
+
+    A parameter held in bf16 or f16 (``param_dtype``) keeps its moments in
+    its dtype (optax's ``zeros_like(params)``) and is updated in it with
+    JAX's promotions: each Python constant (the decays, ``eps``, the
+    learning rate) is rounded to the parameter's dtype first, as a weak
+    type is; each bias correction is computed in f32 and then rounded to
+    it (``optax.tree.bias_correction``); the plateau's f32 scale promotes
+    the update to f32, added to the parameter in f32 and rounded back
+    (``optax.apply_updates``). Small updates then round away, as in JAX.
 
     Count, plateau state and hyper-parameters live in the param group, the
     moments in ``state``, so ``state_dict()`` carries all of them.
@@ -371,7 +380,6 @@ class Optimizer(torch.optim.Optimizer):
         for group in self.param_groups:
             group["count"] += 1
             n, name = group["count"], group["name"]
-            lr, wd, mom = group["lr"], group["weight_decay"], group["momentum"]
             scale = 1.0
             if group["plateau"] is not None:
                 if value is None:
@@ -379,44 +387,56 @@ class Optimizer(torch.optim.Optimizer):
                                      "step(value=loss)")
                 scale = self._plateau_scale(group["plateau"], float(value))
             for p in group["params"]:
-                if p.grad is None:
-                    continue
-                g = p.grad
-                st = self.state[p]
-                if wd and name != "adamw":
-                    g = g + wd * p
-                if name in ("adam", "adamw"):
-                    if not st:
-                        st.update(mu=torch.zeros_like(p),
-                                  nu=torch.zeros_like(p),
-                                  nu_max=torch.zeros_like(p))
-                    b1, b2 = group["b1"], group["b2"]
-                    st["mu"] = (1 - b1) * g + b1 * st["mu"]
-                    st["nu"] = (1 - b2) * (g * g) + b2 * st["nu"]
-                    mu_hat = st["mu"] / _bias_correction(b1, n)
-                    nu_hat = st["nu"] / _bias_correction(b2, n)
-                    st["nu_max"] = torch.maximum(st["nu_max"], nu_hat)
-                    u = mu_hat / (torch.sqrt(st["nu_max"]) + group["eps"])
-                    if name == "adamw":
-                        u = u + wd * p
-                    u = -lr * u
-                elif name == "rmsprop":
-                    if not st:
-                        st.update(nu=torch.zeros_like(p),
-                                  trace=torch.zeros_like(p))
-                    d = group["rms_decay"]
-                    st["nu"] = (1 - d) * (g * g) + d * st["nu"]
-                    u = -lr * (torch.rsqrt(st["nu"] + group["eps"]) * g)
-                    st["trace"] = u + mom * st["trace"]
-                    u = st["trace"]
-                else:  # sgd
-                    if mom:
-                        if not st:
-                            st.update(trace=torch.zeros_like(p))
-                        st["trace"] = g + mom * st["trace"]
-                        g = st["trace"]
-                    u = -lr * g
-                p.add_(scale * u if scale != 1.0 else u)
+                if p.grad is not None:
+                    self._update(p, group, n, name, scale)
+
+    def _update(self, p, group, n: int, name: str, scale: float) -> None:
+        if p.dtype == torch.float32:
+            def c(v):  # an f32 operation rounds a Python float to f32
+                return v
+        else:
+            def c(v):  # a weak-typed constant, rounded to p's dtype
+                return torch.tensor(v, dtype=p.dtype)
+        lr, wd, mom = group["lr"], group["weight_decay"], group["momentum"]
+        g = p.grad
+        st = self.state[p]
+        if wd and name != "adamw":
+            g = g + c(wd) * p
+        if name in ("adam", "adamw"):
+            if not st:
+                st.update(mu=torch.zeros_like(p), nu=torch.zeros_like(p),
+                          nu_max=torch.zeros_like(p))
+            b1, b2 = group["b1"], group["b2"]
+            st["mu"] = c(1 - b1) * g + c(b1) * st["mu"]
+            st["nu"] = c(1 - b2) * (g * g) + c(b2) * st["nu"]
+            mu_hat = st["mu"] / c(_bias_correction(b1, n))
+            nu_hat = st["nu"] / c(_bias_correction(b2, n))
+            st["nu_max"] = torch.maximum(st["nu_max"], nu_hat)
+            u = mu_hat / (torch.sqrt(st["nu_max"]) + c(group["eps"]))
+            if name == "adamw":
+                u = u + c(wd) * p
+            u = c(-lr) * u
+        elif name == "rmsprop":
+            if not st:
+                st.update(nu=torch.zeros_like(p), trace=torch.zeros_like(p))
+            d = group["rms_decay"]
+            st["nu"] = c(1 - d) * (g * g) + c(d) * st["nu"]
+            u = c(-lr) * (torch.rsqrt(st["nu"] + c(group["eps"])) * g)
+            st["trace"] = u + c(mom) * st["trace"]
+            u = st["trace"]
+        else:  # sgd
+            if mom:
+                if not st:
+                    st.update(trace=torch.zeros_like(p))
+                st["trace"] = g + c(mom) * st["trace"]
+                g = st["trace"]
+            u = c(-lr) * g
+        if scale == 1.0:
+            p.add_(u)
+        elif p.dtype == torch.float32:
+            p.add_(scale * u)
+        else:  # the f32 scale promotes the update; one rounding back
+            p.copy_(p.float() + scale * u.float())
 
 
 def make_optimizer(params_cfg: Dict[str, Any], parameters) -> Optimizer:

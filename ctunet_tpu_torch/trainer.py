@@ -28,6 +28,11 @@ and/or tests according to the flags. CLI: ``ctunet-tpu-torch <cfg.ini>`` /
   ``b_fg_crop_train`` trains and evaluates on a static foreground window
   (``s_fg_train_size``, or planned over every train and validation
   volume), cut per sample on the device (``steps.make_fg_crop_fn``).
+  ``s_param_dtype`` (``float32``, ``bfloat16`` or ``float16``) is the
+  dtype the parameters are held, trained, saved and loaded in, BatchNorm's
+  aside (f32, as in the JAX package); ``s_profile_dir`` writes a
+  ``torch.profiler`` trace of the first epoch's train pass there, each
+  step a ``record_function`` span.
 - ``test_flag``: every test volume through the engine in
   ``compute_dtype`` (``engine.py``: bf16 or f32 on the card), or with
   ``use_int8`` the calibrated int8 engine (``engine_q.py``), whole or,
@@ -73,7 +78,7 @@ from . import registry, steps
 from .data import atlas as atlas_mod
 from .data.pipeline import HostLoader, device_prefetch, upload
 from .device import resolve_device
-from .models import build_model
+from .models import build_model, parse_param_dtype
 from .ops import foreground
 from .utils import (default_params, makedir, print_params_dict,
                     set_cfg_params, tic, toc_eps)
@@ -82,19 +87,12 @@ from .utils.tb_writer import make_writer
 # (params key, is-set test, where the feature stands) for settings that
 # ctunet_tpu serves and this port does not yet.
 _NOT_PORTED = (
-    ("profile_dir", bool,
-     "profiler trace of the first epoch, ROADMAP Queue 1 item 19"),
     ("distributed", bool, "multi-process runs, ROADMAP Queue 1 item 18"),
     # 0 and 1 mean one device (ctunet_tpu/trainer.py:162-176)
     ("mesh_data", lambda v: int(v or 0) > 1,
      "data-parallel training over several devices, ROADMAP Queue 1 item 18"),
     ("mesh_spatial", lambda v: int(v or 1) > 1,
      "depth-sharded serving, ROADMAP Queue 1 item 18"),
-    # parameters are held in float32 (ctunet_tpu/trainer.py:331), the
-    # JAX package's default; another dtype is not served yet
-    ("param_dtype", lambda v: (v or "float32") != "float32",
-     "parameters held in another dtype than float32, ROADMAP Queue 1 "
-     "item 20"),
 )
 
 def _np_corners(offs, sizes):
@@ -200,6 +198,9 @@ class Model:
             raise ValueError(
                 f"compute_dtype {name!r}: one of {list(_DTYPES)}")
         self.compute_dtype = _DTYPES[name]
+        # the dtype the parameters are held, trained and saved in
+        # (ctunet_tpu/trainer.py:331); BatchNorm's stay f32
+        self.param_dtype = parse_param_dtype(self.params.get("param_dtype"))
         self.device = resolve_device(self.params.get("device"))
         # spatial divisibility of the model: 32 for the 5-block family
         self.pool_multiple = engine.pool_multiple(self.params["model_class"])
@@ -345,7 +346,9 @@ class Model:
                 im_shape, self.params.get("atlas_dir"))
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(int(self.params.get("seed") or 0))
-            model = build_model(mc)
+            model = build_model(mc, self.param_dtype)
+        # loaded weights are rounded to param_dtype (the JAX package keeps
+        # a loaded tree's own dtype)
         if load_out:
             model.load_state_dict(  # strict: checks every key
                 self._load_variables(self.params["model_path"]))
@@ -487,13 +490,34 @@ class Model:
                   f"snap {self.pool_multiple})")
         return size
 
+    def _profiled(self, profile_dir: str):
+        """A ``torch.profiler`` trace (host and, on the card, CUDA
+        activity) written into ``profile_dir`` when the block ends, as
+        ``jax.profiler.trace`` does (``ctunet_tpu/trainer.py:591-597``):
+        one ``<host>_<pid>.<ns>.pt.trace.json`` for TensorBoard or
+        Perfetto."""
+        from torch.profiler import (ProfilerActivity, profile,
+                                    tensorboard_trace_handler)
+
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        handler = tensorboard_trace_handler(os.path.expanduser(profile_dir))
+        return profile(activities=acts, on_trace_ready=handler)
+
     def _train_epochs(self, n_epochs, train_step, eval_step,
                       interrupted) -> None:
+        profile_dir = self.params.get("profile_dir") or ""
         for n_epoch in range(1, n_epochs + 1):
             ep_time = tic()
             self.current_epoch = n_epoch
             print("Epoch: ", n_epoch)
-            self._forward_pass_train(train_step, n_epoch)
+            if profile_dir and n_epoch == 1:
+                # the first epoch's train pass only, as in the JAX package
+                with self._profiled(profile_dir):
+                    self._forward_pass_train(train_step, n_epoch)
+            else:
+                self._forward_pass_train(train_step, n_epoch)
             self.update_plots_tensorboard_avg("train", n_epoch)
             self._forward_pass_eval(eval_step, n_epoch)
             ep_loss_v = self.update_plots_tensorboard_avg("val", n_epoch)
@@ -541,7 +565,11 @@ class Model:
         depth = int(self.params.get("prefetch_depth") or 2)
         self.step_losses = []
         for idx, batch in enumerate(self._device_batches(loader, depth)):
-            self.state, terms = train_step(self.state, batch, self._gen)
+            # a span per step: a profiler trace shows the step boundaries
+            # even where it sees no kernel launch (ctypes launches)
+            with torch.profiler.record_function(
+                    f"epoch {n_epoch} train step {idx}"):
+                self.state, terms = train_step(self.state, batch, self._gen)
             loss = self._accumulate(terms)
             self.step_losses.append(loss)
             if log_every and (idx + 1) % log_every == 0:
@@ -553,8 +581,12 @@ class Model:
     def _forward_pass_eval(self, eval_step, n_epoch: int) -> None:
         print("Phase: val.")
         want_hd = bool(self.params.get("save_hd_plots"))
-        for batch in self._device_batches(self.data["validation_loader"]):
-            terms, (out, targets) = eval_step(self.state, batch, self._gen)
+        for idx, batch in enumerate(
+                self._device_batches(self.data["validation_loader"])):
+            with torch.profiler.record_function(
+                    f"epoch {n_epoch} eval step {idx}"):
+                terms, (out, targets) = eval_step(self.state, batch,
+                                                  self._gen)
             self._accumulate(terms)
             if want_hd:
                 hm = self.problem_handler.host_metrics(out, targets,
@@ -684,7 +716,7 @@ class Model:
             return engine.build_predict(self.params["model_class"],
                                         self.state_dict, dtype, self.device)
         # a copy: the trained model keeps its train settings
-        model = build_model(self.params["model_class"])
+        model = build_model(self.params["model_class"], self.param_dtype)
         model.load_state_dict(self.state_dict)
         return model.to(self.device).eval().configure("xla", dtype)
 

@@ -144,7 +144,7 @@ def default_params() -> Dict[str, Any]:
                                       # headline serving mode.
         "serve_profile": False,       # print per-stage serving-loop times
         "debug_nans": False,          # jax.debug_nans (ref: detect_anomaly)
-        "profile_dir": "",            # jax.profiler trace output dir
+        "profile_dir": "",            # torch.profiler trace of epoch 1
         "log_every": 1,               # console loss print frequency (batches)
         "remat": True,                # activation recomputation per block
         "drop_remainder": True,

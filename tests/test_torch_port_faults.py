@@ -13,8 +13,10 @@
   f32.
 - ``debug_nans`` turns autograd's anomaly detection on for the training
   loop, and off after it.
-- ``param_dtype``: ``float32`` (the parameters the port holds) is served,
-  any other value raises ``NotImplementedError`` naming its ROADMAP item.
+- ``param_dtype``: ``float32``, ``bfloat16`` and ``float16`` are served
+  (the parameters are held in that dtype, BatchNorm's in f32;
+  ``test_torch_port_param_dtype.py`` holds them against JAX), any other
+  name raises ``ValueError``.
 - The AdaQuant rounding search runs under ``quant_opt.search_flags``, which
   sets TF32 off and cuDNN's deterministic, non-benchmarked algorithms, and
   restores all four flags, also on an exception.
@@ -141,10 +143,16 @@ def test_param_dtype_is_served_or_raises(tmp_path):
     params = dict(name="x", model_class="UNetSP",
                   problem_handler="FlapRecWithShapePriorDoubleOut",
                   device="cpu", workspace_path=str(tmp_path))
-    Model(params=dict(params, param_dtype="float32"))
-    Model(params=dict(params, param_dtype=None))  # the default
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 20"):
-        Model(params=dict(params, param_dtype="bfloat16"))
+    for name, dtype in (("float32", torch.float32), (None, torch.float32),
+                        ("bfloat16", torch.bfloat16),
+                        ("float16", torch.float16)):
+        m = Model(params=dict(params, param_dtype=name))
+        assert m.param_dtype == dtype
+        m.initialize_models()
+        held = {p.dtype for p in m.models["main"].parameters()}
+        assert held == {dtype, torch.float32}  # BatchNorm's stay f32
+    with pytest.raises(ValueError, match="param_dtype 'float64'"):
+        Model(params=dict(params, param_dtype="float64"))
 
 
 def test_search_flags_set_and_restore_all_four():

@@ -191,13 +191,15 @@ def test_fg_and_scan_settings_are_served(tmp_path, key, value):
 def test_unported_settings_raise(tmp_path, key, value):
     """Settings still to port raise, naming their ROADMAP item;
     ``patch_inference`` is served since it was ported
-    (``test_torch_port_sliding_window.py``)."""
+    (``test_torch_port_sliding_window.py``), ``profile_dir`` too
+    (``test_torch_port_param_dtype.py`` checks its trace of the first
+    epoch)."""
     params = dict(test_flag=False, name="x", model_class="UNetSP",
                   problem_handler="FlapRecWithShapePriorDoubleOut",
                   device="cpu", workspace_path=str(tmp_path))
     params[key] = value
-    if key == "patch_inference":
-        assert Model(params=params).params["patch_inference"] is True
+    if key in ("patch_inference", "profile_dir"):
+        assert Model(params=params).params[key] == value
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Model(params=params)

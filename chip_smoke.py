@@ -185,6 +185,22 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
    served through ``Model`` in int8 without AdaQuant (12 K1q, 4 K2q, 4
    K3q), the masks equal to the same engine on the plain versions,
    the int8-vs-f32 Dice before and after QAT printed (not gated).
+12. Several ranks (:func:`multi_device`): ``N_RANKS`` processes started
+   by ``parallel.spawn``, all on the one card over gloo. UNetSP from
+   ``unetsp_10k`` serves one 224x304x304 volume depth-sharded (two slabs
+   of 112 planes, 12 K1, 4 K2, 4 K3 and 16 halo exchanges a rank) in bf16
+   (phase 3's gates against the single-rank engine and the plain f32
+   model, and every probability within one bf16 ulp of the single-rank
+   engine's) and f32 (phase 7's against the plain f32
+   model); 2 volumes data-parallel in bf16 and int8 (the same calibration
+   volume), each identical to the single-rank engine; and ``Model``
+   trains data-parallel (``b_distributed``, ``i_mesh_data = 2``, batch 2,
+   ``chain``, 2 + 1 steps, 31 K6 a train step a rank): step 1's loss and
+   BatchNorm statistics against the one-process batch-2 run (phase 5's
+   gates), the parameters bit-equal across the ranks, rank 0's checkpoint
+   and events only; a rank's synthesis draws on the card (the Philox jump)
+   equal to one process's. Its times are of ranks sharing one card; a
+   rank's train step is split into its all-reduces and its synthesis.
 
 The last two lines of output are one JSON object ``{"kernels": [...]}``
 and ``{"ok": true, "device": {...}}``. Any failure exits non-zero and
@@ -197,6 +213,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import functools
+import glob
 import json
 import math
 import os
@@ -4244,6 +4261,462 @@ def pickled_ops_qat(device, work: str, shape=SHAPE, before=None,
     return launches, stats, failures
 
 
+# ---- phase 12: several ranks on the one card ------------------------------
+
+N_RANKS = 2  # phase 12's ranks, each on the one card (gloo: they share it)
+MD_TRAIN_STEPS = 2  # phase 12's data-parallel train steps (batch 2; 1 eval)
+
+
+@contextlib.contextmanager
+def first_step_stats(out: dict):
+    """While open, ``Model``'s train step records into ``out``, after its
+    first step, the model's BatchNorm running statistics (on the host)."""
+    from ctunet_tpu_torch import steps
+
+    make = steps.make_train_step
+
+    def recording(model, *args, **kwargs):
+        step = make(model, *args, **kwargs)
+
+        def first(state, batch, gen):
+            res = step(state, batch, gen)
+            if not out:
+                out.update({k: v.detach().float().cpu().clone()
+                            for k, v in model.state_dict().items()
+                            if k.endswith(("running_mean", "running_var"))})
+            return res
+        return first
+
+    steps.make_train_step = recording
+    try:
+        yield out
+    finally:
+        steps.make_train_step = make
+
+
+@contextlib.contextmanager
+def timed_calls(spent: dict, device):
+    """While open, every ``torch.distributed.all_reduce`` and every
+    synthesis of a step built then (``steps.make_synth_fn``) adds its host
+    time, between two synchronizations of ``device``, to ``spent``
+    (seconds, with the number of calls under ``n_<key>``)."""
+    import torch.distributed as dist
+
+    from ctunet_tpu_torch import steps
+
+    def timed(key, fn):
+        def call(*args, **kwargs):
+            sync(device)
+            t = time.perf_counter()
+            res = fn(*args, **kwargs)
+            sync(device)
+            spent[key] = spent.get(key, 0.0) + time.perf_counter() - t
+            spent["n_" + key] = spent.get("n_" + key, 0) + 1
+            return res
+        return call
+
+    reduce_, make = dist.all_reduce, steps.make_synth_fn
+    dist.all_reduce = timed("all_reduce", reduce_)
+    steps.make_synth_fn = lambda *a, **k: timed("synthesis", make(*a, **k))
+    try:
+        yield spent
+    finally:
+        dist.all_reduce, steps.make_synth_fn = reduce_, make
+
+
+def bf16_ulp(x):
+    """One bf16 unit in the last place at each ``|x|`` (the smallest normal
+    number's where ``x`` is 0)."""
+    import torch
+
+    _, e = torch.frexp(x.float().abs().clamp_min(2.0 ** -126))
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+def md_train_params(work: str, train_csv: str, val_csv: str, device,
+                    name: str):
+    """``FlapRecSP2O.ini``'s training settings at batch 2 (phase 5's, but
+    for the batch): one epoch of ``MD_TRAIN_STEPS`` steps, then one eval
+    step; each run in a workspace of its own."""
+    from ctunet_tpu_torch import default_params, load_params
+
+    params = load_params(TRAIN_INI, default_params())
+    params.update(
+        name=name, conv_impl="chain", n_epochs=1, batch_size=N_RANKS,
+        autosave_epochs=0, workspace_path=os.path.join(work, "ws_" + name),
+        train_files_csv=train_csv, validation_files_csv=val_csv,
+        test_flag=False, resume_model="", log_every=1, n_workers=2)
+    if device.type != "cuda":
+        params["device"] = device.type
+    return params
+
+
+def md_rank(rank: int, work: str, shape, paths, train_csv: str,
+            val_csv: str, device_type: str):
+    """One rank of phase 12 (``parallel.spawn``): depth-sharded serving of
+    ``paths[0]`` (bf16, f32), data-parallel serving of ``paths[0:2]`` (bf16;
+    int8 calibrated on ``paths[2]``) and a data-parallel ``Model`` run. Each
+    path's launch counts are set to 0 just before it and read just after.
+    Returns the outputs (on the host), the counts and the times."""
+    import numpy as np
+    import torch
+
+    from ctunet_tpu_torch import Model, engine, parallel
+    from ctunet_tpu_torch.checkpoint import UNETSP_10K, load_any
+    from ctunet_tpu_torch.data import spherical_shell
+    from ctunet_tpu_torch.data.atlas import register_atlas
+    from ctunet_tpu_torch.ops import kernels
+    from ctunet_tpu_torch.parallel import halo as halo_mod
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank_, world = parallel.initialize_from_params(dict(
+        distributed=True, device=device_type))
+    device = parallel.rank_device(torch.device(
+        "cuda", 0) if device_type == "cuda" else torch.device("cpu"))
+    atlas = spherical_shell(shape, radius_frac=0.42).astype(np.float32)
+    register_atlas(shape, atlas)
+    sd = load_any(UNETSP_10K)
+    vols = torch.from_numpy(np.stack([np.stack([nifti_data(p), atlas], -1)
+                                      for p in paths])).to(device)
+    out = dict(rank=rank_, world=world, device=str(device), counts={},
+               ms={}, backend=torch.distributed.get_backend())
+
+    def run(key, fn):
+        sync(device)
+        kernels.reset_launches()
+        res = fn()
+        sync(device)
+        out["counts"][key] = {k: v for k, v in kernels.launches().items()
+                              if v}
+        return res
+
+    def host(res):
+        return tuple(t.cpu() for t in res)
+
+    spatial = parallel.make_mesh(1, N_RANKS)
+    exchange = halo_mod.halo_exchange_many
+    for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        fwd = engine.build_sharded_predict("UNetSP", sd, spatial, dtype,
+                                           device)
+        out[f"sharded_{name}"] = host(run(f"sharded_{name}",
+                                          lambda: fwd(vols[:1])))
+        out["ms"][f"sharded_{name}"] = time_ms(lambda: fwd(vols[:1]), 3,
+                                               device)
+        # the same engine, each halo exchange timed alone (host clock
+        # between two synchronizations)
+        spent = []
+
+        def timed(*args):
+            sync(device)
+            t = time.perf_counter()
+            res = exchange(*args)
+            sync(device)
+            spent.append(time.perf_counter() - t)
+            return res
+
+        halo_mod.halo_exchange_many = timed
+        try:
+            fwd = engine.build_sharded_predict("UNetSP", sd, spatial, dtype,
+                                               device)
+        finally:
+            halo_mod.halo_exchange_many = exchange
+        fwd(vols[:1])
+        spent.clear()
+        for _ in range(3):
+            fwd(vols[:1])
+        out["ms"][f"halo_{name}"] = 1e3 * sum(spent) / 3
+        out[f"exchanges_{name}"] = len(spent) // 3
+    data = parallel.make_mesh(N_RANKS, 1)
+    fwd = engine.build_dp_predict("UNetSP", sd, data, torch.bfloat16,
+                                  device)
+    out["dp_bf16"] = host(run("dp_bf16", lambda: fwd(vols[:N_RANKS])))
+    out["ms"]["dp_bf16"] = time_ms(lambda: fwd(vols[:N_RANKS]), 3, device)
+    fwd = engine.build_dp_predict("UNetSP", sd, data, device=device,
+                                  int8_calib=vols[N_RANKS])
+    out["dp_int8"] = host(run("dp_int8", lambda: fwd(vols[:N_RANKS])))
+    out["ms"]["dp_int8"] = time_ms(lambda: fwd(vols[:N_RANKS]), 3, device)
+    del fwd, vols
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    params = md_train_params(work, train_csv, val_csv, device,
+                             f"md_rank{rank}")
+    params.update(distributed=True, mesh_data=N_RANKS)
+    first, spent = {}, {}
+    with first_step_stats(first), timed_calls(spent, device):
+        m = run("train", lambda: Model(params=params))
+    out.update(
+        losses=[float(v) for v in m.step_losses], first_stats=first,
+        history={k: [v for _, v in vals]
+                 for k, vals in m.writer.history.items()},
+        state={k: v.detach().cpu() for k, v in
+               m.state.model.state_dict().items()},
+        ckpt=os.path.exists(m.params["model_path"]),
+        events=bool(glob.glob(os.path.join(params["workspace_path"],
+                                           "runs", "*", "*"))))
+    steps_run = MD_TRAIN_STEPS + 1
+    out["ms"]["train_step"] = 1e3 * m.train_seconds / steps_run
+    out["ms"]["train_all_reduce"] = 1e3 * spent["all_reduce"] / steps_run
+    out["ms"]["train_synthesis"] = 1e3 * spent["synthesis"] / steps_run
+    out["all_reduces_a_step"] = spent["n_all_reduce"] / steps_run
+    return out
+
+
+def multi_device(device, work: str, shape=SHAPE, before=None):
+    """Phase 12: ``N_RANKS`` ranks (``parallel.spawn``, gloo) on the one
+    card, at full width:
+
+    - depth-sharded serving (``engine.build_sharded_predict``): UNetSP from
+      ``unetsp_10k`` on a phase-3 volume, two slabs of D / 2 planes, in bf16
+      (phase 3's gates against the single-rank engine and the plain f32
+      model, and each probability within one bf16 ulp of the single-rank
+      engine's) and f32 (phase 7's, against the plain f32 model); 12 K1,
+      4 K2, 4 K3 per rank;
+    - data-parallel serving (``engine.build_dp_predict``) of 2 volumes in
+      bf16 and in int8 (the same calibration volume on each rank): each
+      rank's volume identical to the single-rank engine's;
+    - data-parallel training through ``Model`` (``b_distributed``,
+      ``i_mesh_data = 2``, batch 2, ``chain``, ``MD_TRAIN_STEPS`` + 1
+      steps): 31 K6 a train step per rank, step 1's loss within 1e-2
+      relative and its BatchNorm batch statistics within 4 bf16 ulps of the
+      single-process batch-2 run's (phase 5's gates), the parameters
+      bit-equal across the ranks, one checkpoint (rank 0's).
+
+    Its times are of ranks sharing one card: they claim nothing about
+    scaling. Returns ``(launches, stats, failures)``."""
+    import numpy as np
+    import torch
+
+    from ctunet_tpu_torch import Model, engine, engine_q, parallel, steps
+    from ctunet_tpu_torch.checkpoint import UNETSP_10K, load_any
+    from ctunet_tpu_torch.data import make_dataset
+    from ctunet_tpu_torch.models import build_model
+    from ctunet_tpu_torch.problem import FlapRecWithShapePriorDoubleOut
+
+    failures, stats = [], {}
+    data, paths, csv, atlas, affine = write_volumes(work, shape, N_RANKS + 1)
+    # 2 complete skulls, each listed twice: 2 batches of 2 an epoch
+    made = make_dataset(os.path.join(work, "train"), n=N_RANKS, shape=shape,
+                        seed=40)
+    with open(made) as f:
+        rows = f.read().splitlines()
+    train_csv = os.path.join(work, "train", "twice.csv")
+    with open(train_csv, "w") as f:
+        f.write("\n".join([rows[0]] + rows[1:] * MD_TRAIN_STEPS) + "\n")
+
+    # ---- references in this process, freed before the ranks start -------
+    sd = load_any(UNETSP_10K)
+    vols = torch.from_numpy(np.stack([np.stack([nifti_data(p), atlas], -1)
+                                      for p in paths])).to(device)
+    k_pred = engine.build_predict("UNetSP", sd, device=device)
+    p_pred = engine.build_predict("UNetSP", sd, device=device, plain=True)
+    model = build_model("UNetSP").to(device).eval()
+    model.load_state_dict(sd)
+    q_pred = engine_q.build_predict_q("UNetSP", sd, vols[N_RANKS],
+                                      device=device)
+    with torch.inference_mode():
+        ref = {"kernel": k_pred(vols[:1]), "plain": p_pred(vols[:1]),
+               "f32": model(vols[:1].float()),
+               "dp_bf16": k_pred(vols[:N_RANKS]),
+               "dp_int8": q_pred(vols[:N_RANKS])}
+        ref = {k: tuple(t.cpu() for t in v) for k, v in ref.items()}
+    stats["single_engine_ms"] = time_ms(lambda: k_pred(vols[:1]), 3, device)
+    # a data rank's synthesis draws on the card (the Philox offset jump past
+    # the other ranks' samples): each rank's samples and the draw after the
+    # batch equal one process's, bit for bit
+    skulls = (vols[:N_RANKS, ..., 0] > 0).float()
+    handler = FlapRecWithShapePriorDoubleOut()
+
+    def draws(synth, images):
+        gen = torch.Generator(device=device).manual_seed(5)
+        x, t = synth(gen, {"image": images})
+        return (x, *t), torch.rand(4, generator=gen, device=device)
+
+    # a step's synthesis function measures a sample's offset advance at its
+    # first call and keeps it; the times are of later calls
+    synths = [steps.make_synth_fn(handler, shard=steps.DataShard(
+        None, N_RANKS, index)) for index in range(N_RANKS)]
+    one = steps.make_synth_fn(handler)
+    want, want_next = draws(one, skulls)
+    for index, synth in enumerate(synths):
+        got, got_next = draws(synth, skulls[index:index + 1])
+        if not (all(torch.equal(a, b[index:index + 1])
+                    for a, b in zip(got, want))
+                and torch.equal(got_next, want_next)):
+            failures.append(f"phase 12: data rank {index}'s synthesis "
+                            "draws differ from one process's")
+    stats["synth_batch_ms"] = time_ms(lambda: draws(one, skulls), 3, device)
+    stats["synth_rank_ms"] = time_ms(lambda: draws(synths[-1], skulls[-1:]),
+                                     3, device)
+    log(f"  synthesis on the card: {N_RANKS} ranks' draws equal one "
+        f"process's; one process's batch of {N_RANKS} "
+        f"{stats['synth_batch_ms']:.2f} ms, a rank's share "
+        f"{stats['synth_rank_ms']:.2f} ms")
+    del k_pred, p_pred, model, q_pred, vols, skulls, want
+    first_ref, spent = {}, {}
+    ref_params = md_train_params(work, train_csv, made, device, "md_single")
+    with first_step_stats(first_ref), timed_calls(spent, device):
+        single = Model(params=ref_params)
+    ref_losses = [float(v) for v in single.step_losses]
+    stats["single_train_step_ms"] = (1e3 * single.train_seconds
+                                     / (MD_TRAIN_STEPS + 1))
+    stats["single_train_synthesis_ms"] = (1e3 * spent["synthesis"]
+                                          / (MD_TRAIN_STEPS + 1))
+    del single
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ranks = parallel.spawn(md_rank, N_RANKS, (work, shape, paths, train_csv,
+                                              made, device.type))
+    stats["ranks_wall_s"] = time.perf_counter() - t0
+    log(f"  {N_RANKS} ranks ({ranks[0]['backend']}, on "
+        f"{[r['device'] for r in ranks]}) in {stats['ranks_wall_s']:.1f} s "
+        "from spawn to their last result")
+
+    # ---- launches: per rank and path --------------------------------------
+    k6 = MD_TRAIN_STEPS * K6_PER_TRAIN_STEP + K6_PER_EVAL_STEP
+    want = {
+        "sharded_bf16": {"conv3d_bn_relu": 12, "maxpool2": 4,
+                         "upconv_bn_relu": 4, "conv3d_tc": 12,
+                         "upconv_tc": 4, "maxpool2_rows": 4},
+        "sharded_f32": {"conv3d_bn_relu": 12, "maxpool2": 4,
+                        "upconv_bn_relu": 4, "conv3d_f32": 12,
+                        "conv3d_tc_f32": 12, "maxpool2_f32": 4,
+                        "upconv_f32": 4, "upconv_tc_f32": 4,
+                        "maxpool2_rows": 4},
+        "dp_bf16": {"conv3d_bn_relu": 12, "maxpool2": 4,
+                    "upconv_bn_relu": 4, "conv3d_tc": 12, "upconv_tc": 4,
+                    "maxpool2_rows": 4},
+        "dp_int8": {"conv3d_q_requant": 12, "maxpool2_q": 4,
+                    "upconv_q_requant": 4, "conv3d_tc_q": 12,
+                    "upconv_tc_q": 4, "maxpool2_rows": 4},
+        "train": {"conv3d_bias_act": k6, "conv3d_tc": k6},
+    }
+    launches = collections.Counter()
+    for r, res in enumerate(ranks):
+        for key, w in want.items():
+            got = res["counts"].get(key, {})
+            log(f"  rank {r} {key}: launches {got}")
+            if got != w:
+                failures.append(f"phase 12 rank {r} {key}: launches {got} "
+                                f"!= {w}")
+            launches.update(got)
+    launches = dict(launches)
+
+    # ---- depth-sharded serving --------------------------------------------
+    for i, sfx in enumerate(("sk", "fl")):
+        bf = torch.cat([res["sharded_bf16"][i] for res in ranks], 1)
+        f32 = torch.cat([res["sharded_f32"][i] for res in ranks], 1)
+        prob = {"sharded": bf[0].float(),
+                **{k: ref[k][i][0].float() for k in ("kernel", "plain",
+                                                     "f32")}}
+        mask = {k: torch.argmax(v, -1).to(torch.uint8).numpy()
+                for k, v in prob.items()}
+        decided = torch.ones(shape, dtype=torch.bool)
+        for k in ("sharded", "kernel"):
+            decided &= (prob[k][..., 1] - prob[k][..., 0]).abs() > DECIDED
+        dec = decided.numpy()
+        d = dict(decided=dice(mask["sharded"][dec], mask["kernel"][dec]),
+                 sharded_f32=dice(mask["sharded"], mask["f32"]),
+                 plain_f32=dice(mask["plain"], mask["f32"]))
+        delta = (prob["sharded"] - prob["kernel"]).abs()
+        dp = float(delta.max())
+        # beyond a bf16 ulp of the probability: a seam fault (a stale,
+        # shifted or swapped halo plane) shows here before it moves Dice
+        off_ulp = int((delta > bf16_ulp(prob["kernel"])).sum())
+        err, worst = prob_check(f"phase 12 sharded f32 {sfx}",
+                                f32[0].float(), prob["f32"], failures)
+        log(f"  sharded {sfx}: bf16 vs the single-rank engine: max |dp| "
+            f"{dp:.3e} ({off_ulp} values beyond one bf16 ulp), Dice on "
+            f"the {int(dec.sum())} decided voxels "
+            f"{d['decided']:.6f}; vs the f32 model: sharded "
+            f"{d['sharded_f32']:.6f}, plain bf16 {d['plain_f32']:.6f}; f32 "
+            f"vs the plain f32 model: max |dp| {err:.3e} (worst / allowance "
+            f"{worst:.3f})")
+        stats.update({f"sharded_{sfx}_{k}": v for k, v in d.items()})
+        stats.update({f"sharded_{sfx}_max_dp_bf16": dp,
+                      f"sharded_{sfx}_max_dp_f32": err})
+        if not bool(torch.isfinite(prob["sharded"]).all()):
+            failures.append(f"phase 12 sharded bf16 {sfx}: not finite")
+        if off_ulp:
+            failures.append(f"phase 12 sharded bf16 {sfx}: {off_ulp} "
+                            "probabilities more than one bf16 ulp from the "
+                            f"single-rank engine's (max |dp| {dp})")
+        if mask["kernel"].any() or sfx == "sk":
+            if not d["decided"] >= 0.999:
+                failures.append(f"phase 12 sharded bf16 {sfx}: Dice on "
+                                f"decided voxels {d['decided']} < 0.999")
+            if not d["sharded_f32"] >= d["plain_f32"] - 1e-3:
+                failures.append(f"phase 12 sharded bf16 {sfx}: "
+                                f"{d['sharded_f32']} from the f32 model, "
+                                f"plain bf16 {d['plain_f32']}")
+
+    # ---- data-parallel serving --------------------------------------------
+    for key in ("dp_bf16", "dp_int8"):
+        same = all(torch.equal(res[key][i][0], ref[key][i][r])
+                   for r, res in enumerate(ranks) for i in range(2))
+        stats[f"{key}_identical"] = same
+        log(f"  {key}: each rank's volume identical to the single-rank "
+            f"engine's: {same}")
+        if not same:
+            failures.append(f"phase 12 {key}: a rank's volume differs from "
+                            "the single-rank engine")
+
+    # ---- data-parallel training -------------------------------------------
+    init = build_model("UNetSP").state_dict()
+    rel = abs(ranks[0]["losses"][0] - ref_losses[0]) / abs(ref_losses[0])
+    worst = 0.0
+    for name, rbuf in first_ref.items():
+        bp = (rbuf - 0.9 * init[name]) / 0.1
+        tol = 4 * BF16_EPS * float(bp.abs().max().clamp_min(1e-3))
+        for res in ranks:
+            bk = (res["first_stats"][name] - 0.9 * init[name]) / 0.1
+            err = float((bk - bp).abs().max())
+            worst = max(worst, err / tol)
+            if not err <= tol:
+                failures.append(f"phase 12 BN batch statistic {name}: "
+                                f"{err} > {tol}")
+    equal = all(torch.equal(v, ranks[1]["state"][k])
+                for k, v in ranks[0]["state"].items())
+    written = [(res["ckpt"], res["events"]) for res in ranks]
+    log(f"  training: losses per step {[r['losses'] for r in ranks]} vs one "
+        f"process {ref_losses}; step 1 relative {rel:.2e} (limit 1e-2); BN "
+        f"batch statistics worst error / tolerance {worst:.3f}; parameters "
+        f"bit-equal across ranks: {equal}; (checkpoint, events) by rank: "
+        f"{written}")
+    stats.update(step1_loss_rel=rel, bn_worst=worst, params_equal=equal,
+                 losses=ranks[0]["losses"], single_losses=ref_losses)
+    if not rel <= 1e-2:
+        failures.append(f"phase 12 step 1 loss {ranks[0]['losses'][0]} vs "
+                        f"{ref_losses[0]}: {rel} > 1e-2")
+    if not all(math.isfinite(v) for r in ranks for v in r["losses"]):
+        failures.append("phase 12 training: losses not finite")
+    if not equal:
+        failures.append("phase 12: parameters differ across the ranks")
+    if written != [(True, True)] + [(False, False)] * (N_RANKS - 1):
+        failures.append(f"phase 12: checkpoints and events by rank "
+                        f"{written}, want rank 0's only")
+    for r, res in enumerate(ranks):
+        stats[f"rank{r}_ms"] = res["ms"]
+        if res["exchanges_bf16"] != 16:  # before each K1 and each K3
+            failures.append(f"phase 12 rank {r}: {res['exchanges_bf16']} "
+                            "halo exchanges a volume, want 16")
+    log(f"  ms (CUDA events, halo_* the sharded engine's 16 exchanges on "
+        f"the host clock; {N_RANKS} ranks share the card, so these say "
+        f"nothing of scaling): single-rank engine "
+        f"{stats['single_engine_ms']:.2f} per volume; by rank "
+        f"{[r['ms'] for r in ranks]}; one-process batch-2 train step "
+        f"{stats['single_train_step_ms']:.1f} (host clock over the Model "
+        "run, the eval step counted as a step), its synthesis "
+        f"{stats['single_train_synthesis_ms']:.1f}; a rank's train_step "
+        "holds train_all_reduce (every all-reduce, the wait for the other "
+        "rank included) and train_synthesis, each timed between two "
+        "synchronizations")
+    return launches, stats, failures
+
+
 def main() -> int:
     import torch
 
@@ -4352,7 +4825,12 @@ def main() -> int:
                  f"int8 engine "
                  f"at {size}",
              lambda device, work: pickled_ops_qat(device, work,
-                                                  before=phase_stats))):
+                                                  before=phase_stats)),
+            (12, f"{N_RANKS} ranks on the one card (gloo): UNetSP depth-"
+                 f"sharded serving of a {size} volume in bf16 and f32, "
+                 f"data-parallel serving of {N_RANKS} volumes in bf16 and "
+                 f"int8, data-parallel training (batch {N_RANKS}, "
+                 f"{MD_TRAIN_STEPS} + 1 steps)", multi_device)):
         log(f"== phase {phase}: main path, {label}, through Model")
         t0 = time.perf_counter()
         got = {}

@@ -14,6 +14,8 @@ __version__ = "0.1.0"
 
 __all__ = [
     "Model",
+    "ops",
+    "parallel",
     "default_params",
     "load_params",
     "set_cfg_params",
@@ -28,5 +30,9 @@ def __getattr__(name):
         from .trainer import Model
 
         return Model
+    if name in ("ops", "parallel"):
+        import importlib
+
+        return importlib.import_module(f".{name}", __name__)
     raise AttributeError(
         f"module 'ctunet_tpu_torch' has no attribute {name!r}")

@@ -25,23 +25,36 @@ import torch
 class HostLoader:
     """Iterable over batches ``{'image': (B,D,H,W) f32, ..., 'filepath':
     [...]}``: in dataset order by default (the test path), shuffled with or
-    without replacement for training (``pipeline.py:24-123``; one process,
-    so no rank slicing)."""
+    without replacement for training (``pipeline.py:24-123``).
+
+    ``batch_size`` is the global batch. With ``num_processes > 1`` (the
+    data ranks of a multi-process run, ``parallel/``) every rank draws the
+    same epoch index stream (same ``seed``) and loads only its slice,
+    ``batch_size // num_processes`` samples from ``process_id`` on, of each
+    global batch; an uneven tail batch is skipped (``pipeline.py:27-45,
+    92-101``). The batch must divide over the ranks."""
 
     def __init__(self, dataset, batch_size: int = 1, n_workers: int = 2,
                  shuffle: bool = False, replacement: bool = True,
-                 seed: int = 0, drop_remainder: bool = False):
+                 seed: int = 0, drop_remainder: bool = False,
+                 process_id: int = 0, num_processes: int = 1):
         self.dataset = dataset
         self.batch_size = max(1, int(batch_size))
         self.n_workers = max(1, int(n_workers or 1))
         self.shuffle = shuffle
         self.replacement = replacement
         self.drop_remainder = drop_remainder
+        self.process_id = int(process_id)
+        self.num_processes = max(1, int(num_processes))
+        if self.batch_size % self.num_processes:
+            raise ValueError(
+                f"global batch {self.batch_size} must divide over "
+                f"{self.num_processes} processes")
         self._rng = np.random.default_rng(seed)
 
     def __len__(self) -> int:
         n = len(self.dataset)
-        if self.drop_remainder:
+        if self.drop_remainder or self.num_processes > 1:
             return n // self.batch_size
         return -(-n // self.batch_size)
 
@@ -66,8 +79,12 @@ class HostLoader:
         idxs = self._epoch_indices()
         batches = [idxs[i: i + self.batch_size]
                    for i in range(0, len(idxs), self.batch_size)]
-        if self.drop_remainder:
+        if self.drop_remainder or self.num_processes > 1:
             batches = [b for b in batches if len(b) == self.batch_size]
+        if self.num_processes > 1:  # this rank's slice of each batch
+            per = self.batch_size // self.num_processes
+            batches = [b[self.process_id * per:(self.process_id + 1) * per]
+                       for b in batches]
         with cf.ThreadPoolExecutor(self.n_workers) as pool:
             pending: collections.deque = collections.deque()
             it = iter(batches)

@@ -52,6 +52,11 @@ tensor-core kernels (``conv3d_tc``, ``upconv_tc``); in f32 ``conv3d_f32``
 row-streaming pool (``maxpool2_rows``). The heads' matmuls run in the compute dtype through
 ``torch.matmul``.
 
+Several ranks (``parallel/``): :func:`build_sharded_predict` splits one
+volume's depth over the spatial ranks of a mesh (the neighbours' edge
+planes joined on before every K1 and K3, their outputs cropped), and
+:func:`build_dp_predict` serves each data rank's slice of a batch.
+
 The code is the same on both devices. For CUDA tensors each kernel wrapper
 launches its kernel or raises; for CPU tensors it runs its plain PyTorch
 version. ``plain=True`` asks for the plain versions on any device (the
@@ -69,6 +74,7 @@ from .models.variants import B_FLAP, M_FLAP, M_FULL
 from .ops.kernels import conv3d as kc
 from .ops.kernels import convt as kt
 from .ops.kernels import upconv as ku
+from .parallel.halo import crop, join
 
 # Structural config per model (``ctunet_tpu/engine.py:37-48``).
 ENGINE_CONFIGS = {
@@ -139,6 +145,7 @@ def build_predict(
     plain: bool = False,
     record: Optional[Callable[[torch.Tensor], None]] = None,
     sparse: int = 0,
+    halo: Optional[Callable] = None,
 ) -> Callable:
     """Build ``predict(images)`` for ``(B, D, H, W, C)`` inputs.
 
@@ -159,6 +166,11 @@ def build_predict(
         (``ctunet_tpu/engine.py:170-185``). There the number is the group
         height of a constant-region skip, a TPU scheduling choice that
         changes no value; here any non-zero value selects the route.
+    :param halo: generic family only. The volume is one depth slab of a
+        larger one: ``halo(slabs)`` returns each slab's neighbouring planes
+        (``parallel.halo_exchange_many``), joined on before every K1/K6
+        input and both K3 inputs, their output planes cropped after
+        (:func:`build_sharded_predict`).
     :returns: ``predict`` -> ``(full, flap)``, each ``(B, D, H, W, 2)`` in
         ``compute_dtype`` (double head) or softmax probabilities in f32
         (``double_softmax``), or ``(B, D, H, W, 3)``; for the legacy family
@@ -170,10 +182,11 @@ def build_predict(
     cfg = ENGINE_CONFIGS[model_class]
     device = resolve_device(device)
     if cfg["family"] == "legacy":
-        if record is not None or sparse:
+        if record is not None or sparse or halo is not None:
             raise NotImplementedError(
-                "record and sparse serve the generic family's int8 "
-                "calibration and K6 route; the legacy engine takes neither")
+                "record, sparse and halo serve the generic family's int8 "
+                "calibration, K6 route and depth sharding; the legacy "
+                "engine takes none of them")
         return build_legacy_predict(state_dict, compute_dtype, device, plain)
     conv = kc.conv3d_bn_relu_plain if plain else kc.conv3d_bn_relu
     if sparse:
@@ -181,6 +194,8 @@ def build_predict(
         conv = lambda h, w, b: k6(h, w, b, True)  # noqa: E731
     pool = kc.maxpool2_plain if plain else kc.maxpool2
     upconv = ku.upconv_bn_relu_plain if plain else ku.upconv_bn_relu
+    if halo is not None:
+        conv, upconv = _halo_conv(conv, halo), _halo_upconv(upconv, halo)
 
     sd = {k: v.detach().cpu() for k, v in state_dict.items()}
     n = cfg["n_blocks"]
@@ -245,6 +260,120 @@ def build_predict(
         if isinstance(outs[0], tuple):
             return tuple(torch.stack(o) for o in zip(*outs))
         return torch.stack(outs)
+
+    return predict
+
+
+def _halo_conv(conv: Callable, halo: Callable) -> Callable:
+    """A K1/K6 on a depth slab: the neighbours' edge planes joined on, the
+    output planes they give cropped; at a volume edge the kernel's own zero
+    fill stands (SAME padding)."""
+
+    def run(h, w, b):
+        hh = halo([h])[0]
+        return crop(hh, conv(join(hh, h), w, b))
+
+    return run
+
+
+def _halo_upconv(upconv: Callable, halo: Callable) -> Callable:
+    """K3 on depth slabs: both half-resolution operands joined with their
+    neighbours' planes (one exchange), the two output planes of each joined
+    plane cropped. Nothing is padded at a volume edge: a zero plane there
+    would come out as the ConvT's bias, not as SAME padding."""
+
+    def run(a, b, wa, wb, wone, bias):
+        slabs = [a] if b is None else [a, b]
+        hs = halo(slabs)
+        j = [join(hh, t) for hh, t in zip(hs, slabs)]
+        return crop(hs[0], upconv(j[0], j[1] if b is not None else None,
+                                  wa, wb, wone, bias), 2)
+
+    return run
+
+
+def build_sharded_predict(model_class: str,
+                          state_dict: Dict[str, torch.Tensor], mesh,
+                          compute_dtype: torch.dtype = torch.bfloat16,
+                          device=None) -> Callable:
+    """One volume's depth split over the spatial ranks of ``mesh``
+    (``ctunet_tpu/engine.py:639-700``): each rank runs the kernel engine
+    of :func:`build_predict` on its depth slab, with the neighbouring
+    ranks' edge planes joined on before every K1 input and both K3 inputs
+    and their output planes cropped (``parallel/halo.py``), at the points
+    where the JAX engine calls its ``halo_fn``. Pools need none: each
+    slab's depth divides by ``2 ** n_blocks``.
+
+    Returns ``predict(images)``: ``images`` ``(B, D, H, W, C)``, the same
+    on every rank of the spatial group, on the host or the device, with D
+    dividing by ``shards * 2 ** n_blocks``; only this rank's slab is moved
+    to ``device``. It returns this rank's depth slab of the outputs, planes
+    ``index * D / shards ..``. Every rank of the group must call it: the
+    exchange is a collective. The legacy family raises
+    ``NotImplementedError``, as in the JAX package.
+    """
+    from .parallel.halo import halo_exchange_many
+
+    cfg = ENGINE_CONFIGS[model_class]
+    if cfg["family"] != "generic":
+        raise NotImplementedError(
+            f"the sharded engine serves the generic U-Net family only, not "
+            f"{model_class!r} (use build_dp_predict or sliding-window "
+            "patches)")
+    device = resolve_device(device)
+    n, index, group = mesh.spatial, mesh.spatial_index, mesh.spatial_group
+    fwd = build_predict(
+        model_class, state_dict, compute_dtype, device,
+        halo=lambda slabs: halo_exchange_many(slabs, group, n, index))
+    multiple = n * 2 ** cfg["n_blocks"]
+
+    def predict(images: torch.Tensor):
+        d = images.shape[1]
+        if d % multiple:
+            raise ValueError(f"depth {d} must divide by shards x pool "
+                             f"multiple = {multiple}")
+        ds = d // n
+        return fwd(images[:, index * ds:(index + 1) * ds].to(device))
+
+    return predict
+
+
+def build_dp_predict(model_class: str, state_dict: Dict[str, torch.Tensor],
+                     mesh, compute_dtype: torch.dtype = torch.bfloat16,
+                     device=None, int8_calib: Optional[torch.Tensor] = None
+                     ) -> Callable:
+    """Batch data-parallel serving over the data ranks of ``mesh``
+    (``ctunet_tpu/engine.py:704-760``): each rank serves its slice of the
+    batch on its own engine, bf16 or f32, generic or legacy family; no
+    collective. With ``int8_calib`` (a ``(D, H, W, C)`` volume, the same on
+    every rank) each rank serves the int8 engine
+    (``engine_q.build_predict_q``) calibrated on it, so every rank holds
+    the same integers; the legacy family then raises ``ValueError``, as in
+    the JAX package.
+
+    Returns ``predict(images)``: ``images`` ``(B, D, H, W, C)``, the same
+    on every rank, on the host or the device, B dividing by the data ranks;
+    only this rank's slice, volumes ``index * B / ranks ..``, is moved to
+    ``device`` and served, and its outputs are returned (not the whole
+    batch).
+    """
+    device = resolve_device(device)
+    if int8_calib is not None:
+        from . import engine_q
+
+        fwd = engine_q.build_predict_q(
+            model_class, state_dict, int8_calib.to(device), compute_dtype,
+            device)
+    else:
+        fwd = build_predict(model_class, state_dict, compute_dtype, device)
+    n, index = mesh.data, mesh.data_index
+
+    def predict(images: torch.Tensor):
+        b = images.shape[0]
+        if b % n:
+            raise ValueError(f"batch {b} must divide by {n} data ranks")
+        per = b // n
+        return fwd(images[index * per:(index + 1) * per].to(device))
 
     return predict
 

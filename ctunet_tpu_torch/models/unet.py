@@ -50,6 +50,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.chain_conv_train import conv3d_chain_train
+from ..parallel.distributed import all_reduce_mean
 
 CONV_IMPLS = ("xla", "xla_dw", "pallas", "chain", "plain")
 
@@ -89,14 +90,30 @@ class BatchNorm(nn.BatchNorm3d):
     running update ``0.9 * old + 0.1 * new`` with the biased variance
     (``nn.BatchNorm3d`` would store the unbiased one), and the
     normalization ``x * inv + shift`` in the activation's dtype. Buffers
-    and parameters are ``nn.BatchNorm3d``'s, so state_dicts interchange."""
+    and parameters are ``nn.BatchNorm3d``'s, so state_dicts interchange.
+
+    ``data_group``: ``(process group, size)`` of the data ranks of a
+    multi-process run (:func:`sync_batch_stats`), or None. With it, the
+    train-mode mean and ``E[x^2]`` are averaged over the ranks by a
+    differentiable all-reduce: the statistics of the global batch, as XLA
+    SPMD computes them over a batch sharded on the JAX mesh's data axis
+    (``torch.nn.SyncBatchNorm`` would keep the unbiased running variance and
+    refuses CPU tensors)."""
+
+    data_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             xf = x.float()
             axes = tuple(range(x.ndim - 1))
             mean = xf.mean(axes)
-            var = (xf * xf).mean(axes) - mean * mean
+            if self.data_group is None:
+                var = (xf * xf).mean(axes) - mean * mean
+            else:
+                stats = all_reduce_mean(torch.stack([mean, (xf * xf).mean(
+                    axes)]), *self.data_group)
+                mean = stats[0]
+                var = stats[1] - mean * mean
             with torch.no_grad():
                 m = 1.0 - self.momentum  # torch's momentum weighs the new
                 self.running_mean.mul_(m).add_(self.momentum * mean)
@@ -107,6 +124,15 @@ class BatchNorm(nn.BatchNorm3d):
         inv = torch.rsqrt(var + self.eps) * self.weight
         shift = self.bias - mean * inv
         return x * inv.to(x.dtype) + shift.to(x.dtype)
+
+
+def sync_batch_stats(model: nn.Module, group=None, size: int = 1) -> None:
+    """Average every :class:`BatchNorm`'s train-mode statistics of
+    ``model`` over the ``size`` ranks of ``group`` (``size`` 1: each
+    process its own batch, the single-process behaviour)."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.data_group = (group, size) if size > 1 else None
 
 
 class ConvTranspose2x(nn.ConvTranspose3d):

@@ -12,15 +12,43 @@ its update from optax transforms whose arithmetic differs from
 ``torch.optim`` (see the class), and the port is held against the JAX
 package. ``b_fg_crop_train`` cuts every sample to a static foreground
 window on the device before the synthesis (:func:`make_fg_crop_fn`).
+
+Data parallelism (``shard``, a :class:`DataShard`): each data rank of a
+multi-process run steps on its slice of the global batch. The BatchNorm
+statistics are the global batch's (``models/unet.py::sync_batch_stats``),
+the gradients are averaged over the data ranks before the optimizer, the
+terms are the global batch's, and every random draw a sample gets is the
+one it gets in the single-process batch: the synthesis stream skips the
+draws of the other ranks' samples (:func:`skip_synthesis_draws`; no draw
+depends on voxel values, so a sample's draws depend on its shape alone).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
+
+
+class DataShard(NamedTuple):
+    """This rank's place among the ``size`` data ranks of ``group``: it
+    holds samples ``index * b .. (index + 1) * b`` of each global batch of
+    ``size * b``."""
+
+    group: Any
+    size: int
+    index: int
+
+
+def _global_samples(shard: Optional[DataShard], b: int):
+    """``(number of samples in the global batch, first sample of this
+    rank's slice)`` for a local batch of ``b``."""
+    if shard is None:
+        return b, 0
+    return shard.size * b, shard.index * b
+
 
 @dataclasses.dataclass
 class TrainState:
@@ -62,17 +90,21 @@ def random_crop(gen: torch.Generator, volume: torch.Tensor,
     return _slice(volume, _crop_start(gen, volume.shape, patch), patch)
 
 
-def make_crop_fn(train_patch, atlas: Optional[torch.Tensor]):
+def make_crop_fn(train_patch, atlas: Optional[torch.Tensor],
+                 shard: Optional[DataShard] = None):
     """Batched random cropping with atlas alignment (``steps.py:65-105``):
     ``crop(gen, batch) -> (batch', atlas')``, every volume of a sample
     (image and, if present, flap) and the atlas sliced at the same
-    per-sample offsets, so the prior stays registered."""
+    per-sample offsets, so the prior stays registered. With ``shard`` the
+    offsets of the whole global batch are drawn and this rank's kept."""
     patch = tuple(int(p) for p in train_patch)
 
     def crop(gen, batch):
         images = batch["image"]
+        b = images.shape[0]
+        total, first = _global_samples(shard, b)
         starts = [_crop_start(gen, images.shape[1:], patch)
-                  for _ in range(images.shape[0])]
+                  for _ in range(total)][first:first + b]
         out = dict(batch)
         for key in ("image", "flap"):
             if key in batch:
@@ -160,11 +192,43 @@ def fg_crop_size_for(volumes, canvas_shape, margin: int = 16,
     return tuple(min(s, c) for s, c in zip(sizes, canvas_shape))
 
 
-def make_synth_fn(handler, from_pairs: bool = False) -> Callable:
+def skip_synthesis_draws(gen: torch.Generator, handler, like: torch.Tensor,
+                         n: int, offsets: Dict[Any, int]) -> None:
+    """Advance ``gen`` past the draws ``handler.synthesize`` makes for
+    ``n`` samples shaped like ``like``, without synthesizing them.
+
+    On the card the Philox generator jumps: each draw advances its offset
+    by an amount fixed by the draw's size, so one synthesis on a scratch
+    generator measures a sample's advance once per shape (kept in
+    ``offsets``). The CPU generator (Mersenne Twister) cannot jump, so
+    there the samples are synthesized on a blank volume and dropped."""
+    if n == 0:
+        return
+    if gen.device.type != "cuda":
+        blank = torch.zeros_like(like)
+        for _ in range(n):
+            handler.synthesize(gen, blank)
+        return
+    key = (tuple(like.shape), like.dtype)
+    if key not in offsets:
+        probe = torch.Generator(device=gen.device)
+        start = probe.get_offset()
+        handler.synthesize(probe, torch.zeros_like(like))
+        offsets[key] = probe.get_offset() - start
+    gen.set_offset(gen.get_offset() + n * offsets[key])
+
+
+def make_synth_fn(handler, from_pairs: bool = False,
+                  shard: Optional[DataShard] = None) -> Callable:
     """Batched on-device synthesis: ``(gen, batch) -> (images, targets)``
     with ``images`` ``(B, D, H, W)`` and the target ``(B, D, H, W, 2)``, or
     a tuple of them for the double-output handlers (``steps.py:209-223``).
+    With ``shard`` the stream skips the draws of the samples before and
+    after this rank's slice of the global batch
+    (:func:`skip_synthesis_draws`), so this rank's samples get the draws
+    of the single-process batch.
     """
+    offsets: Dict[Any, int] = {}
 
     def synth(gen, batch):
         images = batch["image"]
@@ -172,7 +236,12 @@ def make_synth_fn(handler, from_pairs: bool = False) -> Callable:
             pairs = [handler.targets_from_pair(i, f)
                      for i, f in zip(images, batch["flap"])]
         else:
-            pairs = [handler.synthesize(gen, i) for i in images]
+            b = images.shape[0]
+            total, first = _global_samples(shard, b)
+            skip_synthesis_draws(gen, handler, images[0], first, offsets)
+            pairs = [handler.synthesize(gen, v) for v in images]
+            skip_synthesis_draws(gen, handler, images[0], total - first - b,
+                                 offsets)
         xs, targets = zip(*pairs)
         if isinstance(targets[0], tuple):
             return torch.stack(xs), tuple(torch.stack(t)
@@ -183,7 +252,7 @@ def make_synth_fn(handler, from_pairs: bool = False) -> Callable:
 
 
 def _prepare(model, atlas, train_patch, fg_crop_size=None,
-             fg_margin: int = 16):
+             fg_margin: int = 16, shard: Optional[DataShard] = None):
     """The atlas on the model's device and the step's crop; the
     foreground window snaps to the model's pool multiple
     ``2 ** model.n_blocks`` (16, or 32 for the 5-block family)."""
@@ -192,7 +261,8 @@ def _prepare(model, atlas, train_patch, fg_crop_size=None,
     if atlas is not None:
         atlas = torch.as_tensor(np.asarray(atlas, np.float32),
                                 device=next(model.parameters()).device)
-    crop = None if train_patch is None else make_crop_fn(train_patch, atlas)
+    crop = (None if train_patch is None
+            else make_crop_fn(train_patch, atlas, shard))
     if fg_crop_size is not None:
         crop = make_fg_crop_fn(fg_crop_size, atlas, margin=fg_margin,
                                multiple=2 ** model.n_blocks)
@@ -210,7 +280,8 @@ def _cut(crop, gen, batch, atlas):
 def make_train_step(model, handler, loss_cfg: Dict[str, Any], atlas=None,
                     compute_dtype=torch.bfloat16, from_pairs: bool = False,
                     train_patch=None, fg_crop_size=None,
-                    fg_margin: int = 16):
+                    fg_margin: int = 16,
+                    shard: Optional[DataShard] = None):
     """Build the training step (``steps.py:226-312``).
 
     ``step(state, batch, gen) -> (state, terms)`` with ``batch``
@@ -223,15 +294,18 @@ def make_train_step(model, handler, loss_cfg: Dict[str, Any], atlas=None,
     terms gain
     ``fg_lost_voxels``, the batch's largest count of foreground voxels
     outside the window. ``terms`` are detached scalars on the device.
+    With ``shard`` the step is one data rank's part of the global batch's
+    step (module docstring): gradients averaged over the data ranks at one
+    point, before the optimizer, for every ``conv_impl``.
     """
     if not (loss_cfg.get("ce_lambda") or loss_cfg.get("dice_lambda")):
         raise ValueError(
             "Both ce_lambda and dice_lambda are unset/zero: the training "
             "loss would be empty. Set f_dice_lambda / f_ce_lambda in the "
             "config (the reference example INIs set both to 1).")
-    synth = make_synth_fn(handler, from_pairs)
+    synth = make_synth_fn(handler, from_pairs, shard)
     atlas_c, crop = _prepare(model, atlas, train_patch, fg_crop_size,
-                             fg_margin)
+                             fg_margin, shard)
 
     def step(state: TrainState, batch, gen):
         batch, atlas_x, fg_lost = _cut(crop, gen, batch, atlas_c)
@@ -243,11 +317,14 @@ def make_train_step(model, handler, loss_cfg: Dict[str, Any], atlas=None,
         out = model(x)
         loss, terms = handler.compute_losses(out, targets, loss_cfg)
         loss.backward()
-        state.optimizer.step(value=loss.detach())
-        state.step += 1
         terms = {k: v.detach() for k, v in terms.items()}
         if fg_lost is not None:
             terms["fg_lost_voxels"] = fg_lost.max()
+        if shard is not None:
+            average_gradients(model.parameters(), shard)
+            terms = global_terms(terms, shard)
+        state.optimizer.step(value=terms["epoch_loss"])
+        state.step += 1
         return state, terms
 
     return step
@@ -256,14 +333,16 @@ def make_train_step(model, handler, loss_cfg: Dict[str, Any], atlas=None,
 def make_eval_step(model, handler, loss_cfg: Dict[str, Any], atlas=None,
                    compute_dtype=torch.bfloat16, from_pairs: bool = False,
                    train_patch=None, fg_crop_size=None,
-                   fg_margin: int = 16):
+                   fg_margin: int = 16,
+                   shard: Optional[DataShard] = None):
     """Validation step: synthesize targets, forward on the running
-    BatchNorm statistics, losses (``steps.py:315-358``); the crops as in
-    :func:`make_train_step`.
+    BatchNorm statistics, losses (``steps.py:315-358``); the crops and
+    ``shard`` as in :func:`make_train_step` (the terms are the global
+    batch's; ``(out, targets)`` this rank's).
     ``step(state, batch, gen) -> (terms, (out, targets))``."""
-    synth = make_synth_fn(handler, from_pairs)
+    synth = make_synth_fn(handler, from_pairs, shard)
     atlas_c, crop = _prepare(model, atlas, train_patch, fg_crop_size,
-                             fg_margin)
+                             fg_margin, shard)
 
     @torch.no_grad()
     def step(state: TrainState, batch, gen):
@@ -275,9 +354,49 @@ def make_eval_step(model, handler, loss_cfg: Dict[str, Any], atlas=None,
         _, terms = handler.compute_losses(out, targets, loss_cfg)
         if fg_lost is not None:
             terms = dict(terms, fg_lost_voxels=fg_lost.max())
+        if shard is not None:
+            terms = global_terms(terms, shard)
         return terms, (out, targets)
 
     return step
+
+
+def average_gradients(parameters, shard: DataShard) -> None:
+    """Replace each parameter's ``.grad`` by its mean over the data ranks:
+    one all-reduce per gradient dtype of the gradients laid end to end.
+    Each rank's gradient is its share of the gradient of the sum of the
+    ranks' losses (the BatchNorm all-reduce carries the others' terms), so
+    the mean is the gradient of the global batch's mean loss."""
+    import torch.distributed as dist
+
+    by_dtype: Dict[torch.dtype, list] = {}
+    for p in parameters:
+        if p.grad is not None:
+            by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
+    for grads in by_dtype.values():
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat, group=shard.group)
+        flat /= shard.size
+        for g, v in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(v.view_as(g))
+
+
+def global_terms(terms: Dict[str, torch.Tensor],
+                 shard: DataShard) -> Dict[str, torch.Tensor]:
+    """The global batch's scalar terms from each rank's: every loss and
+    metric term is a mean over equal slices, so their mean over the data
+    ranks (f32); ``fg_lost_voxels``, a largest count, their max."""
+    import torch.distributed as dist
+
+    keys = [k for k in terms if k != "fg_lost_voxels"]
+    means = torch.stack([terms[k].float() for k in keys])
+    dist.all_reduce(means, group=shard.group)
+    out = dict(zip(keys, means / shard.size))
+    if "fg_lost_voxels" in terms:
+        worst = terms["fg_lost_voxels"].clone()
+        dist.all_reduce(worst, op=dist.ReduceOp.MAX, group=shard.group)
+        out["fg_lost_voxels"] = worst
+    return out
 
 
 # --------------------------------------------------------------------------

@@ -52,8 +52,22 @@ and/or tests according to the flags. CLI: ``ctunet-tpu-torch <cfg.ini>`` /
 It runs on the CUDA card: ``s_device`` ``tpu``, ``gpu``, ``cuda`` or unset
 all mean the card, and a missing card is an error. ``device = cpu`` runs
 the same code with the kernels' plain PyTorch versions (what the tests
-do). Settings this port does not serve yet raise ``NotImplementedError``
-naming their ROADMAP item instead of serving something else.
+do).
+
+Multi-device (``parallel/``): one process per device. With
+``b_distributed`` each process is one rank of a ``torch.distributed``
+group, brought up before any device query; ``i_mesh_data`` x
+``i_mesh_spatial`` must be the world size (``i_mesh_data = 0``: the world
+over ``i_mesh_spatial``). ``i_batch_size`` stays the global batch: each
+data rank loads and steps on its slice, with the global batch's BatchNorm
+statistics, averaged gradients and terms (``steps.DataShard``), so the run
+equals the single-process one. Ranks that differ only in their spatial
+coordinate do the same work, as the JAX ``Model`` shards only the batch.
+Rank 0 initialises (or loads) the parameters and broadcasts them, writes
+the TensorBoard events, checkpoints and INI snapshot while the others
+wait, and alone runs ``test()``. One process with ``i_mesh_data`` or
+``i_mesh_spatial`` above 1 raises ``ValueError``: launch that many
+processes.
 """
 
 from __future__ import annotations
@@ -79,21 +93,14 @@ from .data import atlas as atlas_mod
 from .data.pipeline import HostLoader, device_prefetch, upload
 from .device import resolve_device
 from .models import build_model, parse_param_dtype
+from .models.unet import sync_batch_stats
 from .ops import foreground
+from .parallel import distributed as dist_rt
+from .parallel import make_mesh
 from .utils import (default_params, makedir, print_params_dict,
                     set_cfg_params, tic, toc_eps)
 from .utils.tb_writer import make_writer
 
-# (params key, is-set test, where the feature stands) for settings that
-# ctunet_tpu serves and this port does not yet.
-_NOT_PORTED = (
-    ("distributed", bool, "multi-process runs, ROADMAP Queue 1 item 18"),
-    # 0 and 1 mean one device (ctunet_tpu/trainer.py:162-176)
-    ("mesh_data", lambda v: int(v or 0) > 1,
-     "data-parallel training over several devices, ROADMAP Queue 1 item 18"),
-    ("mesh_spatial", lambda v: int(v or 1) > 1,
-     "depth-sharded serving, ROADMAP Queue 1 item 18"),
-)
 
 def _np_corners(offs, sizes):
     """The 8 corner coordinates of a crop box (canvas coordinates)."""
@@ -188,11 +195,11 @@ class Model:
         self.cfg_path = cfg_file
         self.resolve_out_folder()
 
-        for key, is_set, where in _NOT_PORTED:
-            if is_set(self.params.get(key)):
-                raise NotImplementedError(
-                    f"{key}={self.params.get(key)!r} is not served by "
-                    f"ctunet_tpu_torch yet ({where})")
+        # the ranks first, before any device query
+        # (ctunet_tpu/trainer.py:124-133), then their mesh
+        self.process_index, self.process_count = \
+            dist_rt.initialize_from_params(self.params)
+        self.mesh = self._make_mesh()
         name = self.params.get("compute_dtype") or "bfloat16"
         if name not in _DTYPES:
             raise ValueError(
@@ -201,7 +208,8 @@ class Model:
         # the dtype the parameters are held, trained and saved in
         # (ctunet_tpu/trainer.py:331); BatchNorm's stay f32
         self.param_dtype = parse_param_dtype(self.params.get("param_dtype"))
-        self.device = resolve_device(self.params.get("device"))
+        self.device = dist_rt.rank_device(
+            resolve_device(self.params.get("device")))
         # spatial divisibility of the model: 32 for the 5-block family
         self.pool_multiple = engine.pool_multiple(self.params["model_class"])
 
@@ -227,8 +235,12 @@ class Model:
         seed = int(self.params.get("seed") or 0)
         # the stream of the synthesis draws (hole, noise, crops)
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
-        self.writer = _ScalarWriter(self.params.get("tensorboard_run_path")
-                                    if self.params.get("train_flag") else None)
+        # rank 0 writes the events; every rank keeps the history (the
+        # scalars are the global batch's, the same on every rank)
+        self.writer = _ScalarWriter(
+            self.params.get("tensorboard_run_path")
+            if self.params.get("train_flag") and self.process_index == 0
+            else None)
         self.out_paths = None
         self.n_served = 0
         self.serve_seconds = 0.0
@@ -247,6 +259,26 @@ class Model:
             self.train()
         if self.params.get("test_flag") is True:
             self.test()
+
+    def _make_mesh(self):
+        """The ``(i_mesh_data, i_mesh_spatial)`` mesh over the ranks; one
+        process per device, so a single process serves a 1x1 mesh only."""
+        data = int(self.params.get("mesh_data") or 0)
+        spatial = int(self.params.get("mesh_spatial") or 1)
+        if self.process_count == 1 and max(data, spatial) > 1:
+            raise ValueError(
+                f"i_mesh_data = {data}, i_mesh_spatial = {spatial} in one "
+                "process: ctunet_tpu_torch runs one process per device, so "
+                f"launch {max(data, 1) * spatial} processes with "
+                "b_distributed (README, Multi-device)")
+        return make_mesh(data, spatial)
+
+    def _shard(self):
+        """This rank's :class:`steps.DataShard`, None with one data rank."""
+        m = self.mesh
+        if m.data == 1:
+            return None
+        return steps.DataShard(m.data_group, m.data, m.data_index)
 
     def _check_outputs(self) -> None:
         """A model trains only with a handler whose targets it returns:
@@ -302,7 +334,9 @@ class Model:
     def load_datasets(self) -> None:
         """Train, validation and test loaders (ref ``Model.load_datasets``,
         ``Model.py:189-224``): training samples with replacement (quirk
-        Q4), the test loader runs in dataset order at batch 1."""
+        Q4), the test loader runs in dataset order at batch 1. Each data
+        rank loads its slice of the train and validation batches; the
+        test loader is whole (``test`` runs on rank 0)."""
         p = self.params
         handler = self.problem_handler
         if p.get("train_flag"):
@@ -312,7 +346,9 @@ class Model:
                     handler.train_dataset_class(p[csv]),
                     batch_size=p["batch_size"], shuffle=True,
                     replacement=True, n_workers=p.get("n_workers") or 2,
-                    seed=int(p.get("seed") or 0))
+                    seed=int(p.get("seed") or 0),
+                    process_id=self.mesh.data_index,
+                    num_processes=self.mesh.data)
         if p.get("test_flag") and (p.get("test_files_csv")
                                    or p.get("single_file")):
             ds = handler.test_dataset_class(
@@ -347,14 +383,16 @@ class Model:
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(int(self.params.get("seed") or 0))
             model = build_model(mc, self.param_dtype)
-        # loaded weights are rounded to param_dtype (the JAX package keeps
-        # a loaded tree's own dtype)
-        if load_out:
-            model.load_state_dict(  # strict: checks every key
-                self._load_variables(self.params["model_path"]))
-        elif self.params.get("resume_model") not in ("", None):
-            model.load_state_dict(
-                self._load_variables(self.params["resume_model"]))
+        path = (self.params["model_path"] if load_out
+                else self.params.get("resume_model") or None)
+        if path:
+            # strict: checks every key. A loaded tensor keeps its own dtype
+            # in place of the initialised one, whatever param_dtype, as the
+            # JAX trainer merges a loaded tree over the initialised one
+            # (ctunet_tpu/trainer.py:452-457)
+            loaded = self._load_variables(path)
+            model.load_state_dict({k: v.detach().clone()
+                                   for k, v in loaded.items()}, assign=True)
         self.state_dict = {k: v.detach().clone()
                            for k, v in model.state_dict().items()}
         self.models["main"] = model.eval()
@@ -385,6 +423,11 @@ class Model:
         self.initialize_models()
         model = self.models["main"].to(self.device).configure(
             p.get("conv_impl") or "xla", self.compute_dtype)
+        shard = self._shard()
+        if self.process_count > 1:  # rank 0's parameters everywhere
+            self._broadcast(model)
+        if shard is not None:
+            sync_batch_stats(model, shard.group, shard.size)
         state = steps.TrainState(
             model, steps.make_optimizer(p, model.parameters()))
         resume = p.get("resume_model") or ""
@@ -408,9 +451,9 @@ class Model:
             common.update(fg_crop_size=fg_size, fg_margin=self._fg_margin)
         self.fg_train_size = fg_size
         train_step = steps.make_train_step(model, self.problem_handler,
-                                           loss_cfg, **common)
+                                           loss_cfg, shard=shard, **common)
         eval_step = steps.make_eval_step(model, self.problem_handler,
-                                         loss_cfg, **common)
+                                         loss_cfg, shard=shard, **common)
         print_params_dict(p)
 
         # on SIGTERM/SIGINT: finish the current batch, checkpoint, and exit
@@ -442,6 +485,14 @@ class Model:
             for sig, h in prev_handlers.items():
                 signal.signal(sig, h)
             self.writer.close()
+
+    @staticmethod
+    def _broadcast(model: torch.nn.Module) -> None:
+        """Rank 0's parameters and buffers into every rank's ``model``."""
+        import torch.distributed as dist
+
+        for t in model.state_dict().values():
+            dist.broadcast(t, src=0)
 
     def _fg_train_size(self, im_shape):
         """The static foreground window of ``b_fg_crop_train``
@@ -539,6 +590,13 @@ class Model:
                 if self.params.get("test_flag"):
                     self.test()
             self.save_main_model()
+            if self.process_count > 1:  # a signal to one rank stops all
+                import torch.distributed as dist
+
+                flag = torch.tensor([int(interrupted["flag"])],
+                                    device=self.device)
+                dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+                interrupted["flag"] = bool(flag.item())
             if interrupted["flag"]:
                 print(f"interrupted at epoch {n_epoch}: emergency checkpoint "
                       "saved; resume with s_resume_model.")
@@ -575,12 +633,17 @@ class Model:
             if log_every and (idx + 1) % log_every == 0:
                 print("    Batch {}/{} ({:.0f}%)\tLoss: {:.6f}".format(
                     idx + 1, n, 100.0 * (idx + 1) / n, float(loss)))
-            if self._interrupted["flag"]:
+            if self._interrupted["flag"] and self.process_count == 1:
                 break  # finish the epoch's bookkeeping, then checkpoint
 
     def _forward_pass_eval(self, eval_step, n_epoch: int) -> None:
         print("Phase: val.")
         want_hd = bool(self.params.get("save_hd_plots"))
+        if want_hd and self.mesh.data > 1:
+            # as the JAX trainer (ctunet_tpu/trainer.py:699-707): the host
+            # Hausdorff needs the whole batch's label maps on one host
+            print("  note: save_hd_plots skipped with several data ranks")
+            want_hd = False
         for idx, batch in enumerate(
                 self._device_batches(self.data["validation_loader"])):
             with torch.profiler.record_function(
@@ -620,7 +683,14 @@ class Model:
 
     def save_main_model(self, cfg_file=None, save_checkpoint=False) -> None:
         """Best-model overwrite + periodic checkpoints + ini snapshot
-        (ref ``Model.save_main_model``, ``Model.py:266-296``)."""
+        (ref ``Model.save_main_model``, ``Model.py:266-296``). Several
+        ranks: rank 0 writes while the others wait (every rank holds the
+        same state)."""
+        if self.process_index == 0:
+            self._save(cfg_file, save_checkpoint)
+        dist_rt.barrier_wait(f"save epoch {self.current_epoch}")
+
+    def _save(self, cfg_file, save_checkpoint) -> None:
         path = self.params["model_path"]
         dir_m, fname = os.path.split(path)
         makedir(dir_m)
@@ -646,7 +716,10 @@ class Model:
     def test(self) -> None:
         """Prediction pass (ref ``Model.test``, ``Model.py:298-322``): on
         the weights just trained, else on the workspace model (or
-        ``resume_model`` when that is missing)."""
+        ``resume_model`` when that is missing). Several ranks: rank 0 alone
+        serves every test volume (``ctunet_tpu/trainer.py:787-795``)."""
+        if self.process_index != 0:
+            return
         if self.models["main"] is None:
             self.initialize_models(load_out=True)
         if self.state is not None:  # serve the weights as trained so far

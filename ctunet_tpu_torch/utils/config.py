@@ -72,7 +72,7 @@ def default_params() -> Dict[str, Any]:
         "compute_dtype": "bfloat16",  # forward/backward compute precision
         "param_dtype": "float32",
         "seed": 0,
-        "mesh_data": 0,               # 0 = all visible devices on the data axis
+        "mesh_data": 0,               # 0 = the ranks over mesh_spatial
         "mesh_spatial": 1,
         "patch_inference": False,     # sliding-window patch inference
         "patch_size": 128,
@@ -152,15 +152,14 @@ def default_params() -> Dict[str, Any]:
         "conv_impl": "xla",           # training conv: xla|xla_dw|pallas|chain
         "packed_train": False,        # packed-resident training graph
                                       # (models/packed_resident.py)
-        # multi-host (multi-process / DCN) runtime
+        # multi-process runtime, one process per device
         # (parallel/distributed.py; ref ceiling is single-host
         # nn.DataParallel, Model.py:481-486)
-        "distributed": False,         # jax.distributed.initialize at start
-        "dist_coordinator": "",       # "host:port" of process 0 (or env
-                                      # CTUNET_COORDINATOR; empty = JAX
-                                      # auto-discovery on TPU pods)
-        "dist_num_processes": 0,      # world size (or CTUNET_NUM_PROCESSES)
-        "dist_process_id": -1,        # this rank (or CTUNET_PROCESS_ID)
+        "distributed": False,         # torch.distributed group at start
+        "dist_coordinator": "",       # "host:port" of rank 0 (env
+                                      # CTUNET_COORDINATOR overrides)
+        "dist_num_processes": 0,      # world size (CTUNET_NUM_PROCESSES)
+        "dist_process_id": -1,        # this rank (CTUNET_PROCESS_ID)
     }
 
 

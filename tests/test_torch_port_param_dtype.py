@@ -22,8 +22,9 @@
   equals the engine built on the same values in f32, and the f32 engine
   matches the JAX f32 engine on the same bf16 variables (atol 5e-4, rtol
   1e-3, ``tests/test_engine.py``'s).
-- Loaded f32 weights are rounded to ``param_dtype`` (the JAX trainer
-  keeps a loaded tree's dtype instead).
+- Loaded weights keep their own dtype under ``param_dtype``, as the JAX
+  trainer keeps a loaded tree's (f32 ``.npz``: f32 parameters and
+  moments).
 - ``profile_dir``: ``Model.train`` for two epochs writes one trace, of
   epoch 1.
 """
@@ -413,31 +414,56 @@ def test_model_trains_saves_resumes_and_serves_in_param_dtype(synth, name):
 
 
 @pytest.mark.parametrize("name", sorted(DTYPES))
-def test_loaded_f32_weights_are_rounded_to_param_dtype(synth, name):
-    """The port's choice on load: f32 weights (the committed ``.npz``)
-    under ``param_dtype`` are held in that dtype, each rounded once, and
-    BatchNorm's stay f32 and exact. The JAX trainer instead keeps a
-    loaded tree's own dtype, so it would go on with f32 parameters."""
+def test_loaded_f32_weights_are_rounded_to_param_dtype(synth, tmp_path,
+                                                       name):
+    """Loaded weights keep their own dtype under ``param_dtype``, as the
+    JAX trainer merges a loaded tree over the initialised one
+    (``ctunet_tpu/trainer.py:452-457``): the f32 ``.npz`` served and
+    trained under bf16 or f16 stays f32, each tensor the file's exactly,
+    and the optimizer's moments follow (f32); the JAX ``Model``'s loaded
+    variables are f32 too. (The test's name is from when the port rounded
+    them to ``param_dtype``.)"""
+    from ctunet_tpu import Model as JaxModel
+    from ctunet_tpu.data.atlas import register_atlas as jax_register_atlas
+
     root, csv = synth
-    tdt = DTYPES[name][0]
+    want = checkpoint.load_any(checkpoint.UNETSP_10K)
     m = Model(params=dict(
         test_flag=True, name=f"ld_{name}", model_class="UNetSP",
         problem_handler="FlapRecWithShapePriorDoubleOut", device="cpu",
         workspace_path=str(root / "ws"), test_files_csv=csv,
         param_dtype=name, resume_model=checkpoint.UNETSP_10K))
-    want = checkpoint.load_any(checkpoint.UNETSP_10K)
     got = m.models["main"].state_dict()
     assert set(got) == set(want)
-    n_rounded = 0
     for k, v in got.items():
-        if k.rsplit(".", 1)[0] + ".running_var" in got:  # BatchNorm's
-            assert v.dtype == want[k].dtype
-            assert torch.equal(v, want[k]), k
-        else:
-            assert v.dtype == tdt, k
-            assert torch.equal(v, want[k].to(tdt)), k
-            n_rounded += int((v.float() != want[k]).sum())
-    assert n_rounded > 0
+        assert v.dtype == want[k].dtype and torch.equal(v, want[k]), k
+    t = Model(params=_train_params(root, csv, name=f"ldt_{name}",
+                                   param_dtype=name,
+                                   resume_model=checkpoint.UNETSP_10K))
+    assert {p.dtype for p in t.state.model.parameters()} == {torch.float32}
+    moments = t.state.optimizer.state.values()
+    assert {v["mu"].dtype for v in moments} == {torch.float32}
+    # a newly initialised model stays in param_dtype
+    fresh = Model(params=_train_params(root, csv, name=f"ldn_{name}",
+                                       param_dtype=name))
+    conv = fresh.state.model.state_dict()["d_blocks.0.block.0.weight"]
+    assert conv.dtype == DTYPES[name][0]
+    if name != "bfloat16":
+        return  # the JAX merge keeps the loaded dtype whatever param_dtype
+    jm = JaxModel(params=dict(
+        test_flag=False, name=f"ldj_{name}", model_class="UNetSP",
+        problem_handler="FlapRecWithShapePriorDoubleOut", device="cpu",
+        workspace_path=str(tmp_path / "jws"), test_files_csv=csv,
+        param_dtype=name, resume_model=os.path.join(
+            os.path.dirname(os.path.dirname(__file__)), ".ckpts",
+            "unetsp_10k")))
+    jm.params["test_flag"] = True
+    jax_register_atlas((16, 16, 32), spherical_shell((16, 16, 32),
+                                                     radius_frac=0.42))
+    jm.load_datasets()
+    jm.initialize_models()
+    jdt = {a.dtype for a in jax.tree.leaves(jm._variables["params"])}
+    assert jdt == {jnp.dtype(jnp.float32)}
 
 
 def test_profile_dir_traces_the_first_epoch_only(synth):

@@ -188,12 +188,18 @@ def test_fg_and_scan_settings_are_served(tmp_path, key, value):
     ("patch_inference", True), ("distributed", True),
     ("mesh_data", 2), ("mesh_spatial", 2), ("profile_dir", "trace"),
 ])
-def test_unported_settings_raise(tmp_path, key, value):
-    """Settings still to port raise, naming their ROADMAP item;
-    ``patch_inference`` is served since it was ported
-    (``test_torch_port_sliding_window.py``), ``profile_dir`` too
-    (``test_torch_port_param_dtype.py`` checks its trace of the first
-    epoch)."""
+def test_unported_settings_raise(tmp_path, monkeypatch, key, value):
+    """Every setting is served now: ``patch_inference``
+    (``test_torch_port_sliding_window.py``), ``profile_dir``
+    (``test_torch_port_param_dtype.py`` checks its trace). The
+    multi-device keys need ranks: ``b_distributed`` without a coordinator,
+    world or rank raises ``ValueError`` naming the missing key (the port has
+    no automatic discovery), and a mesh above 1x1 in one process raises the
+    one-process-per-device ``ValueError``
+    (``test_torch_port_dp.py`` runs them over ranks)."""
+    for env in ("CTUNET_COORDINATOR", "CTUNET_NUM_PROCESSES",
+                "CTUNET_PROCESS_ID"):
+        monkeypatch.delenv(env, raising=False)
     params = dict(test_flag=False, name="x", model_class="UNetSP",
                   problem_handler="FlapRecWithShapePriorDoubleOut",
                   device="cpu", workspace_path=str(tmp_path))
@@ -201,7 +207,9 @@ def test_unported_settings_raise(tmp_path, key, value):
     if key in ("patch_inference", "profile_dir"):
         assert Model(params=params).params[key] == value
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    match = ("dist_coordinator" if key == "distributed"
+             else "one process per device")
+    with pytest.raises(ValueError, match=match):
         Model(params=params)
 
 

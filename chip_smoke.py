@@ -201,6 +201,27 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
    and events only; a rank's synthesis draws on the card (the Philox jump)
    equal to one process's. Its times are of ranks sharing one card; a
    rank's train step is split into its all-reduces and its synthesis.
+13. The profiler, the ``UNet`` options and the tools
+   (:func:`surface_tools`): a ``utils/profiling.trace`` window over one
+   bf16 UNetSP engine pass lists its 12 ``conv3d_tc``, 4 ``maxpool2_rows``
+   and 4 ``upconv_tc`` launches by kernel name, each inside its wrapper's
+   spans, with at least ``P13_COVERAGE`` of the same launches' own device
+   time (``device_ms``), and over one ``chain`` train step the 31 K6
+   launches, each trace with no launch whose kernel record it lost
+   (``profiling.attribute``'s count; phase 11 checks its ``profile_dir``
+   trace file the same way); the generic ``UNet`` with ``residual``, ``cat=False`` and no
+   skips at 224x304x304 and with ``fc_layer`` at ``P13_FC_SHAPE``, one
+   bf16 ``chain`` step each against the plain versions (phase 5's gates,
+   31 K6); ``tools/adaquant_run_torch.py`` (``P13_ADAQUANT_STEPS`` at
+   ``P13_TOOL_SHAPE``: the optimised rounding's agreement no more than
+   0.002 below round-to-nearest's, K1q, K2q and K3q launched),
+   ``quant_sim_eval_torch.py`` (``rtn``), ``int8_sensitivity_torch.py``,
+   ``attr_int8_torch.py`` (one pass, 12/4/4 int8 launches attributed) and
+   ``attr_train_torch.py`` (one ``chain`` step, 31 K6 attributed, none
+   lost), each through its command line and its one JSON line. Every
+   profile of the earlier phases (``profile_device``) prints the
+   hand-written kernels' share of the device time and the launches the
+   trace lost.
 
 The last two lines of output are one JSON object ``{"kernels": [...]}``
 and ``{"ok": true, "device": {...}}``. Any failure exits non-zero and
@@ -1570,34 +1591,34 @@ def punched_shell(shape, seed: int, radius_frac: float = 0.38, center=None):
 
 
 def profile_device(fn, device, rows: int = 12, what: str = "one volume"):
-    """Print the device time of one ``fn()`` by kernel name
-    (``torch.profiler``), or "not measured" when it sees none. Returns
-    ``{kernel name: (count, ms)}``."""
+    """Print the device time of one ``fn()`` by kernel name, each kernel
+    with the wrappers' spans around its launch, and the hand-written
+    kernels' share (``utils/profiling.py``: ``trace`` pads the window so
+    that it holds every kernel of the pass), and how many launches the
+    trace lost. Returns ``{kernel name: (count, ms)}``."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    def run():
+    from ctunet_tpu_torch.utils import profiling
+
+    fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    with profiling.trace(device) as prof:
         fn()
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-
-    run()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run()
+    got, dropped = profiling.attribute(prof.events())
     by_name = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
-            by_name[e.key] = (e.count, e.self_device_time_total / 1e3)
-    total = sum(ms for _, ms in by_name.values())
-    if not total:
-        log("  device profile: not measured (no device time recorded)")
-        return by_name
-    log(f"  device profile of {what}: {total:.2f} ms of kernels")
-    for key, (n, ms) in sorted(by_name.items(), key=lambda kv: -kv[1][1]
-                               )[:rows]:
-        log(f"    {ms:8.3f} ms {100 * ms / total:5.1f}% x{n:<3d} {key[:70]}")
+    for r in got:
+        n, ms = by_name.get(r["name"], (0, 0.0))
+        by_name[r["name"]] = (n + 1, ms + r["ms"])
+    total = sum(r["ms"] for r in got)
+    hand = sum(r["ms"] for r in got if r["category"].startswith("kernel:"))
+    log(f"  device profile of {what}: {total:.2f} ms of kernels, "
+        f"{hand:.2f} ms ({100 * hand / max(total, 1e-9):.1f}%) in the "
+        f"hand-written kernels ({sum(profiling.wrapper_counts(got).values())}"
+        f" launches); {dropped} launches lost by the trace")
+    for t in profiling.top(got, rows):
+        log(f"    {t['ms']:8.3f} ms {100 * t['ms'] / max(total, 1e-9):5.1f}% "
+            f"x{t['count']:<3d} {t['name'][:58]:<58s} {t['spans']}")
     return by_name
 
 
@@ -2040,6 +2061,28 @@ def serve(device, work: str, shape=SHAPE, n_volumes: int = N_VOLUMES):
     return launches, stats, failures
 
 
+def batch_stat_check(init, got, ref, failures, label: str = "") -> float:
+    """Hold the BatchNorm batch statistics of one train step on the kernels
+    (state_dict ``got``) against the same step on the plain versions
+    (``ref``), both from ``init``; returns the worst error / tolerance."""
+    worst = 0.0
+    for name, buf in got.items():
+        if not name.endswith(("running_mean", "running_var")):
+            continue
+        # batch statistic = (running - 0.9 * initial) / 0.1
+        bk = (buf - 0.9 * init[name]) / 0.1
+        bp = (ref[name] - 0.9 * init[name]) / 0.1
+        # bf16 activations: 2 bf16 ulps at the statistic's magnitude, and
+        # as much again for what earlier layers' roundings move it
+        tol = 4 * BF16_EPS * float(bp.abs().max().clamp_min(1e-3))
+        err = float((bk - bp).abs().max())
+        worst = max(worst, err / tol)
+        if not err <= tol:
+            failures.append(f"{label}BN batch statistic {name}: {err} > "
+                            f"{tol}")
+    return worst
+
+
 def train(device, work: str, shape=SHAPE, n_train: int = N_TRAIN,
           n_eval: int = N_EVAL, time_steps: int = 3):
     """Train UNetSP through ``Model`` with ``conv_impl = "chain"`` at the
@@ -2170,21 +2213,8 @@ def train(device, work: str, shape=SHAPE, n_train: int = N_TRAIN,
     mp, _, _, _, out_p = one_step("plain")
     loss_k, loss_p = out_k[0][1], out_p[0][1]
     rel = abs(loss_k - loss_p) / abs(loss_p)
-    worst = 0.0
-    init = base.state_dict()
-    for name, buf in mk.state_dict().items():
-        if not name.endswith(("running_mean", "running_var")):
-            continue
-        # batch statistic = (running - 0.9 * initial) / 0.1
-        bk = (buf - 0.9 * init[name]) / 0.1
-        bp = (mp.state_dict()[name] - 0.9 * init[name]) / 0.1
-        # bf16 activations: 2 bf16 ulps at the statistic's magnitude, and
-        # as much again for what earlier layers' roundings move it
-        tol = 4 * BF16_EPS * float(bp.abs().max().clamp_min(1e-3))
-        err = float((bk - bp).abs().max())
-        worst = max(worst, err / tol)
-        if not err <= tol:
-            failures.append(f"BN batch statistic {name}: {err} > {tol}")
+    worst = batch_stat_check(base.state_dict(), mk.state_dict(),
+                             mp.state_dict(), failures)
     log(f"  step 1 kernels vs plain versions: loss {loss_k:.6f} vs "
         f"{loss_p:.6f} (relative {rel:.2e}, limit 1e-2); BN batch "
         f"statistics worst error / tolerance {worst:.3f}")
@@ -2360,11 +2390,8 @@ def serve_legacy(device, work: str, shape=SHAPE, n_volumes: int = N_VOLUMES):
                                 / (1e3 * m.serve_seconds))
             log(f"  device busy share of the Model loop (engine ms x volumes"
                 f" / loop time): {st['busy_share']:.3f}")
-        prof = profile_device(lambda: k_pred(xt), device, rows=8,
-                              what=f"one {mc} volume")
-        if not any("conv3d_tc" in key for key in prof):
-            log("  (the profile holds no K5 launch: the breakdown below is "
-                "taken with CUDA events)")
+        profile_device(lambda: k_pred(xt), device, rows=8,
+                       what=f"one {mc} volume")
         st["breakdown_ms"] = launch_breakdown(mc, sd, xt, device)
         stats[mc] = st
         del model, k_pred, p_pred, prob
@@ -3989,6 +4016,7 @@ def pickled_ops_qat(device, work: str, shape=SHAPE, before=None,
                                       largest_cc_device, pad_to_multiple,
                                       resample_to_spacing)
     from ctunet_tpu_torch.problem import FlapRecWithShapePriorDoubleOut
+    from ctunet_tpu_torch.utils import profiling
 
     failures, launches, stats = [], {}, {}
     cuda = device.type == "cuda"
@@ -4141,17 +4169,27 @@ def pickled_ops_qat(device, work: str, shape=SHAPE, before=None,
             math.isfinite(v) for h in hist.values() for v in h):
         failures.append(f"bf16 parameters: losses {losses} {hist}")
     traces = sorted(glob.glob(os.path.join(prof, "*.pt.trace.json")))
-    names = set()
+    names, traced_k6, lost = set(), 0, 0
     for t in traces:
         with open(t) as f:
-            names |= {e.get("name") for e in json.load(f)["traceEvents"]}
+            events = json.load(f)["traceEvents"]
+        names |= {e.get("name") for e in events}
+        lost += profiling.dropped_in_trace(events)
+        # the one train step's K6 launches, by kernel name
+        traced_k6 += sum(e.get("cat") == "kernel"
+                         and "conv3d_tc_kernel" in str(e.get("name"))
+                         for e in events)
     epochs = sorted({str(n).split(" train step")[0] for n in names
                      if " train step " in str(n)})
     log(f"  profile_dir: {len(traces)} trace file(s), "
         f"{sum(os.path.getsize(t) for t in traces) / 2**20:.1f} MiB, step "
-        f"spans of {epochs}")
-    if len(traces) != 1 or epochs != ["epoch 1"]:
-        failures.append(f"profile_dir: traces {traces}, spans {epochs}")
+        f"spans of {epochs}, {traced_k6} conv3d_tc kernels (want "
+        f"{K6_PER_TRAIN_STEP}: epoch 1's one train step), {lost} launches "
+        "lost by the trace")
+    if len(traces) != 1 or epochs != ["epoch 1"] or \
+            traced_k6 != K6_PER_TRAIN_STEP or lost:
+        failures.append(f"profile_dir: traces {traces}, spans {epochs}, "
+                        f"{traced_k6} K6 kernels, {lost} launches lost")
     saved = checkpoint.restore_checkpoint(m.params["model_path"])
     if saved["model"]["d_blocks.0.block.0.weight"].dtype != torch.bfloat16:
         failures.append("bf16 parameters: the checkpoint is not bf16")
@@ -4717,6 +4755,377 @@ def multi_device(device, work: str, shape=SHAPE, before=None):
     return launches, stats, failures
 
 
+# phase 13: the profiler's view of the kernels, the generic UNet's options
+# at full width, the int8 and attribution tools
+P13_OPTIONS = {"residual": dict(residual=True), "cat=False": dict(cat=False),
+               "no skips": dict(use_skip_connections=False)}
+P13_FC_SHAPE = (64, 64, 64)  # fc_layer's Dense grows with the volume
+P13_FC_WIDTH = 64  # fc_layer's cfc; its ifc is the pooled volume's size
+P13_TOOL_SHAPE = (64, 128, 128)  # the JAX int8 tools' SHAPE
+P13_ADAQUANT_STEPS = 20
+P13_COVERAGE = 0.9  # profiled share of the launches' own device time
+# the hand-written kernels of one bf16 UNetSP engine pass by kernel name,
+# with the wrapper spans each must sit in
+P13_PASS = {"conv3d_tc_kernel": (12, ["conv3d_bn_relu", "conv3d_tc"]),
+            "maxpool2_rows_kernel": (4, ["maxpool2", "maxpool2_rows"]),
+            "upconv_tc_kernel": (4, ["upconv_bn_relu", "upconv_tc"])}
+
+
+def run_tool(name: str, argv):
+    """``tools/<name>.py``'s ``main(argv)`` in this process; its one JSON
+    line parsed (its progress goes to stderr)."""
+    import contextlib
+    import importlib.util
+    import io
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "tools", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = mod.main(list(argv))
+    lines = out.getvalue().strip().splitlines()
+    if rc != 0 or len(lines) != 1:
+        raise RuntimeError(f"{name}: exit {rc}, stdout {lines[:3]}")
+    return json.loads(lines[0])
+
+
+def recorded_launches(device, fn):
+    """``fn()`` once with the bf16 kernel functions (``conv3d_tc``,
+    ``maxpool2_rows``, ``upconv_tc``) recording their calls; returns
+    ``[(kernel function, args)]`` in launch order."""
+    from ctunet_tpu_torch.ops.kernels import conv3d as kc
+    from ctunet_tpu_torch.ops.kernels import upconv as ku
+
+    calls, saved = [], []
+    for mod, name in ((kc, "conv3d_tc"), (kc, "maxpool2_rows"),
+                      (ku, "upconv_tc")):
+        orig = getattr(mod, name)
+
+        def rec(*a, _orig=orig, **kw):
+            calls.append((_orig, a, kw))
+            return _orig(*a, **kw)
+
+        # a kernel function counts on the name its own module calls it by,
+        # here the recorder's where that is the module patched
+        rec.launches = 0
+        saved.append((mod, name, orig, rec))
+        setattr(mod, name, rec)
+    try:
+        fn()
+        sync(device)
+    finally:
+        for mod, name, orig, rec in saved:
+            orig.launches += rec.launches
+            setattr(mod, name, orig)
+    return calls
+
+
+def options_step(device, name: str, shape, failures, **unet_kw):
+    """One bf16 ``chain`` train step of ``UNet(input_channels=2,
+    out_channels=3, i_size=7, n_blocks=4, **unet_kw)`` with the
+    double-output head (UNetSP's), on a broken skull, against the same
+    step with ``conv_impl = plain``: phase 5's loss and BatchNorm gates and
+    its K6 count. Returns the step's stats."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from ctunet_tpu_torch import steps
+    from ctunet_tpu_torch.data import spherical_shell
+    from ctunet_tpu_torch.models import double_out_head
+    from ctunet_tpu_torch.models.unet import UNet
+    from ctunet_tpu_torch.ops import kernels
+    from ctunet_tpu_torch.problem import FlapRecWithShapePriorDoubleOut
+
+    class Options(UNet):
+        def forward(self, x):
+            return double_out_head(super().forward(x))
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(13)
+        base = Options(input_channels=2, out_channels=3, i_size=7,
+                       n_blocks=4, **unet_kw).to(device)
+    init = copy.deepcopy(base.state_dict())
+    vol = torch.from_numpy(spherical_shell(shape, seed=13).astype(
+        np.float32))[None].to(device)
+    atlas = spherical_shell(shape, radius_frac=0.42).astype(np.float32)
+    handler = FlapRecWithShapePriorDoubleOut()
+    loss_cfg = {"ce_lambda": 1.0, "dice_lambda": 1.0}
+    out = {}
+    for impl in ("chain", "plain"):
+        model = copy.deepcopy(base).configure(impl, torch.bfloat16)
+        state = steps.TrainState(model, steps.make_optimizer(
+            {"optimizer": "adam", "learning_rate": 1e-4},
+            model.parameters()))
+        step = steps.make_train_step(model, handler, loss_cfg, atlas=atlas,
+                                     compute_dtype=torch.bfloat16)
+        gen = torch.Generator(device=device).manual_seed(5)
+        kernels.reset_launches()
+        sync(device)
+        t0 = time.perf_counter()
+        _, terms = step(state, {"image": vol}, gen)
+        sync(device)
+        out[impl] = (float(terms["epoch_loss"]), 1e3 * (time.perf_counter()
+                                                       - t0),
+                     kernels.launches()["conv3d_bias_act"], model)
+    (lk, ms_k, k6, mk), (lp, ms_p, _, mp) = out["chain"], out["plain"]
+    rel = abs(lk - lp) / max(abs(lp), 1e-12)
+    worst = batch_stat_check(init, mk.state_dict(), mp.state_dict(),
+                             failures, f"UNet {name}: ")
+    log(f"  UNet {name} {'x'.join(map(str, shape))}: chain step loss "
+        f"{lk:.6f} vs plain {lp:.6f} (relative {rel:.2e}, limit 1e-2), BN "
+        f"batch statistics worst error / tolerance {worst:.3f}, K6 {k6} a "
+        f"train step (want {K6_PER_TRAIN_STEP}); first steps {ms_k:.1f} / "
+        f"{ms_p:.1f} ms (chain / plain, compile-free but cold)")
+    if not (math.isfinite(lk) and rel <= 1e-2):
+        failures.append(f"UNet {name}: step loss {lk} vs plain {lp}")
+    if k6 != K6_PER_TRAIN_STEP:
+        failures.append(f"UNet {name}: {k6} K6 launches a train step")
+    return dict(loss=lk, plain_loss=lp, rel=rel, bn_worst=worst, k6=k6)
+
+
+def span_cost(device, sd, shape=(64, 64, 64), reps: int = 20) -> dict:
+    """What the wrappers' profiler spans cost the host: one
+    ``record_function`` span and one check of the profiler's state (what a
+    wrapper call pays with no profiler running), in microseconds, and a
+    bf16 UNetSP engine call on 4 volumes of ``shape`` (host-bound: 80
+    wrapper calls, 160 spans) with the spans forced on and off, in turns
+    (off, on, on, off)."""
+    import torch
+
+    from ctunet_tpu_torch import engine
+
+    def per_call_us(fn, n=20000):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return (time.perf_counter() - t0) / n * 1e6
+
+    def span():
+        with torch.profiler.record_function("x"):
+            pass
+
+    out = {"span_us": per_call_us(span),
+           "check_us": per_call_us(torch._C._autograd._profiler_enabled)}
+    fwd = engine.build_predict("UNetSP", sd, device=device)
+    x = (torch.rand((4, *shape, 2), device=device) > 0.5).float()
+    check = torch._C._autograd._profiler_enabled
+    try:
+        for label in ("off", "on", "on", "off"):
+            torch._C._autograd._profiler_enabled = (
+                check if label == "off" else (lambda: True))
+            fwd(x)
+            sync(device)
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fwd(x)
+            sync(device)
+            out.setdefault(f"engine_ms_spans_{label}", []).append(
+                1e3 * (time.perf_counter() - t0) / reps)
+    finally:
+        torch._C._autograd._profiler_enabled = check
+    return out
+
+
+def surface_tools(device, work: str, shape=SHAPE, before=None,
+                  fc_shape=P13_FC_SHAPE, tool_shape=P13_TOOL_SHAPE):
+    """Phase 13: (1) a ``torch.profiler`` window over one bf16 UNetSP engine
+    pass lists every hand-written launch by kernel name inside its
+    wrapper's span, and their profiled device time covers the same
+    launches' own (``device_ms``); over one ``chain`` train step it lists
+    the 31 K6 launches; neither trace lost a kernel record; (2) the generic ``UNet``'s options at full width,
+    one ``chain`` step each against the plain versions; (3) the int8 tools
+    and the attribution tools through their command lines. Returns
+    ``(launches, stats, failures)``."""
+    import numpy as np
+    import torch
+
+    from ctunet_tpu_torch import engine, steps
+    from ctunet_tpu_torch.checkpoint import UNETSP_10K, load_any
+    from ctunet_tpu_torch.data import spherical_shell
+    from ctunet_tpu_torch.models import build_model
+    from ctunet_tpu_torch.ops import kernels
+    from ctunet_tpu_torch.problem import FlapRecWithShapePriorDoubleOut
+    from ctunet_tpu_torch.utils import profiling
+
+    failures, stats, launches = [], {}, {}
+    card = card_line() if device.type == "cuda" else "cpu"
+    sd = load_any(UNETSP_10K)
+    atlas = spherical_shell(shape, radius_frac=0.42).astype(np.float32)
+    x = torch.from_numpy(np.stack([punched_shell(shape, 1).astype(
+        np.float32), atlas], -1)[None]).to(device)
+
+    # (1a) the engine pass
+    k_pred = engine.build_predict("UNetSP", sd, device=device)
+    k_pred(x)
+    sync(device)
+    kernels.reset_launches()
+    calls = recorded_launches(device, lambda: k_pred(x))
+    add_counts(launches, kernels.launches())
+    own = [device_ms(lambda f=f, a=a, kw=kw: f(*a, **kw), 5, device)
+           for f, a, kw in calls]
+    kernels.reset_launches()
+    with profiling.trace(device) as prof:
+        k_pred(x)
+    add_counts(launches, kernels.launches())
+    rows, dropped = profiling.attribute(prof.events())
+    log(f"  launches lost by the trace of the engine pass: {dropped}")
+    if dropped:
+        failures.append(f"profiler: the engine pass's trace lost {dropped} "
+                        "kernel records")
+    profiled = 0.0
+    for key, (want, spans) in P13_PASS.items():
+        got = [r for r in rows if key in r["name"]]
+        inside = sum(r["spans"] == spans for r in got)
+        profiled += sum(r["ms"] for r in got)
+        log(f"  profile of one bf16 UNetSP pass {'x'.join(map(str, shape))}"
+            f": {len(got)} {key} launches by name (want {want}), {inside} "
+            f"inside {'/'.join(spans)}")
+        if len(got) != want or inside != want:
+            failures.append(f"profiler: {len(got)} {key} ({inside} in their "
+                            f"spans), want {want}")
+    total = sum(r["ms"] for r in rows)
+    cover = profiled / max(sum(own), 1e-9)
+    stats["engine_pass"] = dict(
+        profiled_hand_ms=profiled, launches_device_ms=sum(own),
+        coverage=cover, pass_kernel_ms=total, hand_share=profiled / total
+        if total else None, rollup=profiling.rollup(rows))
+    log(f"  the 20 launches: {profiled:.3f} ms profiled, {sum(own):.3f} ms "
+        f"by device_ms one at a time (coverage {cover:.3f}, want >= "
+        f"{P13_COVERAGE}); the pass's kernels {total:.3f} ms, hand-written "
+        f"{100 * profiled / max(total, 1e-9):.1f}% [{card}]")
+    for cat, ms in profiling.rollup(rows).items():
+        log(f"    {ms:9.3f} ms  {cat}")
+    if len(calls) != 20 or not cover >= P13_COVERAGE:
+        failures.append(f"profiler: {len(calls)} launches recorded, "
+                        f"coverage {cover:.3f} < {P13_COVERAGE}")
+    del k_pred
+
+    # (1b) one chain train step
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = build_model("UNetSP").to(device).configure(
+            "chain", torch.bfloat16)
+    state = steps.TrainState(model, steps.make_optimizer(
+        {"optimizer": "adam", "learning_rate": 1e-4}, model.parameters()))
+    step = steps.make_train_step(
+        model, FlapRecWithShapePriorDoubleOut(),
+        {"ce_lambda": 1.0, "dice_lambda": 1.0}, atlas=atlas,
+        compute_dtype=torch.bfloat16)
+    vol = torch.from_numpy(spherical_shell(shape, seed=2).astype(
+        np.float32))[None].to(device)
+    gen = torch.Generator(device=device).manual_seed(5)
+    step(state, {"image": vol}, gen)
+    sync(device)
+    kernels.reset_launches()
+    with profiling.trace(device) as prof:
+        step(state, {"image": vol}, gen)
+    add_counts(launches, kernels.launches())
+    rows, dropped = profiling.attribute(prof.events())
+    if dropped:
+        failures.append(f"profiler: the train step's trace lost {dropped} "
+                        "kernel records")
+    k6 = [r for r in rows if "conv3d_tc_kernel" in r["name"]
+          and r["spans"][:2] == ["conv3d_bias_act", "conv3d_tc"]]
+    total = sum(r["ms"] for r in rows)
+    log(f"  profile of one chain train step: {len(k6)} K6 launches by name "
+        f"inside conv3d_bias_act/conv3d_tc (want {K6_PER_TRAIN_STEP}), "
+        f"{sum(r['ms'] for r in k6):.2f} of {total:.2f} ms, {dropped} "
+        f"launches lost by the trace [{card}]")
+    for cat, ms in profiling.rollup(rows).items():
+        log(f"    {ms:9.3f} ms  {cat}")
+    for t in profiling.top(rows, 10):
+        log(f"    {t['ms']:8.3f} ms x{t['count']:<4d} {t['name'][:56]:<56s} "
+            f"{t['spans']}")
+    stats["chain_step"] = dict(k6=len(k6), step_kernel_ms=total,
+                               rollup=profiling.rollup(rows))
+    if len(k6) != K6_PER_TRAIN_STEP:
+        failures.append(f"profiler: {len(k6)} K6 launches in a train step")
+    del model, state, step
+    cost = span_cost(device, sd)
+    stats["span_cost"] = cost
+    log(f"  the spans' host cost: {cost['span_us']:.2f} us a span, "
+        f"{cost['check_us']:.3f} us a check with no profiler running; a "
+        f"bf16 UNetSP engine call on 4 x 64^3 (160 spans) "
+        f"{cost['engine_ms_spans_off']} ms with the spans off, "
+        f"{cost['engine_ms_spans_on']} ms forced on [{card}]")
+
+    # (2) the UNet options
+    opts = {}
+    for name, kw in P13_OPTIONS.items():
+        opts[name] = options_step(device, name, shape, failures, **kw)
+        add_counts(launches, kernels.launches())
+    ifc = int(np.prod(fc_shape)) // 16 ** 3 * 56  # the last pool's, 56 wide
+    opts["fc_layer"] = options_step(device, "fc_layer", fc_shape, failures,
+                                    fc_layer=(ifc, P13_FC_WIDTH))
+    add_counts(launches, kernels.launches())
+    stats["unet_options"] = opts
+
+    # (3) the tools
+    tools = {}
+    tshape = ",".join(map(str, tool_shape))
+    full = ",".join(map(str, shape))
+    cpu = [] if device.type == "cuda" else ["--cpu"]
+    for name, argv in (
+            ("adaquant_run_torch", ["--shape", tshape, "--steps",
+                                    str(P13_ADAQUANT_STEPS)]),
+            ("quant_sim_eval_torch", ["--shape", tshape, "--modes", "rtn"]),
+            ("int8_sensitivity_torch", ["--shape", tshape]),
+            ("attr_int8_torch", ["--shape", full, "--n", "1"]),
+            ("attr_train_torch", ["--shape", full, "--impl", "chain",
+                                  "--n", "1"])):
+        t0 = time.perf_counter()
+        try:
+            res = run_tool(name, argv + cpu)
+        except Exception:  # noqa: BLE001  report, then fail the phase
+            traceback.print_exc()
+            failures.append(f"tool {name} raised")
+            continue
+        res["wall_s"] = time.perf_counter() - t0
+        tools[name] = res
+        brief = {k: v for k, v in res.items()
+                 if k not in ("top", "only", "round_opt")}
+        log(f"  {name} ({res['wall_s']:.1f} s) [{card}]: "
+            f"{json.dumps(brief)}")
+        for t in res.get("top", [])[:8]:
+            log(f"    {t['ms']:8.3f} ms x{t['count']:<5g} "
+                f"{t['name'][:56]:<56s} {t['spans']}")
+    stats["tools"] = tools
+    aq = tools.get("adaquant_run_torch")
+    if aq is not None:
+        for head in ("sk", "fl"):
+            if not aq["adaquant"][head] >= aq["rtn"][head] - 0.002:
+                failures.append(f"adaquant_run_torch: {head} agreement "
+                                f"{aq['adaquant'][head]} < rtn "
+                                f"{aq['rtn'][head]} - 0.002")
+        for k in ("conv3d_q_requant", "maxpool2_q", "upconv_q_requant"):
+            if not aq["launches"].get(k):
+                failures.append(f"adaquant_run_torch: no {k} launch")
+            launches[k] = launches.get(k, 0) + aq["launches"].get(k, 0)
+    at8 = tools.get("attr_int8_torch")
+    if at8 is not None and at8["wrapper_launches"] != {
+            "conv3d_q_requant": 12, "maxpool2_q": 4, "upconv_q_requant": 4}:
+        failures.append(f"attr_int8_torch: {at8['wrapper_launches']}")
+    att = tools.get("attr_train_torch")
+    if att is not None and att["wrapper_launches"].get(
+            "conv3d_bias_act") != K6_PER_TRAIN_STEP:
+        failures.append(f"attr_train_torch: {att['wrapper_launches']}")
+    for res in (at8, att):
+        if res is not None and res["dropped"]:
+            failures.append(f"{res['tool']}: the trace lost "
+                            f"{res['dropped']} kernel records")
+    for name in ("quant_sim_eval_torch", "int8_sensitivity_torch"):
+        res = tools.get(name, {})
+        d = res.get("rtn") or res.get("all")
+        if d is None or not all(0.0 <= d[h] <= 1.0 for h in ("sk", "fl")):
+            failures.append(f"{name}: no Dice in [0, 1]: {d}")
+    log(f"  phase 13 launches: {launches} [{card}]")
+    return launches, stats, failures
+
+
 def main() -> int:
     import torch
 
@@ -4830,7 +5239,13 @@ def main() -> int:
                  f"sharded serving of a {size} volume in bf16 and f32, "
                  f"data-parallel serving of {N_RANKS} volumes in bf16 and "
                  f"int8, data-parallel training (batch {N_RANKS}, "
-                 f"{MD_TRAIN_STEPS} + 1 steps)", multi_device)):
+                 f"{MD_TRAIN_STEPS} + 1 steps)", multi_device),
+            (13, f"the profiler over a bf16 engine pass and a chain train "
+                 f"step at {size}, the generic UNet's options ("
+                 f"{', '.join(P13_OPTIONS)} at {size}, fc_layer at "
+                 f"{'x'.join(map(str, P13_FC_SHAPE))}), the int8 tools at "
+                 f"{'x'.join(map(str, P13_TOOL_SHAPE))} and the attribution "
+                 f"tools at {size}", surface_tools)):
         log(f"== phase {phase}: main path, {label}, through Model")
         t0 = time.perf_counter()
         got = {}

@@ -239,6 +239,11 @@ def load_pt(path: str) -> Dict[str, torch.Tensor]:
     return out
 
 
+def is_torch_checkpoint(path: str) -> bool:
+    """A reference ``.pt`` file (``checkpoint.is_torch_checkpoint``)."""
+    return os.path.isfile(os.path.expanduser(path)) and path.endswith(".pt")
+
+
 def load_any(path: str) -> Dict[str, torch.Tensor]:
     """Load model weights from a train-state ``.ckpt`` of the port, a flax
     ``.npz`` export or a reference ``.pt`` (state_dict or pickled module;

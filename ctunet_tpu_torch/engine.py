@@ -90,6 +90,11 @@ ENGINE_CONFIGS = {
 }
 
 
+def supports(model_class: str) -> bool:
+    """Whether an engine serves ``model_class`` (``engine.supports``)."""
+    return model_class in ENGINE_CONFIGS
+
+
 def pool_multiple(model_class: str) -> int:
     """Spatial divisibility a model needs, ``2 ** n_blocks``: 32 for the
     5-block family, 16 for the rest (``ctunet_tpu/trainer.py:53-56``)."""

@@ -3,7 +3,7 @@ from torch import nn
 
 from .. import registry
 from .legacy import RecAEv2Fixed, UNet4_2IC
-from .unet import UNet, UNetBlock
+from .unet import CenterBlock, ConvUnit, ResidualBlock, UNet, UNetBlock
 from .variants import (UNet4b1i3o, UNet4b2i3o, UNet5b2i3o, UNetDO, UNetSP,
                        UNetSPSmall, double_out_head)
 
@@ -22,6 +22,22 @@ def parse_param_dtype(name) -> torch.dtype:
     return PARAM_DTYPES[name]
 
 
+# input channels of each registered model (the atlas models: 2) and the
+# models whose forward returns the (full skull, flap) pair
+# (``ctunet_tpu/models/__init__.py:32-44``)
+MODEL_INPUT_CHANNELS = {
+    "UNet4b2i3o": 2,
+    "UNet5b2i3o": 2,
+    "UNet4b1i3o": 1,
+    "UNetSP": 2,
+    "UNetSPSmall": 2,
+    "UNetDO": 1,
+    "recAE_v2_fixed": 1,
+    "UNet4_2IC": 2,
+}
+DOUBLE_OUTPUT_MODELS = {"UNetSP", "UNetSPSmall", "UNetDO"}
+
+
 def build_model(name: str, param_dtype: torch.dtype = torch.float32):
     """Instantiate a registered model by config name, its conv,
     ConvTranspose and head parameters held in ``param_dtype`` as flax
@@ -37,7 +53,12 @@ def build_model(name: str, param_dtype: torch.dtype = torch.float32):
 
 
 __all__ = [
+    "CenterBlock",
+    "ConvUnit",
+    "DOUBLE_OUTPUT_MODELS",
+    "MODEL_INPUT_CHANNELS",
     "RecAEv2Fixed",
+    "ResidualBlock",
     "UNet",
     "UNetBlock",
     "UNet4b1i3o",

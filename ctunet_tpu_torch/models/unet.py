@@ -190,10 +190,39 @@ def maxpool2(x: torch.Tensor) -> torch.Tensor:
     return _MaxPool2.apply(x.contiguous())
 
 
+class ConvUnit(nn.Sequential):
+    """Conv3d(k3, SAME, no bias) + BatchNorm + ReLU (``ConvUnit``,
+    ``unet.py:139-173``; ``models.py:9-49``). The blocks hold its three
+    layers flat, at the reference's state_dict indices."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__(Conv3d(cin, cout, 3, padding=1, bias=False),
+                         BatchNorm(cout, eps=1e-5, momentum=0.1), nn.ReLU())
+
+
 def _conv_unit(cin: int, cout: int):
-    """Conv3d(k3, SAME, no bias) + BatchNorm + ReLU (``models.py:9-49``)."""
-    return [Conv3d(cin, cout, 3, padding=1, bias=False),
-            BatchNorm(cout, eps=1e-5, momentum=0.1), nn.ReLU()]
+    return list(ConvUnit(cin, cout))
+
+
+class Conv1x1(nn.Conv3d):
+    """Conv3d(k1, no bias) on channels-last tensors as one matmul in
+    ``compute_dtype``: ``ResidualBlock``'s ``skip_conv``, a plain matmul
+    outside any kernel in the JAX package too."""
+
+    compute_dtype = torch.float32
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight[:, :, 0, 0, 0].t().to(self.compute_dtype)
+        return x.to(self.compute_dtype) @ w
+
+
+def _drop_channels(x: torch.Tensor, p: float, training: bool):
+    """torch ``Dropout3d`` on ``(B, D, H, W, C)``: whole channels."""
+    if p <= 0 or not training:
+        return x
+    keep = torch.rand(x.shape[0], 1, 1, 1, x.shape[-1],
+                      device=x.device) >= p
+    return x * (keep.to(x.dtype) / (1.0 - p))
 
 
 class UNetBlock(nn.Module):
@@ -212,37 +241,113 @@ class UNetBlock(nn.Module):
         if up_block:
             layers.insert(0, ConvTranspose2x(cin, cin, 2, stride=2))
         self.block = nn.Sequential(*layers)
+        self.up_block = up_block
         self.dropout_p = float(dropout_p)
 
     def forward(self, x):
-        x = self.block(x)
-        if self.dropout_p > 0 and self.training:
-            keep = torch.rand(x.shape[0], 1, 1, 1, x.shape[-1],
-                              device=x.device) >= self.dropout_p
-            x = x * (keep.to(x.dtype) / (1.0 - self.dropout_p))
-        return x
+        return _drop_channels(self.block(x), self.dropout_p, self.training)
+
+
+class ResidualBlock(UNetBlock):
+    """Residual variant (``ResidualBlock``, ``unet.py:284-362``;
+    ``models.py:100-155``): ``relu(block(x) + identity)``. ``block`` is
+    :class:`UNetBlock`'s (an up block's ConvT, then two conv units); the
+    identity is the (upsampled) input when the widths agree, else
+    ``skip_bn(skip_conv(x))``, a 1x1 conv without bias and a BatchNorm,
+    after an up block's own ConvT ``skip_upconv``. Equal widths in an up
+    block take the ConvT's output as the identity: the documented intent
+    at ``unet.py:355-360`` (the reference's code never upsamples it)."""
+
+    def __init__(self, cin: int, cout: int, up_block: bool = False,
+                 dropout_p: float = 0.0):
+        super().__init__(cin, cout, up_block, dropout_p)
+        if cin != cout:
+            if up_block:
+                self.skip_upconv = ConvTranspose2x(cin, cin, 2, stride=2)
+            self.skip_conv = Conv1x1(cin, cout, 1, bias=False)
+            self.skip_bn = BatchNorm(cout, eps=1e-5, momentum=0.1)
+
+    def forward(self, x):
+        up = self.block[0](x) if self.up_block else x
+        h = self.block[1:](up) if self.up_block else self.block(x)
+        h = _drop_channels(h, self.dropout_p, self.training)
+        if hasattr(self, "skip_conv"):
+            sk = self.skip_upconv(x) if self.up_block else x
+            identity = self.skip_bn(self.skip_conv(sk))
+        else:
+            identity = up
+        return torch.relu(h + identity.to(h.dtype))
+
+
+class CenterBlock(nn.Module):
+    """The FC bottleneck (``CenterBlock``, ``unet.py:365-388``), built only
+    with ``fc_layer = (ifc, cfc)``: the flattened ``(B, ifc)`` bottleneck
+    through Dense(cfc), Dense(ifc) and a leaky ReLU (slope 0.01), reshaped
+    back, so ``ifc`` is the pooled volume's size times its width. Two
+    plain matmuls in ``compute_dtype``, as in the JAX package. Its
+    parameters are ``center.fc0`` / ``center.fc1`` (``nn.Linear``
+    layout): the reference's live FC names are not known here, and its
+    dead conv center's ``cblock.*`` keys are dropped on load."""
+
+    compute_dtype = torch.float32
+
+    def __init__(self, fc_sizes, dropout_p: float = 0.0):
+        super().__init__()
+        ifc, cfc = (int(v) for v in fc_sizes)
+        self.fc0 = nn.Linear(ifc, cfc)
+        self.fc1 = nn.Linear(cfc, ifc)
+        self.dropout_p = float(dropout_p)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        h = x.reshape(x.shape[0], -1).to(dt)
+        for fc in (self.fc0, self.fc1):
+            h = F.linear(h, fc.weight.to(dt), fc.bias.to(dt))
+        h = F.leaky_relu(h, 0.01)
+        h = F.dropout(h, self.dropout_p, self.training)
+        return h.reshape(x.shape)
 
 
 class UNet(nn.Module):
-    """Generic U-Net (``models.py:158-261``), concat skips, sigmoid head."""
+    """Generic U-Net (``UNet``, ``unet.py:531-648``; ``models.py:158-261``),
+    sigmoid head. The defaults are every registered model's: concatenated
+    skips, :class:`UNetBlock`s, no center block. The options:
+
+    - ``cat=False`` adds each decoder output to its skip instead;
+    - ``use_skip_connections=False`` drops the skips (an autoencoder);
+    - ``residual=True`` builds :class:`ResidualBlock`s;
+    - ``fc_layer=(ifc, cfc)`` puts a :class:`CenterBlock` after the last
+      pool.
+
+    With concatenated skips the 1x1 head is weight-split over the last
+    decoder output and the first skip (the concat is never built); else
+    it reads the decoder output alone.
+    """
 
     def __init__(self, input_channels: int = 1, out_channels: int = 2,
-                 n_blocks: int = 4, i_size: int = 8, dropout_p: float = 0.0):
+                 n_blocks: int = 4, i_size: int = 8, dropout_p: float = 0.0,
+                 fc_layer=None, use_skip_connections: bool = True,
+                 cat: bool = True, residual: bool = False):
         super().__init__()
         self.n_blocks = n_blocks
+        self.use_skip_connections = use_skip_connections
+        self.cat = cat
         self.compute_dtype = torch.float32
+        block = ResidualBlock if residual else UNetBlock
         widths = [i_size * 2 ** i for i in range(n_blocks)]
         self.d_blocks = nn.ModuleList()
         cin = input_channels
         for w in widths:
-            self.d_blocks.append(UNetBlock(cin, w, dropout_p=dropout_p))
+            self.d_blocks.append(block(cin, w, dropout_p=dropout_p))
             cin = w
+        if fc_layer is not None:
+            self.center = CenterBlock(fc_layer, dropout_p)
         self.u_blocks = nn.ModuleList()
         for idx in range(n_blocks):
             i = n_blocks - 1 - idx
-            self.u_blocks.append(UNetBlock(cin, widths[i], up_block=True,
-                                           dropout_p=dropout_p))
-            cin = 2 * widths[i]
+            self.u_blocks.append(block(cin, widths[i], up_block=True,
+                                       dropout_p=dropout_p))
+            cin = (2 if use_skip_connections and cat else 1) * widths[i]
         self.last_conv = nn.Conv3d(cin, out_channels, 1)
 
     def configure(self, conv_impl: str = "xla",
@@ -255,7 +360,7 @@ class UNet(nn.Module):
         for m in self.modules():
             if isinstance(m, Conv3d):
                 m.conv_impl, m.compute_dtype = conv_impl, compute_dtype
-            elif isinstance(m, ConvTranspose2x):
+            elif isinstance(m, (ConvTranspose2x, Conv1x1, CenterBlock)):
                 m.compute_dtype = compute_dtype
         return self
 
@@ -267,16 +372,26 @@ class UNet(nn.Module):
             h = blk(h)
             skips.append(h)
             h = maxpool2(h)
+        if hasattr(self, "center"):
+            h = self.center(h)
+        split = self.use_skip_connections and self.cat
         for idx, blk in enumerate(self.u_blocks):
             u = blk(h)
             skip = skips[self.n_blocks - 1 - idx]
-            h = torch.cat([u, skip], -1) if idx < self.n_blocks - 1 else None
-        # weight-split 1x1 head over (last decoder output, first skip)
+            if not self.use_skip_connections:
+                h = u
+            elif not self.cat:
+                h = u + skip.to(u.dtype)
+            elif idx < self.n_blocks - 1:
+                h = torch.cat([u, skip], -1)
         dt = self.compute_dtype
+        k = self.last_conv.weight[:, :, 0, 0, 0].t().to(dt)  # (Cin, out)
+        b = self.last_conv.bias.to(dt)
+        if not split:
+            return h.to(dt) @ k + b
+        # weight-split 1x1 head over (last decoder output, first skip)
         ca = u.shape[-1]
-        k = self.last_conv.weight[:, :, 0, 0, 0].t().to(dt)  # (Ca+Cb, out)
-        return (u.to(dt) @ k[:ca] + skip.to(dt) @ k[ca:]
-                + self.last_conv.bias.to(dt))
+        return u.to(dt) @ k[:ca] + skip.to(dt) @ k[ca:] + b
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.sigmoid(self.forward_logits(x))

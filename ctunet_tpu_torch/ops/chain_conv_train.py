@@ -41,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from .kernels import conv3d as kc
+from .kernels.build import traced
 
 
 def flip_swap(kernel: torch.Tensor) -> torch.Tensor:
@@ -56,9 +57,11 @@ def flip_swap(kernel: torch.Tensor) -> torch.Tensor:
 CHANNEL_ALIGN = 8
 
 
+@traced
 def dw_taps(x: torch.Tensor, g: torch.Tensor, k: int = 3) -> torch.Tensor:
     """Weight gradient of one sample of a SAME k-conv: ``x`` ``(D,H,W,Ci)``,
-    ``g`` ``(D,H,W,Co)`` -> f32 ``(k,k,k,Ci,Co)``."""
+    ``g`` ``(D,H,W,Co)`` -> f32 ``(k,k,k,Ci,Co)``. A profiler span named
+    ``dw_taps`` holds its ``bmm``s (``utils/profiling.py``)."""
     d, h, w, ci = x.shape
     co = g.shape[-1]
     half = k // 2

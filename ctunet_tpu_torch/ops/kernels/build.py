@@ -12,11 +12,18 @@ at once (one ``nvcc`` process each, started together).
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` raises on a non-zero code, because a refused launch never
 runs and ``torch.cuda.synchronize()`` would not report it.
+
+Every kernel wrapper is decorated with :func:`traced`: while a profiler
+runs, each call is a ``torch.profiler.record_function`` span named after
+the wrapper (its key in ``kernels.WRAPPERS``), so a trace attributes each
+kernel launch to the wrapper that made it (``conv3d_bn_relu`` around
+``conv3d_tc`` around ``conv3d_tc_kernel<...>``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -146,3 +153,21 @@ def stream_args(t) -> tuple:
 
     return (t.device.index,
             ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream))
+
+
+def traced(fn):
+    """``fn`` inside a ``torch.profiler.record_function`` span named
+    ``fn.__name__`` on every call made while a profiler runs (the CPU's
+    plain versions included); with none running the call costs one check
+    of the profiler's state. The wrapper keeps ``fn``'s attributes, so its
+    ``launches`` counter is the decorated function's."""
+    import torch
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        if not torch._C._autograd._profiler_enabled():
+            return fn(*args, **kwargs)
+        with torch.profiler.record_function(fn.__name__):
+            return fn(*args, **kwargs)
+
+    return wrapper

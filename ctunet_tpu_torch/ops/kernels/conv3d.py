@@ -275,6 +275,7 @@ def _conv_checks(x, w, bias, k: int, what: str):
     return d, h, wd, ci, co
 
 
+@build.traced
 def conv3d_tc(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
               relu: bool = True) -> torch.Tensor:
     """The tensor-core conv on bf16 ``x`` ``(D, H, W, Ci)`` with bf16 ``w``
@@ -498,6 +499,7 @@ def tcf_packed(w: torch.Tensor, plan: TcfPlan) -> torch.Tensor:
     return hit[1]
 
 
+@build.traced
 def conv3d_tc_f32(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                   relu: bool = True) -> torch.Tensor:
     """The split-tf32 tensor-core conv on f32 ``x`` ``(D, H, W, Ci)`` with f32
@@ -565,6 +567,7 @@ def _f32_tc(x, w, bias, relu, k: int, fn):
     return out
 
 
+@build.traced
 def conv3d_f32(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                relu: bool) -> torch.Tensor:
     """The f32 k=3 conv, the kernel of K1 and K6 in f32: f32 ``x``
@@ -581,6 +584,7 @@ def conv3d_f32(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
 conv3d_f32.launches = 0
 
 
+@build.traced
 def conv3d5_f32(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                 relu: bool = True) -> torch.Tensor:
     """The f32 k=5 conv, the kernel of K5 in f32 (arguments as
@@ -652,6 +656,7 @@ def conv3d_bn_relu_plain(x: torch.Tensor, w: torch.Tensor,
     return conv3d_bias_act_plain(x, w, bias, True)
 
 
+@build.traced
 def conv3d_bn_relu(x: torch.Tensor, w: torch.Tensor,
                    bias: torch.Tensor) -> torch.Tensor:
     """K1 on ``x`` ``(D, H, W, Ci)`` with folded ``w`` ``(3, 3, 3, Ci, Co)``
@@ -689,6 +694,7 @@ def conv3d_bias_act_plain(x: torch.Tensor, w: torch.Tensor,
     return conv3d_tc_plain(x, w, bias, relu)
 
 
+@build.traced
 def conv3d_bias_act(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                     relu: bool) -> torch.Tensor:
     """K6 on ``x`` ``(D, H, W, Ci)`` with ``w`` ``(3, 3, 3, Ci, Co)`` of
@@ -729,6 +735,7 @@ def conv3d5_bias_act_plain(x: torch.Tensor, w: torch.Tensor,
     return conv3d_tc_plain(x, w, bias, relu)
 
 
+@build.traced
 def conv3d5_bias_act(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                      relu: bool = True) -> torch.Tensor:
     """K5 on ``x`` ``(D, H, W, Ci)`` with ``w`` ``(5, 5, 5, Ci, Co)`` of
@@ -856,6 +863,7 @@ _POOL_ROWS = {torch.bfloat16: "ctunet_maxpool2_rows",
               torch.int8: "ctunet_maxpool2_rows_q"}
 
 
+@build.traced
 def maxpool2_rows(x: torch.Tensor, plan: PoolPlan = None) -> torch.Tensor:
     """The row-streaming max pool, the kernel of K2 (bf16, f32) and K2q
     (int8): ``(D, H, W, C)`` -> ``(D//2, H//2, W//2, C)``, the max of each
@@ -896,6 +904,7 @@ def maxpool2_rows(x: torch.Tensor, plan: PoolPlan = None) -> torch.Tensor:
 maxpool2_rows.launches = 0
 
 
+@build.traced
 def maxpool2(x: torch.Tensor) -> torch.Tensor:
     """K2 on bf16 or f32 ``(D, H, W, C)`` -> ``(D//2, H//2, W//2, C)``.
 
@@ -919,6 +928,7 @@ def maxpool2(x: torch.Tensor) -> torch.Tensor:
 maxpool2.launches = 0
 
 
+@build.traced
 def maxpool2_f32(x: torch.Tensor) -> torch.Tensor:
     """K2's f32 kernel on ``(D, H, W, C)``: :func:`maxpool2_rows` in f32.
 
@@ -1028,6 +1038,7 @@ def _q_checks(x, w, scale, bias, what: str):
     return d, h, wd, ci, co
 
 
+@build.traced
 def conv3d_q_requant(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                      bias: torch.Tensor, zp: bool = True) -> torch.Tensor:
     """K1q on int8 ``x`` ``(D, H, W, Ci)`` with int8 ``w``
@@ -1238,6 +1249,7 @@ def tcq_packed(w: torch.Tensor, plan: TcqPlan) -> torch.Tensor:
     return hit[1]
 
 
+@build.traced
 def conv3d_tc_q(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                 bias: torch.Tensor, zp: bool = True) -> torch.Tensor:
     """The int8 tensor-core conv: K1q's function (:func:`conv3d_q_requant`)
@@ -1287,6 +1299,7 @@ def maxpool2_q_plain(x: torch.Tensor) -> torch.Tensor:
     return y.amax(dim=(1, 3, 5)).contiguous()
 
 
+@build.traced
 def maxpool2_q(x: torch.Tensor) -> torch.Tensor:
     """K2q on int8 ``(D, H, W, C)`` -> ``(D//2, H//2, W//2, C)``.
 

@@ -109,6 +109,7 @@ def _launch_direct(a, b, wa, wb, bias, what: str) -> torch.Tensor:
     return out
 
 
+@build.traced
 def convt_f32(a: torch.Tensor, b: Optional[torch.Tensor], wa: torch.Tensor,
               wb: Optional[torch.Tensor], bias: torch.Tensor) -> torch.Tensor:
     """K7a's (``b`` None) and K7b's f32 kernel: f32 ``a`` ``(D, H, W, Ca)``,
@@ -134,6 +135,7 @@ def convt_f32(a: torch.Tensor, b: Optional[torch.Tensor], wa: torch.Tensor,
 convt_f32.launches = 0
 
 
+@build.traced
 def convt_k2s2(a: torch.Tensor, wa: torch.Tensor,
                bias: torch.Tensor) -> torch.Tensor:
     """K7a: ConvT(k2, s2) + bias of ``a`` ``(D, H, W, Ca)`` with ``wa``
@@ -159,6 +161,7 @@ def convt_k2s2(a: torch.Tensor, wa: torch.Tensor,
 convt_k2s2.launches = 0
 
 
+@build.traced
 def convt_k2s2_dual(a: torch.Tensor, b: torch.Tensor, wa: torch.Tensor,
                     wb: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """K7b: ConvT(k2, s2) + bias of ``cat(a, b)`` without the concat: ``a``

@@ -158,6 +158,7 @@ def upconv_bn_relu_plain(a: torch.Tensor, b: Optional[torch.Tensor],
     return torch.relu(y + bias.float()).to(a.dtype)
 
 
+@build.traced
 def upconv_bn_relu(a: torch.Tensor, b: Optional[torch.Tensor],
                    wa: torch.Tensor, wb: Optional[torch.Tensor],
                    wone: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
@@ -227,6 +228,7 @@ def upconv_bn_relu_direct(a: torch.Tensor, b: Optional[torch.Tensor],
     return _launch_direct(a, b, wa, wb, wone, bias, "upconv_bn_relu_direct")
 
 
+@build.traced
 def upconv_f32(a: torch.Tensor, b: Optional[torch.Tensor], wa: torch.Tensor,
                wb: Optional[torch.Tensor], wone: torch.Tensor,
                bias: torch.Tensor) -> torch.Tensor:
@@ -316,6 +318,7 @@ def upconv_q_checks(a, b, wa, wb, wone, scale, bias, what: str):
     return d2, h2, w2, ca, cb, co
 
 
+@build.traced
 def upconv_q_requant(a: torch.Tensor, b: Optional[torch.Tensor],
                      wa: torch.Tensor, wb: Optional[torch.Tensor],
                      wone: torch.Tensor, scale: torch.Tensor,

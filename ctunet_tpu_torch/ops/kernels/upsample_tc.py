@@ -350,6 +350,7 @@ def _up_checks(a, b, wa, wb, wone, bias, k3: bool, dtype, what: str):
     return d2, h2, w2, ca, cb, co
 
 
+@build.traced
 def upconv_tc(a: torch.Tensor, b: Optional[torch.Tensor], wa: torch.Tensor,
               wb: Optional[torch.Tensor], wone: Optional[torch.Tensor],
               bias: torch.Tensor, k3: bool) -> torch.Tensor:
@@ -541,6 +542,7 @@ def uptcf_packed(wa: torch.Tensor, wb: Optional[torch.Tensor],
                      None if wone is None else pack_wone(wone)))
 
 
+@build.traced
 def upconv_tc_f32(a: torch.Tensor, b: Optional[torch.Tensor],
                   wa: torch.Tensor, wb: Optional[torch.Tensor],
                   wone: Optional[torch.Tensor], bias: torch.Tensor,
@@ -688,6 +690,7 @@ def uptcq_packed(wa: torch.Tensor, wb: Optional[torch.Tensor],
                  wa, wb, wone, lambda: pack_weights_q(wa, wb, wone, plan))
 
 
+@build.traced
 def upconv_tc_q(a: torch.Tensor, b: Optional[torch.Tensor],
                 wa: torch.Tensor, wb: Optional[torch.Tensor],
                 wone: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,

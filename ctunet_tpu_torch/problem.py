@@ -85,8 +85,93 @@ def single_output_losses(prediction, target, cfg: Dict[str, Any]):
     return total, terms
 
 
+class ProblemHandler:
+    """Base handler (``problem.py:69-170``, ref ``ProblemHandler.py:21-102``)
+    that the package's handlers, and a third-party one registered through
+    ``registry.register_problem``, subclass. ``Model`` reads the
+    dataset-class attributes and calls the hooks: ``synthesize`` (a
+    training pair from a complete skull, on the device),
+    ``targets_from_pair`` (from a stored (broken, flap) pair),
+    ``compute_losses`` (the single-output loss here), ``host_metrics``
+    (display metrics on the host; none here) and ``write_predictions``
+    (the single-output writer here); ``_post`` applies ``postprocess``."""
+
+    train_dataset_class = None
+    test_dataset_class = None
+    append_atlas = False
+    double_output = False
+    #: optional mask postprocessor (largest connected component), installed
+    #: by the trainer from the ``largest_cc`` config key
+    postprocess = None
+
+    def _post(self, hard: np.ndarray) -> np.ndarray:
+        return self.postprocess(hard) if self.postprocess else hard
+
+    def synthesize(self, gen: torch.Generator, volume: torch.Tensor):
+        """Complete skull ``(D, H, W)`` -> (net input volume, target).
+        Override."""
+        raise NotImplementedError
+
+    def targets_from_pair(self, broken: torch.Tensor, flap: torch.Tensor):
+        """(net input, target) of a stored (broken, flap) pair. Override
+        where supported."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support pre-augmented pairs")
+
+    @staticmethod
+    def compute_losses(prediction, target, cfg: Dict[str, Any]):
+        return single_output_losses(prediction, target, cfg)
+
+    def host_metrics(self, prediction, target, cfg) -> Dict[str, float]:
+        return {}
+
+    def write_predictions(self, predictions, input_filepaths,
+                          output_folder_name, input_imgs=None):
+        """Single-output writer (``ctunet_tpu/problem.py:129-170``, ref
+        ``ProblemHandler.py:116-163``): per sample the argmax mask as
+        ``pred_<name>/<file>_fl.nii.gz`` in the input's physical space, or
+        one ``<file>_c{i}.nii.gz`` per sub-volume when a sample holds
+        several; the input copy ``_i`` of the last sample of the call, as
+        the JAX writer makes it (the serving loop calls once per
+        volume)."""
+        print(" Saving prediction for...")
+        saved = []
+        out_folder = name = last_inp = None
+        for pred, inp_path in zip(np.asarray(predictions), input_filepaths):
+            path, name = os.path.split(inp_path)
+            print("  " + name + "..")
+            out_folder = makedir(os.path.join(path,
+                                              "pred_" + output_folder_name))
+            src = nifti.read(inp_path, header_only=True)
+            last_inp = inp_path
+            hard = _hard_mask(pred)
+            if hard.ndim > 3:  # several images: <file>_c{i}.nii.gz each
+                for i, sub in enumerate(hard.reshape((-1,) + hard.shape[-3:])):
+                    out_path = os.path.join(
+                        out_folder, name.replace(".nii.gz", f"_c{i}.nii.gz"))
+                    nifti.write(out_path,
+                                src.with_data(_mask_u8(self._post(sub))))
+                    saved.append(out_path)
+                continue
+            out_path = os.path.join(out_folder,
+                                    name.replace(".nii.gz", "_fl.nii.gz"))
+            nifti.write(out_path, src.with_data(_mask_u8(self._post(hard))))
+            saved.append(out_path)
+        if out_folder is not None:
+            orig = os.path.join(out_folder,
+                                name.replace(".nii.gz", "_i.nii.gz"))
+            _copy_input(last_inp, orig)
+            saved.append(orig)
+        return saved
+
+
+class ImageTargetProblem(ProblemHandler):
+    """Generic NIfTI image -> target problem (``problem.py:173-175``, ref
+    ``ProblemHandler.py:105-163``)."""
+
+
 @registry.register_problem("FlapRecWithShapePriorDoubleOut")
-class FlapRecWithShapePriorDoubleOut:
+class FlapRecWithShapePriorDoubleOut(ImageTargetProblem):
     """Double-output flap reconstruction with shape prior
     (ref ``ProblemHandler.py:191-354``)."""
 
@@ -94,18 +179,12 @@ class FlapRecWithShapePriorDoubleOut:
     test_dataset_class = ds.NiftiImageWithAtlasDataset
     append_atlas = True
     double_output = True
-    #: optional mask postprocessor (largest connected component), installed
-    #: by the trainer from the ``largest_cc`` config key
-    postprocess = None
 
     def __init__(self, with_sp: bool = True):
         if not with_sp:  # FlapRecDoubleOut configuration
             self.train_dataset_class = ds.FlapRec2OTrainDataset
             self.test_dataset_class = ds.NiftiImageDataset
             self.append_atlas = False
-
-    def _post(self, hard: np.ndarray) -> np.ndarray:
-        return self.postprocess(hard) if self.postprocess else hard
 
     # ------------------------------------------------------------------
     # Synthesis on the device (train/val), one sample; the step loops
@@ -211,57 +290,14 @@ class FlapRecDoubleOut(FlapRecWithShapePriorDoubleOut):
         super().__init__(with_sp=False)
 
 
-def _write_single_output(handler, predictions, input_filepaths,
-                         output_folder_name):
-    """Single-output writer (``ctunet_tpu/problem.py:129-170``, ref
-    ``ProblemHandler.py:116-163``): per sample the argmax mask as
-    ``pred_<name>/<file>_fl.nii.gz`` in the input's physical space, or one
-    ``<file>_c{i}.nii.gz`` per sub-volume when a sample holds several; the
-    input copy ``_i`` of the last sample of the call, as the JAX writer
-    makes it (the serving loop calls once per volume)."""
-    print(" Saving prediction for...")
-    saved = []
-    out_folder = name = last_inp = None
-    for pred, inp_path in zip(np.asarray(predictions), input_filepaths):
-        path, name = os.path.split(inp_path)
-        print("  " + name + "..")
-        out_folder = makedir(os.path.join(path, "pred_" + output_folder_name))
-        src = nifti.read(inp_path, header_only=True)
-        last_inp = inp_path
-        hard = _hard_mask(pred)
-        if hard.ndim > 3:  # several images: <file>_c{i}.nii.gz each
-            for i, sub in enumerate(hard.reshape((-1,) + hard.shape[-3:])):
-                out_path = os.path.join(
-                    out_folder, name.replace(".nii.gz", f"_c{i}.nii.gz"))
-                nifti.write(out_path,
-                            src.with_data(_mask_u8(handler._post(sub))))
-                saved.append(out_path)
-            continue
-        out_path = os.path.join(out_folder,
-                                name.replace(".nii.gz", "_fl.nii.gz"))
-        nifti.write(out_path, src.with_data(_mask_u8(handler._post(hard))))
-        saved.append(out_path)
-    if out_folder is not None:
-        orig = os.path.join(out_folder, name.replace(".nii.gz", "_i.nii.gz"))
-        _copy_input(last_inp, orig)
-        saved.append(orig)
-    return saved
-
-
 @registry.register_problem("FlapRec")
-class FlapRec:
+class FlapRec(ImageTargetProblem):
     """Single-output flap reconstruction, broken skull in, flap out (ref
     ``ProblemHandler.py:166-173``; ``recAE_v2_fixed``'s handler in
     ``examples/autoimplant2020/UNet/AutoImplant2020_woShapePrior.ini``)."""
 
     train_dataset_class = ds.FlapRecTrainDataset
     test_dataset_class = ds.NiftiImageDataset
-    append_atlas = False
-    double_output = False
-    postprocess = None
-
-    def _post(self, hard: np.ndarray) -> np.ndarray:
-        return self.postprocess(hard) if self.postprocess else hard
 
     def synthesize(self, gen: torch.Generator, volume: torch.Tensor):
         """Complete skull ``(D, H, W)`` -> (broken skull with noise,
@@ -272,22 +308,6 @@ class FlapRec:
         broken = synthesis.salt_and_pepper(gen, broken, p=0.5,
                                            noise_density=0.05)
         return broken, codecs.one_hot(flap, 2)
-
-    def targets_from_pair(self, broken: torch.Tensor, flap: torch.Tensor):
-        raise NotImplementedError(
-            f"{type(self).__name__} does not support pre-augmented pairs")
-
-    @staticmethod
-    def compute_losses(prediction, target, cfg: Dict[str, Any]):
-        return single_output_losses(prediction, target, cfg)
-
-    def host_metrics(self, prediction, target, cfg) -> Dict[str, float]:
-        return {}
-
-    def write_predictions(self, predictions, input_filepaths,
-                          output_folder_name, input_imgs=None):
-        return _write_single_output(self, predictions, input_filepaths,
-                                    output_folder_name)
 
 
 @registry.register_problem("FlapRecWithShapePrior")

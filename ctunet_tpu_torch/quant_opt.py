@@ -37,6 +37,7 @@ import torch.nn.functional as F
 
 from .device import resolve_device
 from .engine_q import _EPS, _EPS_BN, _QMAX, _np
+from .models.variants import double_out_head
 from .ops.kernels import upconv as ku
 
 # Model families the simulation covers (``models/packed_resident.py:59``).
@@ -211,6 +212,43 @@ def optimize_rounding(
     :param device: where the simulation runs (default the card; ``"cpu"``).
     :returns: ``{tag: {"q", "k", "db"}}`` for ``round_opt=``.
     """
+    overrides, ts, _ = _sequential(
+        model_class, state_dict, calib_batch, scales, steps, lr, verbose,
+        learn_scales, bf16_head, device, fixed=None)
+    if out_scales is not None:
+        out_scales.update(_assemble_export(ts, _CONFIGS[model_class][
+            "n_blocks"]))
+    return overrides
+
+
+def simulate_int8(model_class: str, state_dict: Dict[str, torch.Tensor],
+                  x, scales: Dict[str, Any],
+                  round_opt: Optional[Dict[str, Dict[str, np.ndarray]]] = None,
+                  bf16_head: float = 0.0, device=None):
+    """The float forward and the simulated int8 forward of a fixed
+    quantization on the volumes ``x`` ``(N, D, H, W, Cin)``: every unit
+    rounded to nearest on ``scales``' grid, or with ``round_opt``'s
+    integers where it has them (:func:`optimize_rounding`'s result), then
+    the final skip concat and the float 1x1 head (:func:`_sim_head`).
+    The JAX package evaluates it as ``optimize_rounding(tags=set(),
+    apply_opt=round_opt, return_outputs=True)``.
+
+    :returns: ``(out_float, out_quant)``, each the model's output tuple,
+        channels-last.
+    """
+    _, _, outs = _sequential(model_class, state_dict, x, scales, 0, 0.0,
+                             False, False, bf16_head, device,
+                             fixed=round_opt or {})
+    return outs
+
+
+def _sequential(model_class, state_dict, calib_batch, scales, steps, lr,
+                verbose, learn_scales, bf16_head, device, fixed):
+    """The unit-by-unit walk of :func:`optimize_rounding` (``fixed`` None:
+    optimize every unit, record its override) and of :func:`simulate_int8`
+    (``fixed`` the overrides to apply: optimize nothing, run the head).
+    Returns ``(overrides, scale store, (out_float, out_quant) or None)``.
+    """
     if not supports(model_class):
         raise ValueError(f"quant_opt: unsupported model {model_class}")
     n = _CONFIGS[model_class]["n_blocks"]
@@ -243,6 +281,12 @@ def optimize_rounding(
                 return torch.relu(_conv(x_hat, t_(w_dq)) + shift_v
                                   + _ch(db, x_f))
 
+        if fixed is not None:
+            # not optimized: the given override, else round to nearest
+            ov = fixed.get(tag)
+            if ov is not None:
+                return y_f, y_of(ov["q"] / ov["k"] / s_in[:, None], ov["db"])
+            return y_f, y_of(_rtn(w_s, k) / k / s_in[:, None], 0.0)
         y_norm = float(torch.mean(torch.square(y_f)))
         if y_norm <= 0.0:  # dead unit on the calibration set: RTN
             q = _rtn(w_s, k)
@@ -341,13 +385,21 @@ def optimize_rounding(
             resp = ku.composite_response(kT_aug, w0_eff)
             r_s, k = _grid(resp, s_in_full)
             y_norm = float(torch.mean(torch.square(x_f)))
-            if y_norm <= 0.0:  # dead composite: RTN override
-                q = _rtn(r_s, k)
+            if fixed is not None or y_norm <= 0.0:
+                ov = None if fixed is None else fixed.get(tag0)
+                if ov is not None:
+                    w_dq = ov["q"] / ov["k"] / s_in_full[:, None]
+                    db_v = ov["db"]
+                else:
+                    q = _rtn(r_s, k)
+                    w_dq, db_v = q / k / s_in_full[:, None], 0.0
                 with torch.no_grad():
-                    y_hat = torch.relu(_composite_apply(
-                        x_aug, t_(q / k / s_in_full[:, None])) + shift0_v)
-                overrides[tag0] = {"q": q.astype(np.float32), "k": k,
-                                   "db": np.zeros(resp.shape[-1], np.float32)}
+                    y_hat = torch.relu(_composite_apply(x_aug, t_(w_dq))
+                                       + shift0_v + _ch(db_v, x_f))
+                if fixed is None:  # dead composite: RTN override
+                    overrides[tag0] = {
+                        "q": q.astype(np.float32), "k": k,
+                        "db": np.zeros(resp.shape[-1], np.float32)}
             else:
                 kv, sv = t_(k), t_(s_in_full)[:, None]
                 s_up_v = _ch(s_up, x_f)
@@ -387,9 +439,92 @@ def optimize_rounding(
             x_f, x_hat = unit_opt(tag, x_f, x_hat, p, 4, tag0)
             x_hat = _fq_in(x_hat, ts[tag][:-1])
 
-    if out_scales is not None:
-        out_scales.update(_assemble_export(ts, n))
-    return overrides
+        if fixed is None:
+            return overrides, ts, None
+        # the head takes the chain and the d0 skip (a float skip of a bf16
+        # head unquantized: skips_hat[0] holds either)
+        head = _CONFIGS[model_class]["head"]
+        out_f = _sim_head(head, sd, torch.cat([x_f, skips_f[0]], 1))
+        out_hat = _sim_head(head, sd, torch.cat([x_hat, skips_hat[0]], 1))
+    return overrides, ts, (out_f, out_hat)
+
+
+def _convt2x2(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+              ) -> torch.Tensor:
+    """ConvTranspose(k2, s2) of NCDHW ``x`` with the torch weight ``(Ci,
+    Co, 2, 2, 2)`` in the einsum form (``quant_opt._convt2x2``)."""
+    y = torch.einsum("nizyx,ioabc->nozaybxc", x, w)
+    nb, co, d, _, h, _, wd, _ = y.shape
+    return y.reshape(nb, co, 2 * d, 2 * h, 2 * wd) + b.view(1, -1, 1, 1, 1)
+
+
+def simulate_scales(model_class: str, state_dict: Dict[str, torch.Tensor],
+                    calib_batch, device=None) -> Dict[str, Any]:
+    """Max calibration without the engine (``quant_opt.simulate_scales``):
+    per-channel activation maxima of a float forward with BatchNorm folded
+    (:func:`unit_wb`), ``s = max / 255`` (the zero-point range) with the
+    ones lane, in the engine's ``export_scales`` format
+    (:func:`_assemble_export`), for ``engine_q.build_predict_q(
+    import_scales=)`` and :func:`optimize_rounding`. The engine calibrates
+    through its bf16 kernels, so the two agree up to that rounding.
+
+    :param calib_batch: ``(N, D, H, W, Cin)`` float calibration volumes.
+    :param device: where the forward runs (default the card; ``"cpu"``).
+    """
+    if not supports(model_class):
+        raise ValueError(f"quant_opt: unsupported model {model_class}")
+    n = _CONFIGS[model_class]["n_blocks"]
+    device = resolve_device(device)
+    sd = {k: v.detach().to(device, torch.float32)
+          for k, v in state_dict.items()}
+    x = torch.as_tensor(calib_batch).to(device, torch.float32)
+    x = x.permute(0, 4, 1, 2, 3).contiguous()  # NCDHW
+
+    def smax(t: torch.Tensor) -> np.ndarray:
+        m = np.maximum(_np(t.abs().amax(dim=(0, 2, 3, 4))), _EPS)
+        return np.concatenate([m / _QMAX, [1.0 / _QMAX]]).astype(np.float32)
+
+    def unit(t: torch.Tensor, prefix: str, conv_idx: int) -> torch.Tensor:
+        w_eff, shift = unit_wb(sd, prefix, conv_idx)
+        w = torch.as_tensor(w_eff, device=device)
+        return torch.relu(_conv(t, w) + _ch(shift, t))
+
+    ts: Dict[str, np.ndarray] = {"entry": smax(x)}
+    skips = []
+    with search_flags(), torch.no_grad():
+        for i in range(n):
+            for j in range(2):
+                x = unit(x, f"d_blocks.{i}.block", 3 * j)
+                ts[f"d{i}.{j}"] = smax(x)
+            skips.append(x)
+            x = _maxpool(x)
+        for idx in range(n):
+            i = n - 1 - idx
+            p = f"u_blocks.{idx}.block"
+            cat = x if idx == 0 else torch.cat([x, skips[i + 1]], 1)
+            x = unit(_convt2x2(cat, sd[f"{p}.0.weight"], sd[f"{p}.0.bias"]),
+                     p, 1)
+            ts[f"u{idx}.0"] = smax(x)
+            x = unit(x, p, 4)
+            ts[f"u{idx}.1"] = smax(x)
+    return _assemble_export(ts, n)
+
+
+def _sim_head(head: Optional[str], sd: Dict[str, torch.Tensor],
+              feat: torch.Tensor):
+    """The float 1x1 head over NCDHW ``feat`` and the variant's output
+    mapping (``quant_opt._sim_head``; the engine's int8 head rounding is
+    not simulated): a tuple of channels-last outputs."""
+    lc_k = sd["last_conv.weight"][:, :, 0, 0, 0].float().t()
+    lc_b = sd["last_conv.bias"].float()
+    feat = feat.permute(0, 2, 3, 4, 1)
+    out3 = torch.sigmoid(feat @ lc_k.to(feat.device) + lc_b.to(feat.device))
+    if head is None:
+        return (out3,)
+    full, flap = double_out_head(out3)
+    if head == "double_softmax":
+        return torch.softmax(full, -1), torch.softmax(flap, -1)
+    return full, flap
 
 
 def _assemble_export(ts: Dict[str, np.ndarray], n: int) -> Dict[str, Any]:

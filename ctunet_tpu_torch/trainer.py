@@ -92,13 +92,14 @@ from . import registry, steps
 from .data import atlas as atlas_mod
 from .data.pipeline import HostLoader, device_prefetch, upload
 from .device import resolve_device
-from .models import build_model, parse_param_dtype
+from .models import MODEL_INPUT_CHANNELS, build_model, parse_param_dtype
 from .models.unet import sync_batch_stats
 from .ops import foreground
 from .parallel import distributed as dist_rt
 from .parallel import make_mesh
-from .utils import (default_params, makedir, print_params_dict,
-                    set_cfg_params, tic, toc_eps)
+from .utils import (default_params, makedir, model_summary,
+                    print_params_dict, set_cfg_params, tic, toc_eps)
+from .utils.misc import FLOP_PROBE
 from .utils.tb_writer import make_writer
 
 
@@ -397,8 +398,13 @@ class Model:
                            for k, v in model.state_dict().items()}
         self.models["main"] = model.eval()
         if self.params.get("show_model_summary"):
-            n = sum(p.numel() for p in model.parameters())
-            print(f"Model summary: {mc}, {n:,d} trainable parameters")
+            # at the pool-multiple-padded input, as the JAX trainer
+            # initialises and summarises its model
+            shape = tuple(s + (-s % self.pool_multiple)
+                          for s in (im_shape or FLOP_PROBE))
+            n_ch = MODEL_INPUT_CHANNELS.get(
+                mc, 2 if self.problem_handler.append_atlas else 1)
+            model_summary(model, (1, *shape, n_ch))
 
     def _load_variables(self, path: str) -> Dict[str, torch.Tensor]:
         """Load a ``.npz`` flax export or a reference ``.pt`` state_dict,
@@ -543,18 +549,18 @@ class Model:
 
     def _profiled(self, profile_dir: str):
         """A ``torch.profiler`` trace (host and, on the card, CUDA
-        activity) written into ``profile_dir`` when the block ends, as
+        activity, each hand-written kernel inside its wrapper's span)
+        written into ``profile_dir`` when the block ends, as
         ``jax.profiler.trace`` does (``ctunet_tpu/trainer.py:591-597``):
         one ``<host>_<pid>.<ns>.pt.trace.json`` for TensorBoard or
-        Perfetto."""
-        from torch.profiler import (ProfilerActivity, profile,
-                                    tensorboard_trace_handler)
+        Perfetto. The window is ``utils/profiling.trace``'s, padded on the
+        card so that it holds every kernel of the pass."""
+        from torch.profiler import tensorboard_trace_handler
 
-        acts = [ProfilerActivity.CPU]
-        if self.device.type == "cuda":
-            acts.append(ProfilerActivity.CUDA)
+        from .utils import profiling
+
         handler = tensorboard_trace_handler(os.path.expanduser(profile_dir))
-        return profile(activities=acts, on_trace_ready=handler)
+        return profiling.trace(self.device, on_trace_ready=handler)
 
     def _train_epochs(self, n_epochs, train_step, eval_step,
                       interrupted) -> None:
@@ -624,7 +630,6 @@ class Model:
         self.step_losses = []
         for idx, batch in enumerate(self._device_batches(loader, depth)):
             # a span per step: a profiler trace shows the step boundaries
-            # even where it sees no kernel launch (ctypes launches)
             with torch.profiler.record_function(
                     f"epoch {n_epoch} train step {idx}"):
                 self.state, terms = train_step(self.state, batch, self._gen)
@@ -1087,6 +1092,12 @@ class Model:
                                key=lambda kv: (kv[0] == "other", -kv[1])):
                 print(f"  {k:<14s} {v:8.2f}s  ({v / n_batches * 1000:7.1f} "
                       "ms/batch)")
+
+
+def load_ini_file(ini_file: str) -> None:
+    """Create a Model from an INI path (``trainer.load_ini_file``, ref
+    ``Model.py:549-551``)."""
+    Model(ini_file)
 
 
 def cli() -> None:

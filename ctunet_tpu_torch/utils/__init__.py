@@ -1,5 +1,5 @@
 from .config import default_params, load_params, print_params_dict, set_cfg_params
-from .misc import makedir, tic, toc_eps
+from .misc import makedir, model_summary, tic, toc_eps, view
 from .nifti import NiftiImage, read, write
 
 __all__ = [
@@ -8,8 +8,10 @@ __all__ = [
     "print_params_dict",
     "set_cfg_params",
     "makedir",
+    "model_summary",
     "tic",
     "toc_eps",
+    "view",
     "NiftiImage",
     "read",
     "write",

@@ -5028,8 +5028,10 @@ def surface_tools(device, work: str, shape=SHAPE, before=None,
     if dropped:
         failures.append(f"profiler: the train step's trace lost {dropped} "
                         "kernel records")
+    # the wrappers' spans, inside the step's own ctunet.train.* spans
     k6 = [r for r in rows if "conv3d_tc_kernel" in r["name"]
-          and r["spans"][:2] == ["conv3d_bias_act", "conv3d_tc"]]
+          and [s for s in r["spans"] if not s.startswith(
+              profiling.SPAN_PREFIX)][:2] == ["conv3d_bias_act", "conv3d_tc"]]
     total = sum(r["ms"] for r in rows)
     log(f"  profile of one chain train step: {len(k6)} K6 launches by name "
         f"inside conv3d_bias_act/conv3d_tc (want {K6_PER_TRAIN_STEP}), "

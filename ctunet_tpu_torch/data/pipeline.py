@@ -21,6 +21,8 @@ from typing import Dict, Iterator, List
 import numpy as np
 import torch
 
+from ..utils import profiling
+
 
 class HostLoader:
     """Iterable over batches ``{'image': (B,D,H,W) f32, ..., 'filepath':
@@ -110,11 +112,32 @@ def upload(array: np.ndarray, device: torch.device,
     afterwards. The pinned buffer stays referenced by the copy until the
     stream has consumed it (PyTorch's caching host allocator records the
     stream), so the caller may drop it at once.
+
+    Spans (``utils/profiling.py``): ``ctunet.upload`` around
+    ``ctunet.upload.stage`` (the contiguous copy and the pinning) and
+    ``ctunet.upload.copy`` (the copy to the device and the cast); counters ``ctunet.upload.bytes`` (the array's bytes)
+    and ``ctunet.upload.pinned_allocs`` (blocks the pinned pool grew by).
     """
-    host = torch.from_numpy(np.ascontiguousarray(array))
-    if device.type == "cuda":
-        host = host.pin_memory()
-    return host.to(device, non_blocking=True).to(dtype)
+    cuda = device.type == "cuda"
+    with profiling.span("ctunet.upload"):
+        with profiling.span("ctunet.upload.stage"):
+            allocs = _pinned_allocs() if cuda and profiling.active() else None
+            host = torch.from_numpy(np.ascontiguousarray(array))
+            if cuda:
+                host = host.pin_memory()
+            if allocs is not None:
+                profiling.count("ctunet.upload.pinned_allocs",
+                                _pinned_allocs() - allocs)
+        with profiling.span("ctunet.upload.copy"):
+            out = host.to(device, non_blocking=True).to(dtype)
+        profiling.count("ctunet.upload.bytes", array.nbytes)
+    return out
+
+
+def _pinned_allocs():
+    """Blocks the caching pinned-memory allocator has made (it makes one
+    each time its pool grows), or None where it reports none."""
+    return torch.cuda.host_memory_stats().get("num_host_alloc")
 
 
 def device_prefetch(iterator, device: torch.device, depth: int = 2,
@@ -123,21 +146,25 @@ def device_prefetch(iterator, device: torch.device, depth: int = 2,
     (``pipeline.py:183-250``): array entries become ``dtype`` tensors on
     ``device``, other entries (file paths) pass through. The packed-bits
     upload of the JAX package served a slow host link and is not carried
-    over."""
+    over. Each batch staged runs inside a ``ctunet.prefetch`` span."""
 
     def put(batch):
         return {k: (upload(v, device, dtype) if isinstance(v, np.ndarray)
                     else v) for k, v in batch.items()}
 
+    def stage(batch):
+        with profiling.span("ctunet.prefetch"):
+            queue.append(put(batch))
+
     queue: collections.deque = collections.deque()
     it = iter(iterator)
     for batch in it:
-        queue.append(put(batch))
+        stage(batch)
         if len(queue) >= max(1, depth):
             break
     while queue:
         nxt = queue.popleft()
         batch = next(it, None)
         if batch is not None:
-            queue.append(put(batch))
+            stage(batch)
         yield nxt

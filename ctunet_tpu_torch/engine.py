@@ -15,7 +15,8 @@ UNetSPSmall, UNet5b2i3o):
   unit 0, from the half-resolution operands) -> K1 (conv unit 1);
 - head: the 1x1 ``last_conv`` weight-split over (last decoder output,
   first skip) as two small matmuls in the compute dtype, sigmoid in f32,
-  then the two 3x2 maps of the double-output head (``engine.py:405-484``);
+  then the two 3x2 maps of the double-output head (``engine.py:405-484``),
+  inside the span ``ctunet.engine.heads`` (``utils/profiling.py``);
   ``double_softmax`` (UNetSPSmall) softmaxes both maps of the f32 sigmoid
   and returns them in f32, as the JAX engine's packed head does
   (``engine.py:463-484``: the head it takes whenever the last decoder
@@ -75,6 +76,11 @@ from .ops.kernels import conv3d as kc
 from .ops.kernels import convt as kt
 from .ops.kernels import upconv as ku
 from .parallel.halo import crop, join
+from .utils import profiling
+
+# the span around the heads (the 1x1 last conv and the double head's maps),
+# timed on the device too (utils/profiling.py)
+HEADS_SPAN = "ctunet.engine.heads"
 
 # Structural config per model (``ctunet_tpu/engine.py:37-48``).
 ENGINE_CONFIGS = {
@@ -222,14 +228,16 @@ def build_predict(
     m_full = torch.tensor(M_FULL, device=device)
     m_flap = torch.tensor(M_FLAP, device=device)
     b_flap = torch.tensor(B_FLAP, device=device)
+    cuda = device.type == "cuda"
 
     def head(a, b):
         # in f32 these are full-f32 GEMMs on the card as long as the
         # caller leaves torch.backends.cuda.matmul.allow_tf32 at its
         # default (False); the engine sets no global flag
-        lc = a @ lka + b @ lkb + lb
-        return double_head(torch.sigmoid(lc.float()), cfg["head"],
-                           compute_dtype, m_full, m_flap, b_flap)
+        with profiling.span(HEADS_SPAN, device=cuda):
+            lc = a @ lka + b @ lkb + lb
+            return double_head(torch.sigmoid(lc.float()), cfg["head"],
+                               compute_dtype, m_full, m_flap, b_flap)
 
     def forward_one(x: torch.Tensor):
         """One ``(D, H, W, C)`` volume through the kernels."""
@@ -440,8 +448,10 @@ def build_legacy_predict(state_dict: Dict[str, torch.Tensor],
             a = (up1 if b is None else up2)(a, b, wa, wb, bu)
             a = conv(conv(a, w0, b0), w1, b1)
             b = skips[3 - i]
-        lc = a @ lka + b @ lkb + lb  # full f32 in f32, as the generic head
-        return torch.softmax(lc.float(), -1).to(compute_dtype)
+        with profiling.span(HEADS_SPAN, device=device.type == "cuda"):
+            # full f32 in f32, as the generic head
+            lc = a @ lka + b @ lkb + lb
+            return torch.softmax(lc.float(), -1).to(compute_dtype)
 
     @torch.inference_mode()
     def predict(images: torch.Tensor) -> torch.Tensor:

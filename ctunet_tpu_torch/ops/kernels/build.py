@@ -15,9 +15,10 @@ runs and ``torch.cuda.synchronize()`` would not report it.
 
 Every kernel wrapper is decorated with :func:`traced`: while a profiler
 runs, each call is a ``torch.profiler.record_function`` span named after
-the wrapper (its key in ``kernels.WRAPPERS``), so a trace attributes each
-kernel launch to the wrapper that made it (``conv3d_bn_relu`` around
-``conv3d_tc`` around ``conv3d_tc_kernel<...>``).
+the wrapper (its key in ``kernels.WRAPPERS``; ``utils/profiling.span``,
+which also keeps it in memory while the recorder is on), so a trace
+attributes each kernel launch to the wrapper that made it
+(``conv3d_bn_relu`` around ``conv3d_tc`` around ``conv3d_tc_kernel<...>``).
 """
 
 from __future__ import annotations
@@ -30,6 +31,8 @@ import shutil
 import subprocess
 import time
 from typing import Dict, Iterable, Optional, Sequence
+
+from ...utils import profiling
 
 PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
@@ -156,18 +159,17 @@ def stream_args(t) -> tuple:
 
 
 def traced(fn):
-    """``fn`` inside a ``torch.profiler.record_function`` span named
-    ``fn.__name__`` on every call made while a profiler runs (the CPU's
-    plain versions included); with none running the call costs one check
-    of the profiler's state. The wrapper keeps ``fn``'s attributes, so its
-    ``launches`` counter is the decorated function's."""
-    import torch
+    """``fn`` inside the package's span (``utils/profiling.span``) named
+    ``fn.__name__`` on every call: a ``torch.profiler.record_function``
+    while a profiler runs (the CPU's plain versions included), kept by the
+    recorder while it records; off, the call costs one check of the
+    profiler's state and a flag. The wrapper keeps ``fn``'s attributes, so
+    its ``launches`` counter is the decorated function's."""
+    name = fn.__name__
 
     @functools.wraps(fn)
     def wrapper(*args, **kwargs):
-        if not torch._C._autograd._profiler_enabled():
-            return fn(*args, **kwargs)
-        with torch.profiler.record_function(fn.__name__):
+        with profiling.span(name):
             return fn(*args, **kwargs)
 
     return wrapper

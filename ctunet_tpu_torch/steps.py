@@ -31,6 +31,8 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
+from .utils.profiling import span
+
 
 class DataShard(NamedTuple):
     """This rank's place among the ``size`` data ranks of ``group``: it
@@ -297,6 +299,12 @@ def make_train_step(model, handler, loss_cfg: Dict[str, Any], atlas=None,
     With ``shard`` the step is one data rank's part of the global batch's
     step (module docstring): gradients averaged over the data ranks at one
     point, before the optimizer, for every ``conv_impl``.
+
+    Spans (``utils/profiling.py``): ``ctunet.train.step`` around its
+    phases ``ctunet.train.synthesis`` (the crop, the synthesis, the network
+    input; timed on the device too on the card), ``.forward``, ``.loss``,
+    ``.backward`` (with the data ranks' gradient average) and
+    ``.optimizer``.
     """
     if not (loss_cfg.get("ce_lambda") or loss_cfg.get("dice_lambda")):
         raise ValueError(
@@ -307,24 +315,33 @@ def make_train_step(model, handler, loss_cfg: Dict[str, Any], atlas=None,
     atlas_c, crop = _prepare(model, atlas, train_patch, fg_crop_size,
                              fg_margin, shard)
 
+    cuda = next(model.parameters()).device.type == "cuda"
+
     def step(state: TrainState, batch, gen):
-        batch, atlas_x, fg_lost = _cut(crop, gen, batch, atlas_c)
-        with torch.no_grad():
-            images, targets = synth(gen, batch)
-            x = _net_input(images, atlas_x, compute_dtype)
-        model.train()
-        state.optimizer.zero_grad(set_to_none=True)
-        out = model(x)
-        loss, terms = handler.compute_losses(out, targets, loss_cfg)
-        loss.backward()
-        terms = {k: v.detach() for k, v in terms.items()}
-        if fg_lost is not None:
-            terms["fg_lost_voxels"] = fg_lost.max()
-        if shard is not None:
-            average_gradients(model.parameters(), shard)
-            terms = global_terms(terms, shard)
-        state.optimizer.step(value=terms["epoch_loss"])
-        state.step += 1
+        with span("ctunet.train.step"):
+            with span("ctunet.train.synthesis", device=cuda):
+                batch, atlas_x, fg_lost = _cut(crop, gen, batch, atlas_c)
+                with torch.no_grad():
+                    images, targets = synth(gen, batch)
+                    x = _net_input(images, atlas_x, compute_dtype)
+            with span("ctunet.train.forward"):
+                model.train()
+                state.optimizer.zero_grad(set_to_none=True)
+                out = model(x)
+            with span("ctunet.train.loss"):
+                loss, terms = handler.compute_losses(out, targets, loss_cfg)
+            with span("ctunet.train.backward"):
+                loss.backward()
+                if shard is not None:
+                    average_gradients(model.parameters(), shard)
+            with span("ctunet.train.optimizer"):
+                terms = {k: v.detach() for k, v in terms.items()}
+                if fg_lost is not None:
+                    terms["fg_lost_voxels"] = fg_lost.max()
+                if shard is not None:
+                    terms = global_terms(terms, shard)
+                state.optimizer.step(value=terms["epoch_loss"])
+                state.step += 1
         return state, terms
 
     return step

@@ -74,6 +74,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures as cf
+import contextlib
 import itertools
 import os
 import signal
@@ -99,8 +100,15 @@ from .parallel import distributed as dist_rt
 from .parallel import make_mesh
 from .utils import (default_params, makedir, model_summary,
                     print_params_dict, set_cfg_params, tic, toc_eps)
+from .utils import profiling
 from .utils.misc import FLOP_PROBE
 from .utils.tb_writer import make_writer
+
+# the serving loop's span; its stages are the spans directly inside it
+# (``ctunet.serve.<stage>``, and ``ctunet.upload``), read by serve_profile
+SERVE_SPAN = "ctunet.serve"
+SERVE_STAGES = ("decode_wait", "pad", "upload", "dispatch", "wait", "fetch",
+                "write_drain")
 
 
 def _np_corners(offs, sizes):
@@ -557,8 +565,6 @@ class Model:
         card so that it holds every kernel of the pass."""
         from torch.profiler import tensorboard_trace_handler
 
-        from .utils import profiling
-
         handler = tensorboard_trace_handler(os.path.expanduser(profile_dir))
         return profiling.trace(self.device, on_trace_ready=handler)
 
@@ -913,8 +919,10 @@ class Model:
         (``prefetch_depth``). With ``serve_scan`` K > 1, groups of K
         volumes of one canvas share a running-max window and all but a
         new window's first volume go through one ``predict`` call.
-        ``serve_profile`` prints (and keeps in ``serve_profile_s``) the
-        seconds the loop blocks on each stage."""
+        The loop runs inside the span ``ctunet.serve``, each stage inside
+        one of its own (:data:`SERVE_STAGES`); ``serve_profile`` records
+        them (``utils/profiling.recording``) and prints what they took
+        (:meth:`_print_serve_profile`)."""
         print("Phase: test.")
         p = self.params
         if p.get("largest_cc"):
@@ -938,18 +946,11 @@ class Model:
         depth = max(1, int(p.get("prefetch_depth") or 2))
         pending: collections.deque = collections.deque()
         write_futs = []
-        prof: Dict[str, float] = collections.defaultdict(float)
         prof_on = bool(p.get("serve_profile"))
         scan_static: Dict = {}  # canvas -> running window size
         warmed: set = set()
-
-        def _t(key, fn, *a, **k):
-            if not prof_on:
-                return fn(*a, **k)
-            t0 = time.perf_counter()
-            r = fn(*a, **k)
-            prof[key] += time.perf_counter() - t0
-            return r
+        cuda = self.device.type == "cuda"
+        span = profiling.span
 
         def hardify(out):
             # argmax on the device: only uint8 masks cross the link
@@ -966,8 +967,11 @@ class Model:
         def flush_one(pool):
             masks, batch, crop_info = pending.popleft()
             images = batch["image"]
-            host = _t("fetch+unpack", lambda: tuple(
-                unpad(m, images, crop_info) for m in masks))
+            if cuda:  # the work queued on the stream, apart from the copy
+                with span("ctunet.serve.wait"):
+                    torch.cuda.current_stream(self.device).synchronize()
+            with span("ctunet.serve.fetch"):
+                host = tuple(unpad(m, images, crop_info) for m in masks)
             write_futs.append(pool.submit(
                 self.write_predictions, host if len(host) > 1 else host[0],
                 batch["filepath"], p["name"], images))
@@ -986,9 +990,9 @@ class Model:
             if not patch_on:
                 self._calib_hint = lambda: int8_calib_hint(
                     vol, mult, atlas_p, offs, fg_margin)
-            up = _t("upload", upload, cropped, self.device, torch.float32)
-            out = _t("dispatch", lambda: hardify(
-                predict(up, None if offs is None else [offs])))
+            up = upload(cropped, self.device, torch.float32)
+            with span("ctunet.serve.dispatch"):
+                out = hardify(predict(up, None if offs is None else [offs]))
             enqueue(out, batch, crop_info, pool)
 
         def dispatch_single(batch, padded, plan, pool):
@@ -1044,8 +1048,9 @@ class Model:
                 if not items:
                     return
             stacked = np.stack(vols)  # contiguous, one pinned upload
-            up = _t("upload", upload, stacked, self.device, torch.float32)
-            outs = _t("dispatch", lambda: hardify(predict(up, offs_k)))
+            up = upload(stacked, self.device, torch.float32)
+            with span("ctunet.serve.dispatch"):
+                outs = hardify(predict(up, offs_k))
             self.scan_batches.append(len(items))
             for k, (batch, _, _) in enumerate(items):
                 enqueue(tuple(o[k:k + 1] for o in outs), batch,
@@ -1053,17 +1058,25 @@ class Model:
 
         n_batches = 0
         group: list = []
+        before = profiling.snapshot() if prof_on else None
         t0 = time.perf_counter()
-        with torch.inference_mode(), cf.ThreadPoolExecutor(2) as pool:
+        with contextlib.ExitStack() as stack:
+            if prof_on:
+                stack.enter_context(profiling.recording())
+            stack.enter_context(span(SERVE_SPAN))
+            stack.enter_context(torch.inference_mode())
+            pool = stack.enter_context(cf.ThreadPoolExecutor(2))
             it = iter(self.data["test_loader"])
             while True:
-                batch = _t("decode-wait", next, it, None)
+                with span("ctunet.serve.decode_wait"):
+                    batch = next(it, None)
                 if batch is None:
                     break
                 n_batches += 1
                 images = batch["image"]
                 pads = [(0, -s % mult) for s in images.shape[1:]]
-                padded = _t("pad", np.pad, images, [(0, 0)] + pads)
+                with span("ctunet.serve.pad"):
+                    padded = np.pad(images, [(0, 0)] + pads)
                 plan = None
                 if fg_on and padded.shape[0] == 1:
                     plan = foreground.plan_crop(padded[0], margin=fg_margin,
@@ -1077,21 +1090,43 @@ class Model:
             dispatch_group(group, pool)
             while pending:
                 flush_one(pool)
-            t_drain = time.perf_counter()
-            for f in write_futs:
-                self.out_paths = f.result()
-            prof["write-drain"] += time.perf_counter() - t_drain
+            with span("ctunet.serve.write_drain"):
+                for f in write_futs:
+                    self.out_paths = f.result()
         self.serve_seconds = time.perf_counter() - t0
         self._calib_hint = None  # let the last volume go
         if prof_on and n_batches:
-            prof["other"] = self.serve_seconds - sum(prof.values())
-            self.serve_profile_s = dict(prof)
-            print("serving profile (loop-blocking seconds, "
-                  f"{n_batches} batches, {self.serve_seconds:.2f}s total):")
-            for k, v in sorted(prof.items(),
-                               key=lambda kv: (kv[0] == "other", -kv[1])):
-                print(f"  {k:<14s} {v:8.2f}s  ({v / n_batches * 1000:7.1f} "
-                      "ms/batch)")
+            self._print_serve_profile(before, profiling.snapshot(),
+                                      n_batches)
+
+    def _print_serve_profile(self, before, after, n_batches: int) -> None:
+        """Keep in ``serve_profile_s`` and print the seconds the serving
+        loop spent in each of :data:`SERVE_STAGES`: the host time of the
+        spans directly inside ``ctunet.serve`` that the loop added to the
+        recorder between the snapshots ``before`` and ``after``; ``wait``
+        the wait for the work queued on the device's stream before the
+        masks' copy (with ``prefetch_depth`` 2 the next volume's engine
+        too; 0 on the CPU), ``fetch`` the copy and the unpadding, ``other``
+        the rest of ``serve_seconds``. Then the upload's counters."""
+        was = profiling.children_ms(before, SERVE_SPAN)
+        prof = dict.fromkeys(SERVE_STAGES, 0.0)
+        for name, ms in profiling.children_ms(after, SERVE_SPAN).items():
+            stage = name.rsplit(".", 1)[-1]
+            prof[stage] = prof.get(stage, 0.0) + (ms - was.get(name, 0.0)
+                                                  ) / 1e3
+        prof["other"] = self.serve_seconds - sum(prof.values())
+        self.serve_profile_s = prof
+        print("serving profile (loop-blocking seconds, "
+              f"{n_batches} batches, {self.serve_seconds:.2f}s total):")
+        for k, v in sorted(prof.items(),
+                           key=lambda kv: (kv[0] == "other", -kv[1])):
+            print(f"  {k:<14s} {v:8.2f}s  ({v / n_batches * 1000:7.1f} "
+                  "ms/batch)")
+        counters = {k: v - before["counters"].get(k, 0)
+                    for k, v in after["counters"].items()
+                    if k.startswith("ctunet.upload.")}
+        print("  " + ", ".join(f"{k} {v}" for k, v in sorted(
+            counters.items())))
 
 
 def load_ini_file(ini_file: str) -> None:

@@ -1,12 +1,40 @@
-"""Attribute a ``torch.profiler`` trace's kernel time to the port's layers.
+"""The port's spans and counters, and the attribution of a
+``torch.profiler`` trace's kernel time to the port's layers.
 
-While a profiler runs, every kernel wrapper of ``ops/kernels`` runs
-inside a ``record_function`` span named after it (``ops/kernels/build.py``
-``traced``), and so does the weight gradient of the training conv
-(``dw_taps``). :func:`attribute` reads a finished profile: each device
+**Spans and counters.** :func:`span` is the one span of the package. Its
+names start with :data:`SPAN_PREFIX` (``ctunet.upload``,
+``ctunet.engine.heads``, ``ctunet.train.step`` and its phases,
+``ctunet.serve.*``), except the kernel wrappers' (``ops/kernels/build.py``
+``traced``: each named after its wrapper) and the training conv's weight
+gradient (``dw_taps``). :func:`count` adds to a named counter.
+
+- Off (no profiler runs and no :func:`recording` block is open), a span
+  costs one check of the profiler's state and a flag, allocates nothing
+  and records nothing; so does a count.
+- On (any ``torch.profiler`` session, such as :func:`trace`'s window, or
+  inside :func:`recording`), a span opens a ``record_function`` of its
+  name while a profiler runs, so that it sits in the profile beside the
+  device's kernels on the profiler's clock, and adds its host duration
+  (``time.perf_counter_ns``) to the totals of its path: the names from the
+  outermost span open on the same thread to the span. With ``device=True``
+  it also records a pair of timing events on the current stream, taken
+  from a pool of reused pairs; it never waits for the device.
+  :func:`snapshot` resolves the pairs whose work is done, so a caller
+  synchronizes before it.
+- Memory is bounded: totals by path and counters, no raw spans. A device
+  span that finds none of :data:`EVENT_PAIRS` pairs free is timed on the
+  host only and counted as ``untimed``; a device total is then short.
+
+:func:`snapshot` gives by span name: count, host ms, self ms (the
+duration less that of the child spans on its thread) and device ms (None
+where the span records no events); the same by path; the counters; the
+untimed count. :func:`reset` clears all of it.
+
+**Attribution.** :func:`attribute` reads a finished profile: each device
 kernel (or, in a CPU-only profile, each leaf ``aten::`` op) is matched to
 the CPU call that launched it, then to the spans around that call, and
-gets a category:
+gets a category (the ``ctunet.*`` spans around it are listed in its row
+but choose no category):
 
 ==========================  ==============================================
 ``kernel:<wrapper>``        a hand-written kernel (:data:`HAND_KERNELS`) by
@@ -26,8 +54,10 @@ and :func:`dropped_in_trace` counts them in a written Chrome trace: a
 breakdown with a lost record is missing that kernel's time, so every user
 prints the count and ``chip_smoke.py`` fails on one.
 :func:`rollup` sums the rows by category and :func:`top` lists the largest
-by name. The JAX package's attribution tools read the XLA trace's HLO
-metadata instead (``tools/attr_int8.py``, ``tools/attr_train.py``).
+by name. :func:`idle_gaps` labels each stretch in which the device ran
+nothing by the innermost ``ctunet.*`` span the host was in. The JAX
+package's attribution tools read the XLA trace's HLO metadata instead
+(``tools/attr_int8.py``, ``tools/attr_train.py``).
 
 :func:`trace` is the profiling window every user of this module opens
 (``Model``'s ``profile_dir``, the attribution tools, ``chip_smoke.py``):
@@ -52,10 +82,246 @@ from __future__ import annotations
 import bisect
 import collections
 import contextlib
-from typing import Dict, Iterable, List, Tuple
+import threading
+import time
+from typing import Dict, Iterable, List, Optional, Tuple
 
+# the first letters of every span name of the package but the kernel
+# wrappers' and WGRAD_SPAN
+SPAN_PREFIX = "ctunet."
 # the spans that are not kernel wrappers
 WGRAD_SPAN = "dw_taps"
+# timing-event pairs in use or free at most
+EVENT_PAIRS = 256
+
+
+def _enabled() -> bool:
+    """Whether a ``torch.profiler`` session runs. The first call binds the
+    module's ``_enabled`` to torch's own check, so that later calls cost
+    that check alone and importing this module imports no torch."""
+    global _enabled
+    import torch
+
+    _enabled = torch._C._autograd._profiler_enabled
+    return _enabled()
+
+
+class _Total:
+    """What the recorder keeps of every span of one path."""
+
+    __slots__ = ("count", "host_ns", "self_ns", "device_ms")
+
+    def __init__(self) -> None:
+        self.count = self.host_ns = self.self_ns = 0
+        self.device_ms: Optional[float] = None
+
+
+class Recorder:
+    """Spans and counters kept in memory (module docstring); the one
+    instance, :data:`RECORDER`, is behind :func:`span`, :func:`count`,
+    :func:`recording`, :func:`snapshot` and :func:`reset`."""
+
+    def __init__(self) -> None:
+        self.recording = 0  # open recording() blocks
+        self._lock = threading.Lock()
+        self._local = threading.local()
+        self.reset()
+
+    def reset(self) -> None:
+        with self._lock:
+            self._totals: Dict[tuple, _Total] = {}
+            self._counters: Dict[str, int] = collections.Counter()
+            # timing-event pairs: those made (and not let go), those ready
+            # for reuse, those whose work is not known to be done
+            self._pairs = 0
+            self._free: List[tuple] = []
+            self._unresolved: collections.deque = collections.deque()
+            self._untimed = 0
+
+    def stack(self) -> list:
+        """The spans open on this thread, outermost first."""
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
+
+    def _resolve(self) -> None:
+        """Add the device time of every pair whose work is done, oldest
+        first, to its path; the pair is free again. Never waits (the
+        lock is held)."""
+        while self._unresolved:
+            path, start, end = self._unresolved[0]
+            if not (end.query() and start.query()):
+                return
+            self._unresolved.popleft()
+            total = self._totals[path]
+            total.device_ms = (total.device_ms or 0.0) + start.elapsed_time(
+                end)
+            self._free.append((start, end))
+
+    def pair(self):
+        """A free timing-event pair, a new one while fewer than
+        :data:`EVENT_PAIRS` exist, else None (the span is untimed)."""
+        with self._lock:
+            if not self._free:
+                self._resolve()
+            if self._free:
+                return self._free.pop()
+            if self._pairs >= EVENT_PAIRS:
+                self._untimed += 1
+                return None
+            self._pairs += 1
+        import torch
+
+        return (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+
+    def close(self, sp: "_Span", end_ns: int) -> None:
+        duration = end_ns - sp.start_ns
+        with self._lock:
+            total = self._totals.get(sp.path)
+            if total is None:
+                total = self._totals[sp.path] = _Total()
+            total.count += 1
+            total.host_ns += duration
+            total.self_ns += duration - sp.child_ns
+            if sp.events is not None:
+                self._unresolved.append((sp.path,) + sp.events)
+
+    def add(self, name: str, n: int) -> None:
+        with self._lock:
+            self._counters[name] += n
+
+    def snapshot(self) -> Dict:
+        with self._lock:
+            self._resolve()
+            paths = {"/".join(p): _view(t) for p, t in self._totals.items()}
+            spans: Dict[str, Dict] = {}
+            for p, t in self._totals.items():
+                spans[p[-1]] = _merge(spans.get(p[-1]), _view(t))
+            return dict(spans=spans, paths=paths,
+                        counters=dict(self._counters), untimed=self._untimed)
+
+
+def _view(t: _Total) -> Dict:
+    return dict(count=t.count, host_ms=t.host_ns / 1e6,
+                self_ms=t.self_ns / 1e6, device_ms=t.device_ms)
+
+
+def _merge(a: Optional[Dict], b: Dict) -> Dict:
+    if a is None:
+        return b
+    dev = [v for v in (a["device_ms"], b["device_ms"]) if v is not None]
+    return dict(count=a["count"] + b["count"],
+                host_ms=a["host_ms"] + b["host_ms"],
+                self_ms=a["self_ms"] + b["self_ms"],
+                device_ms=sum(dev) if dev else None)
+
+
+class _Span:
+    """One span while the recorder is on (:func:`span`)."""
+
+    __slots__ = ("rec", "name", "device", "parent", "path", "events",
+                 "profiled", "child_ns", "start_ns")
+
+    def __init__(self, rec: Recorder, name: str, device: bool):
+        self.rec, self.name, self.device = rec, name, device
+
+    def __enter__(self) -> "_Span":
+        stack = self.rec.stack()
+        self.parent = stack[-1] if stack else None
+        self.path = (self.name,) if self.parent is None else \
+            self.parent.path + (self.name,)
+        self.profiled = None
+        if _enabled():
+            import torch
+
+            self.profiled = torch.profiler.record_function(self.name)
+            self.profiled.__enter__()
+        self.events = self.rec.pair() if self.device else None
+        if self.events is not None:
+            self.events[0].record()
+        self.child_ns = 0
+        stack.append(self)
+        self.start_ns = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        end_ns = time.perf_counter_ns()
+        if self.events is not None:
+            self.events[1].record()
+        self.rec.stack().pop()  # ``with`` blocks nest: this span is on top
+        if self.parent is not None:
+            self.parent.child_ns += end_ns - self.start_ns
+        if self.profiled is not None:
+            self.profiled.__exit__(*exc)
+        self.rec.close(self, end_ns)
+        return False
+
+
+RECORDER = Recorder()
+# what span() returns while off: one reusable do-nothing context
+_OFF = contextlib.nullcontext()
+
+
+def active() -> bool:
+    """Whether spans and counts record now."""
+    return bool(RECORDER.recording or _enabled())
+
+
+def span(name: str, device: bool = False):
+    """A context manager around one stretch of the package's work named
+    ``name`` (module docstring); ``device`` True to time it on the card's
+    current stream too."""
+    if not (RECORDER.recording or _enabled()):
+        return _OFF
+    return _Span(RECORDER, name, device)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` while spans record."""
+    if RECORDER.recording or _enabled():
+        RECORDER.add(name, n)
+
+
+@contextlib.contextmanager
+def recording():
+    """Spans and counts record inside the block, with or without a
+    profiler."""
+    with RECORDER._lock:
+        RECORDER.recording += 1
+    try:
+        yield RECORDER
+    finally:
+        with RECORDER._lock:
+            RECORDER.recording -= 1
+
+
+def snapshot() -> Dict:
+    """What the recorder holds (module docstring): ``{"spans": {name:
+    {"count", "host_ms", "self_ms", "device_ms"}}, "paths":
+    {"outer/.../name": the same}, "counters": {name: n}, "untimed": device
+    spans that found no free event pair}``. Device time counts only the
+    work done by now: synchronize first."""
+    return RECORDER.snapshot()
+
+
+def reset() -> None:
+    """Forget every span and counter."""
+    RECORDER.reset()
+
+
+def children_ms(snap: Dict, parent: str) -> Dict[str, float]:
+    """Host ms by name of the spans directly inside spans named
+    ``parent``, from a :func:`snapshot`."""
+    out: Dict[str, float] = collections.defaultdict(float)
+    for path, t in snap["paths"].items():
+        names = path.split("/")
+        if len(names) > 1 and names[-2] == parent:
+            out[names[-1]] += t["host_ms"]
+    return dict(out)
+
+
 # the warm-up step of a profiling window on the card: this many tiny
 # kernels, each an activity record the window may drop in its place
 WARMUP_KERNELS = 8192
@@ -148,11 +414,24 @@ def category(name: str, spans: List[str], wrappers=None,
     return "rest"
 
 
+def _device_events(events, named) -> List:
+    """The kernels, copies and fills of a profile's ``events``: not the
+    spans themselves (user annotations on the device timeline: the
+    wrappers', ``ctunet.*``, ``ProfilerStep#``)."""
+    from torch.autograd import DeviceType
+
+    return [e for e in events if e.device_type != DeviceType.CPU
+            and not getattr(e, "is_user_annotation", False)
+            and e.name not in named and not e.name.startswith(SPAN_PREFIX)
+            and not e.name.startswith("ProfilerStep")]
+
+
 def attribute(events) -> Tuple[List[Dict], int]:
     """One row per device kernel of ``events`` (``prof.events()``):
     ``{"name", "ms", "spans", "category"}``, ``spans`` the port's spans
-    around its launch, outermost first. With no device event (a CPU-only
-    profile) the rows are the leaf ``aten::`` ops by self CPU time.
+    (the wrappers', ``dw_taps`` and ``ctunet.*``) around its launch,
+    outermost first. With no device event (a CPU-only profile) the rows
+    are the leaf ``aten::`` ops by self CPU time.
     Returns ``(rows, dropped)``, ``dropped`` the launches
     (:data:`LAUNCH_CALLS`) whose kernel the trace lost: 0 when the rows
     hold every kernel launched in the window."""
@@ -161,20 +440,20 @@ def attribute(events) -> Tuple[List[Dict], int]:
     wrappers = _wrapper_names()
     named = wrappers | {WGRAD_SPAN}
     cpu = [e for e in events if e.device_type == DeviceType.CPU]
-    # the device timeline also carries the spans themselves (user
-    # annotations: the wrappers', ``ProfilerStep#``), which are no kernels
-    dev = [e for e in events if e.device_type != DeviceType.CPU
-           and not getattr(e, "is_user_annotation", False)
-           and e.name not in named and not e.name.startswith("ProfilerStep")]
-    spans = sorted((e for e in cpu if e.name in named),
+    dev = _device_events(events, named)
+    spans = sorted((e for e in cpu if e.name in named
+                    or e.name.startswith(SPAN_PREFIX)),
                    key=lambda e: e.time_range.start)
     starts = [e.time_range.start for e in spans]
 
     def around(t: float, thread) -> List[str]:
+        # a ctunet.* span holds what other threads launch meanwhile (the
+        # backward pass launches from autograd's thread)
         out = []
         for s in spans[:bisect.bisect_right(starts, t)]:
-            if s.time_range.end >= t and (thread is None
-                                          or s.thread == thread):
+            if s.time_range.end >= t and (
+                    thread is None or s.thread == thread
+                    or s.name.startswith(SPAN_PREFIX)):
                 out.append(s.name)
         return out
 
@@ -208,6 +487,37 @@ def attribute(events) -> Tuple[List[Dict], int]:
                          spans=chain, category=category(e.name, chain,
                                                         wrappers, False)))
     return rows, dropped
+
+
+def idle_gaps(events) -> List[Dict]:
+    """Every stretch of a profile's ``events`` between its first and last
+    device event in which the device ran nothing (no kernel, copy or
+    fill), in time order: ``{"label", "start", "ms"}``, ``start`` on the
+    profiler's clock (microseconds) and ``label`` the innermost
+    ``ctunet.*`` span open on the host at the stretch's middle, on any
+    thread (``host`` where none is)."""
+    from torch.autograd import DeviceType
+
+    named = _wrapper_names() | {WGRAD_SPAN}
+    busy: List[List[float]] = []
+    for s, e in sorted((k.time_range.start, k.time_range.end)
+                       for k in _device_events(events, named)):
+        if busy and s <= busy[-1][1]:
+            busy[-1][1] = max(busy[-1][1], e)
+        else:
+            busy.append([s, e])
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in events if e.device_type == DeviceType.CPU
+                   and e.name.startswith(SPAN_PREFIX))
+    starts = [s for s, _, _ in spans]
+    out = []
+    for (_, lo), (hi, _) in zip(busy, busy[1:]):
+        mid = (lo + hi) / 2
+        # the latest-starting span still open at ``mid`` is the innermost
+        label = next((name for s, e, name in reversed(
+            spans[:bisect.bisect_right(starts, mid)]) if e >= mid), "host")
+        out.append(dict(label=label, start=lo, ms=(hi - lo) / 1e3))
+    return out
 
 
 def dropped_in_trace(trace_events) -> int:

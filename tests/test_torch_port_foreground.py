@@ -307,8 +307,9 @@ def test_serve_profile_stages(shells):
                              fg_crop=True, fg_margin=2, serve_scan=4,
                              serve_profile=True, name="prof"))
     prof = m.serve_profile_s
-    assert set(prof) == {"decode-wait", "pad", "upload", "dispatch",
-                         "fetch+unpack", "write-drain", "other"}
+    assert set(prof) == {"decode_wait", "pad", "upload", "dispatch", "wait",
+                         "fetch", "write_drain", "other"}
+    assert prof["wait"] == 0.0  # no device to wait for on the CPU
     assert all(v >= 0 for k, v in prof.items() if k != "other")
     assert sum(prof.values()) == pytest.approx(m.serve_seconds)
     assert m.scan_batches == [3]

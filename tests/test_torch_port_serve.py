@@ -172,7 +172,8 @@ def test_fg_and_scan_settings_are_served(tmp_path, key, value):
         assert m.fg_train_size == (16, 16, 32)
         assert m.writer.history["val/epoch/fg_lost_voxels"][-1][1] >= 0
     elif key == "serve_profile":
-        assert set(m.serve_profile_s) >= {"decode-wait", "dispatch", "other"}
+        assert set(m.serve_profile_s) >= {"decode_wait", "dispatch", "wait",
+                                          "fetch", "other"}
     elif key == "serve_scan":
         assert m.scan_batches == [1]  # the warm-up dispatch, then 1
     else:  # served on the crop: outside it, the fill class

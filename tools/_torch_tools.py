@@ -119,8 +119,9 @@ def profile_passes(fn, n: int, device, profile_dir: str = ""):
     """``fn()`` once to warm up, then ``n`` times inside
     ``utils/profiling.trace``'s window (CPU and, on the card, CUDA
     activity; a Chrome trace into ``profile_dir`` when given). Returns the
-    attributed rows and the launches the trace lost
-    (``utils/profiling.attribute``)."""
+    attributed rows, the launches the trace lost
+    (``utils/profiling.attribute``) and the device's idle stretches
+    (``utils/profiling.idle_gaps``)."""
     import torch
 
     from ctunet_tpu_torch.utils import profiling
@@ -138,14 +139,17 @@ def profile_passes(fn, n: int, device, profile_dir: str = ""):
         os.makedirs(profile_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(
             profile_dir, f"{os.getpid()}.pt.trace.json"))
-    return profiling.attribute(prof.events())
+    events = prof.events()
+    return profiling.attribute(events) + (profiling.idle_gaps(events),)
 
 
-def report(rows, dropped: int, n: int, what: str, device,
+def report(rows, dropped: int, n: int, what: str, device, gaps=(),
            log=print) -> dict:
     """Print (a) the top kernels by self device time with their wrappers'
-    spans and (b) the rollup by category, each per pass; return both for
-    the JSON line, with the hand-written launches per pass by wrapper and
+    and ``ctunet.*`` spans, (b) the rollup by category, each per pass, and
+    (c) the ten longest of ``gaps`` (:func:`profile_passes`' idle
+    stretches) by the span the host was in; return them for the JSON
+    line, with the hand-written launches per pass by wrapper and
     ``dropped``, the launches whose kernel the trace lost (the breakdown
     is whole only at 0).
     On the CPU the rows are the plain versions' ``aten::`` ops by self CPU
@@ -165,8 +169,13 @@ def report(rows, dropped: int, n: int, what: str, device,
     log("(b) rollup, ms a pass:")
     for k, v in roll.items():
         log(f"  {v:9.3f} ms {100 * v / total if total else 0:5.1f}%  {k}")
+    longest = sorted(gaps, key=lambda g: -g["ms"])[:10]
+    log(f"(c) the longest of {len(gaps)} idle stretches, ms, by the span "
+        "the host was in:")
+    for g in longest:
+        log(f"  {g['ms']:9.3f} ms  {g['label']}")
     return dict(clock=clock, ms_per_pass=total, dropped=dropped,
-                rollup_ms=roll,
+                rollup_ms=roll, idle_gaps=longest,
                 top=[dict(t, ms=t["ms"] / n, count=t["count"] / n)
                      for t in tops],
                 wrapper_launches={k: v / n for k, v in

@@ -10,7 +10,9 @@ profiles ``--n`` engine passes with ``torch.profiler`` and prints
     wrappers that launched it (``conv3d_q_requant/conv3d_tc_q``, ...);
 (b) the rollup by category: the hand-written kernels by wrapper,
     cuBLAS/cuDNN, elementwise, copies and the rest
-    (``ctunet_tpu_torch/utils/profiling.py``).
+    (``ctunet_tpu_torch/utils/profiling.py``);
+(c) the ten longest stretches in which the device ran nothing, each by
+    the ``ctunet.*`` span the host was in (``profiling.idle_gaps``).
 
 The JAX tool maps XLA ops to source through the compiled HLO's metadata;
 here the wrappers' ``record_function`` spans carry that attribution.
@@ -21,7 +23,7 @@ versions' ``aten::`` ops by CPU time)::
     python tools/attr_int8_torch.py [--ckpt <.npz|.pt|.ckpt>]
         [--shape 224,304,304] [--tail 0] [--n 3] [--profile-dir DIR] [--cpu]
 
-It prints one JSON line: both tables, per pass.
+It prints one JSON line: the tables, per pass.
 """
 
 from __future__ import annotations
@@ -47,10 +49,10 @@ def attribute_int8(state_dict, x, n: int = 3, tail: float = 0.0,
 
     fwd = engine_q.build_predict_q(MODEL_CLASS, state_dict, x[0],
                                    bf16_tail=tail, device=device)
-    rows, dropped = tt.profile_passes(lambda: fwd(x), n, x.device,
-                                      profile_dir)
+    rows, dropped, gaps = tt.profile_passes(lambda: fwd(x), n, x.device,
+                                            profile_dir)
     res = tt.report(rows, dropped, n, f"int8 engine {tuple(x.shape[1:4])}",
-                    x.device)
+                    x.device, gaps)
     kernels.reset_launches()
     fwd(x)
     res["launches"] = {k: v for k, v in kernels.launches().items() if v}

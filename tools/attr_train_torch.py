@@ -13,7 +13,12 @@ with ``torch.profiler``; it prints
     (``dw_taps``) around its launch;
 (b) the rollup by category: the hand-written kernels by wrapper,
     cuBLAS/cuDNN, the weight gradient's ``bmm``s, elementwise, copies and
-    the rest (``ctunet_tpu_torch/utils/profiling.py``).
+    the rest (``ctunet_tpu_torch/utils/profiling.py``);
+(c) the ten longest stretches in which the device ran nothing, each by
+    the ``ctunet.train.*`` span the host was in (``profiling.idle_gaps``).
+
+Each kernel's spans include the step's phase (``ctunet.train.forward``,
+``.backward``, ...) around its wrappers'.
 
 The JAX tool's ``--std``, ``--remat`` and packed-resident variants have
 no subject here: the port keeps no packed-resident model and no
@@ -26,7 +31,7 @@ Usage (the card unless ``--cpu``)::
         [--shape 224,304,304] [--impl chain|xla] [--n 3]
         [--profile-dir DIR] [--cpu]
 
-It prints one JSON line: both tables, per step, and the first loss.
+It prints one JSON line: the tables, per step, and the first loss.
 """
 
 from __future__ import annotations
@@ -73,10 +78,10 @@ def attribute_train(state_dict, shape, impl: str = "chain", n: int = 3,
     _, terms = step(state, batch, gen)
     first = {"loss": float(terms["epoch_loss"]),
              "launches": {k: v for k, v in kernels.launches().items() if v}}
-    rows, dropped = tt.profile_passes(lambda: step(state, batch, gen), n,
-                                      device, profile_dir)
+    rows, dropped, gaps = tt.profile_passes(lambda: step(state, batch, gen),
+                                            n, device, profile_dir)
     res = tt.report(rows, dropped, n, f"{impl} train step {tuple(shape)}",
-                    device)
+                    device, gaps)
     res.update(first_loss=first["loss"], launches=first["launches"])
     return res
 

@@ -2129,12 +2129,14 @@ def train(device, work: str, shape=SHAPE, n_train: int = N_TRAIN,
     k6 = n_train * K6_PER_TRAIN_STEP + n_eval * K6_PER_EVAL_STEP
     want = {"conv3d_bias_act": k6, "conv3d_bn_relu": 12, "maxpool2": 4,
             "upconv_bn_relu": 4, "conv3d_tc": k6 + 12, "upconv_tc": 4,
-            "maxpool2_rows": 4}
+            "maxpool2_rows": 4,
+            "adam_mt": n_train * adam_launches("UNetSP")}
     launches = {k: counts[k] for k in want}
     log(f"  launches: {launches} (want {want}: {n_train} train steps x "
         f"{K6_PER_TRAIN_STEP} + {n_eval} eval steps x {K6_PER_EVAL_STEP} of "
         "K6, then one served volume; each bf16 K6/K1 launch is a "
-        "conv3d_tc launch, each K3 launch an upconv_tc launch)")
+        "conv3d_tc launch, each K3 launch an upconv_tc launch, and the "
+        "f32 Adam update of a train step takes adam_mt launches)")
     if launches != want:
         failures.append(f"training launch counts {launches} != {want}")
     losses = [float(v) for v in m.step_losses]
@@ -3504,6 +3506,163 @@ def check_512(device, shape=SHAPE_512):
     return {k + AT_512: v for k, v in entries.items()}, failures
 
 
+def adam_leaves(model_class: str, param_dtype=None):
+    """The element counts of ``model_class``'s f32 leaves, in order, with
+    its parameters in ``param_dtype`` (BatchNorm's stay f32)."""
+    import torch
+
+    from ctunet_tpu_torch.models import build_model
+
+    model = build_model(model_class, param_dtype or torch.float32)
+    return [p.numel() for p in model.parameters()
+            if p.dtype == torch.float32]
+
+
+def adam_launches(model_class: str, param_dtype=None) -> int:
+    """``adam_mt`` launches in one ``adam`` train step of ``model_class``
+    on the card: one per table of ``adam.pack`` over its f32 leaves."""
+    from ctunet_tpu_torch.ops.kernels import adam
+
+    return len(adam.pack(adam_leaves(model_class, param_dtype)))
+
+
+def check_adam(device, reps: int = 200, reps_plain: int = 10,
+               n_steps: int = 3):
+    """``adam.adam_mt``, the multi-tensor Adam kernel, at the f32 leaves of
+    UNetSP (row ``adam_mt``) and UNetSPSmall (``adam_mt`` + AT_512) from
+    seeded parameters and gradients: ``n_steps`` steps of
+    ``steps.Optimizer`` under ``adam`` at the INIs' learning rate, and under
+    ``adamw`` with decay and a plateau scale of 0.1, against its plain
+    version, the per-leaf ``Optimizer._update`` on the same card: equal bit
+    for bit, moments too. Then a step's device time (the kernel rows of a
+    profiler window over ``reps`` steps, ``reps_plain`` for the per-leaf
+    path's ~15 launches a leaf) beside the per-leaf path's, the library's
+    (``torch.optim.Adam(amsgrad=True, fused=True)``: the same bytes, but
+    its maximum is of the raw second moment, so not the same numbers) and
+    the bound, 36 bytes an element at 3.35 TB/s; and ``Optimizer.step``'s
+    host time a step alone. Returns ``(entries, failures)``."""
+    import torch
+
+    from ctunet_tpu_torch import steps
+    from ctunet_tpu_torch.ops import kernels
+    from ctunet_tpu_torch.ops.kernels import adam
+    from ctunet_tpu_torch.utils import profiling
+
+    cases = (("adam lr 1e-4", dict(name="adam", lr=1e-4), 1.0),
+             ("adamw lr 1e-3, decay 0.01, scale 0.1",
+              dict(name="adamw", lr=1e-3, weight_decay=0.01,
+                   scheduler=True), 0.1))
+    entries, failures = {}, []
+    for key, mc in (("adam_mt", "UNetSP"), ("adam_mt" + AT_512,
+                                            "UNetSPSmall")):
+        sizes = adam_leaves(mc)
+        n_el = sum(sizes)
+        gen = torch.Generator(device=device).manual_seed(21)
+        init = [0.1 * torch.randn(n, generator=gen, device=device)
+                for n in sizes]
+        grads = [[10.0 ** -(i % 4) * torch.randn(n, generator=gen,
+                                                 device=device)
+                  for i, n in enumerate(sizes)] for _ in range(n_steps)]
+
+        def run(cfg, scale, route):
+            p = [torch.nn.Parameter(t.clone()) for t in init]
+            opt = steps.Optimizer(p, **cfg)
+            if scale != 1.0:
+                opt.param_groups[0]["plateau"]["scale"] = scale
+            for g in grads:
+                for t, gi in zip(p, g):
+                    t.grad = gi.clone()
+                if route == "kernel":
+                    opt.step(value=1.0)
+                    continue
+                group = opt.param_groups[0]
+                group["count"] += 1
+                sc = (opt._plateau_scale(group["plateau"], 1.0)
+                      if group["plateau"] is not None else 1.0)
+                with torch.no_grad():
+                    for t in p:
+                        opt._update(t, group, group["count"], group["name"],
+                                    sc)
+            return p, opt
+
+        err, per_step = 0.0, adam_launches(mc)
+        for label, cfg, scale in cases:
+            kernels.reset_launches()
+            p_k, opt_k = run(cfg, scale, "kernel")
+            n_launch = kernels.launches()["adam_mt"]
+            p_p, opt_p = run(cfg, scale, "plain")
+            bad = []
+            for i, (a, b) in enumerate(zip(p_k, p_p)):
+                err = max(err, float((a - b).detach().abs().max()))
+                bad += [f"{kind} of leaf {i}"
+                        for kind in ("mu", "nu", "nu_max")
+                        if not torch.equal(opt_k.state[a][kind],
+                                           opt_p.state[b][kind])]
+                if not torch.equal(a, b):
+                    bad.append(f"param of leaf {i}")
+            log(f"  ADAM {mc} ({len(sizes)} leaves, {n_el} elements), "
+                f"{label}: {n_steps} steps, {n_launch} launches (want "
+                f"{n_steps * per_step}); against the per-leaf path "
+                f"{'equal bit for bit' if not bad else 'DIFFERENT'} "
+                f"(max abs error {err:.3g})")
+            if bad or n_launch != n_steps * per_step:
+                failures.append(f"adam_mt {mc} {label}: {n_launch} launches"
+                                f", differs at {bad[:6]}")
+            del p_k, p_p, opt_k, opt_p
+
+        # a step's device time: the kernel, the per-leaf path, the library
+        p, opt = run(cases[0][1], 1.0, "kernel")
+        group = opt.param_groups[0]
+        k = adam.constants("adam", group["lr"], group["b1"], group["b2"],
+                           group["eps"], 0.0, 0.5, 0.01, 1.0)
+        args = (p, [t.grad for t in p], [opt.state[t]["mu"] for t in p],
+                [opt.state[t]["nu"] for t in p],
+                [opt.state[t]["nu_max"] for t in p])
+
+        def timed(fn, n, name=""):
+            fn()
+            sync(device)
+            with profiling.trace(device) as prof:
+                for _ in range(n):
+                    fn()
+            rows, dropped = profiling.attribute(prof.events())
+            if dropped:
+                failures.append(f"adam_mt {mc}: the trace lost {dropped} "
+                                "launches")
+            return sum(r["ms"] for r in rows if name in r["name"]) / n
+
+        def per_leaf():
+            with torch.no_grad():
+                for t in p:
+                    opt._update(t, group, 2, "adam", 1.0)
+
+        ms = timed(lambda: adam.adam_mt(*args, k), reps, "adam_mt_kernel")
+        plain = timed(per_leaf, reps_plain)
+        lib_p = [torch.nn.Parameter(t.detach().clone()) for t in p]
+        for a, t in zip(lib_p, p):
+            a.grad = t.grad.clone()
+        lib = torch.optim.Adam(lib_p, lr=1e-4, amsgrad=True, fused=True)
+        lib_ms = timed(lib.step, reps)
+        sync(device)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            opt.step()
+        host = 1e3 * (time.perf_counter() - t0) / reps
+        sync(device)
+        b_ms, b_by = bound_ms(36.0 * n_el, 0.0)
+        log(f"  ADAM {mc}: a step {ms:.4f} ms of device time in "
+            f"{per_step} launches ({100 * b_ms / max(ms, 1e-9):.0f}% of its "
+            f"bound {b_ms:.4f} ms); the per-leaf path {plain:.3f} ms, "
+            f"torch.optim.Adam(amsgrad, fused) {lib_ms:.4f} ms; "
+            f"Optimizer.step's host {host:.3f} ms a step alone")
+        entries[key] = dict(
+            case=f"{mc}: {len(sizes)} f32 leaves, {n_el} elements, adam",
+            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib_ms, host_ms=host)
+        del p, opt, lib_p, lib, args, init, grads
+    return entries, failures
+
+
 def small_skulls(shape, n: int, seed: int = SEED_512):
     """Phase 10's broken skulls (a cap removed from a 0.42 shell whose
     centre ``spherical_shell`` jitters by up to 1.5 voxels) and their
@@ -3838,7 +3997,8 @@ def spsmall(device, work: str, shape=SHAPE_512, n_volumes: int = N_512,
     sync(device)
     wall = time.perf_counter() - t0
     counts = kernels.launches()
-    want = dict(per_vol, conv3d_bias_act=k6)
+    want = dict(per_vol, conv3d_bias_act=k6,
+                adam_mt=n_train * adam_launches(mc))
     want["conv3d_tc"] += k6
     got = {k: counts[k] for k in want}
     log(f"  training: {n_train} train + 1 eval steps, then 1 volume "
@@ -4135,7 +4295,9 @@ def pickled_ops_qat(device, work: str, shape=SHAPE, before=None,
     wall = time.perf_counter() - t0
     counts = kernels.launches()
     k6 = 2 * (K6_PER_TRAIN_STEP + K6_PER_EVAL_STEP)
-    want = dict(per_vol, conv3d_bias_act=k6)
+    # the kernel updates the f32 BatchNorm leaves, the rest go one by one
+    want = dict(per_vol, conv3d_bias_act=k6,
+                adam_mt=2 * adam_launches("UNetSP", torch.bfloat16))
     want["conv3d_tc"] += k6
     got = {k: counts[k] for k in want}
     log(f"  bf16 parameters: 2 epochs of 1 train + 1 eval step, then 1 "
@@ -4630,7 +4792,8 @@ def multi_device(device, work: str, shape=SHAPE, before=None):
         "dp_int8": {"conv3d_q_requant": 12, "maxpool2_q": 4,
                     "upconv_q_requant": 4, "conv3d_tc_q": 12,
                     "upconv_tc_q": 4, "maxpool2_rows": 4},
-        "train": {"conv3d_bias_act": k6, "conv3d_tc": k6},
+        "train": {"conv3d_bias_act": k6, "conv3d_tc": k6,
+                  "adam_mt": MD_TRAIN_STEPS * adam_launches("UNetSP")},
     }
     launches = collections.Counter()
     for r, res in enumerate(ranks):
@@ -5185,7 +5348,10 @@ def main() -> int:
              lambda: check_windows(sd, device)),
             ("phase 10's UNetSPSmall at 224x512x512: K2 and K2q, the bf16 "
              "K1, K6 and K3, K1q and K3q, the f32 K1 and K3",
-             lambda: check_512(device))):
+             lambda: check_512(device)),
+            ("the multi-tensor Adam kernel at UNetSP's and UNetSPSmall's "
+             "leaves against the per-leaf update, exact",
+             lambda: check_adam(device))):
         log(f"  -- {label}")
         try:
             got, errs = check()
@@ -5337,6 +5503,10 @@ def main() -> int:
                            "ctunet_tpu/ops/pallas/convt.py:78"),
         "convt_k2s2_dual_f32": ("ctunet_tpu_torch/csrc/upconv_tc_f32.cu",
                                 "ctunet_tpu/ops/pallas/convt.py:146"),
+        # the optimizer of phases 5 and 10's training: no TPU kernel, the
+        # JAX step leaves optax's amsgrad to XLA
+        "adam_mt": ("ctunet_tpu_torch/csrc/adam_mt.cu",
+                    "ctunet_tpu/steps.py:414"),
     }
     kernels = []
     for name, (src, repl) in sources.items():

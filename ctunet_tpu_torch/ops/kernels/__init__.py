@@ -47,6 +47,9 @@ K5     ``conv3d.conv3d5_bias_act``    bf16: ``csrc/conv3d_tc.cu``; f32:
 K7a    ``convt.convt_k2s2``           bf16: ``csrc/upconv_tc.cu``; f32:
                                       ``csrc/upconv_tc_f32.cu``
 K7b    ``convt.convt_k2s2_dual``      as K7a (concat of two)
+ADAM   ``adam.adam_mt``               ``csrc/adam_mt.cu`` (the f32 Adam /
+                                      AdamW update of many leaves in one
+                                      launch; no TPU counterpart)
 =====  ============================  ==================================
 
 Each wrapper counts its launches, and so does the kernel function it
@@ -71,6 +74,7 @@ from __future__ import annotations
 
 from typing import Dict
 
+from .adam import adam_mt
 from .conv3d import (conv3d5_bias_act, conv3d5_f32, conv3d_bias_act,
                      conv3d_bn_relu, conv3d_f32, conv3d_q_requant, conv3d_tc,
                      conv3d_tc_f32, conv3d_tc_q, maxpool2, maxpool2_f32,
@@ -102,6 +106,7 @@ WRAPPERS = {
     "convt_f32": convt_f32,
     "upconv_tc_f32": upconv_tc_f32,
     "maxpool2_rows": maxpool2_rows,
+    "adam_mt": adam_mt,
 }
 
 

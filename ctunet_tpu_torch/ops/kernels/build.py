@@ -46,7 +46,7 @@ SOURCES = {"conv3d": "conv3d.cu", "maxpool": "maxpool.cu",
            "upconv_tc_q": "upconv_tc_q.cu",
            "conv3d_tc_f32": "conv3d_tc_f32.cu",
            "upconv_tc_f32": "upconv_tc_f32.cu",
-           "maxpool_rows": "maxpool_rows.cu"}
+           "maxpool_rows": "maxpool_rows.cu", "adam_mt": "adam_mt.cu"}
 HEADERS = ("common.cuh", "mma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")

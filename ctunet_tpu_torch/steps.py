@@ -31,7 +31,8 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
-from .utils.profiling import span
+from .ops.kernels import adam as adam_kernel
+from .utils.profiling import count, span
 
 
 class DataShard(NamedTuple):
@@ -433,6 +434,16 @@ def _bias_correction(decay: float, count: int) -> float:
     return float(np.float32(1.0) - power)
 
 
+def kernel_leaf(p, name: str) -> bool:
+    """Whether :class:`Optimizer` updates leaf ``p`` (one with a grad)
+    through the multi-tensor kernel: under ``adam`` or ``adamw``, an f32
+    leaf off the CPU. The CPU (the path held against optax), bf16 and f16
+    leaves with their weak-type roundings, ``rmsprop`` and ``sgd`` take
+    the per-leaf :meth:`Optimizer._update`."""
+    return (name in ("adam", "adamw") and not p.is_cpu
+            and p.dtype == torch.float32)
+
+
 class Optimizer(torch.optim.Optimizer):
     """The update of ``ctunet_tpu.steps.make_optimizer``, transform by
     transform as optax (0.2.6) computes it, in place on the parameters.
@@ -470,6 +481,13 @@ class Optimizer(torch.optim.Optimizer):
 
     Count, plateau state and hyper-parameters live in the param group, the
     moments in ``state``, so ``state_dict()`` carries all of them.
+
+    Executor: under ``adam`` and ``adamw`` the f32 leaves on the card
+    (:func:`kernel_leaf`) are updated together by one multi-tensor kernel
+    (``ops/kernels/adam.py``), with the same f32 arithmetic bit for bit and
+    the moments in place; every other leaf by :meth:`_update`, one at a
+    time. Each step counts its leaves of each kind
+    (``ctunet.train.optimizer.fused_leaves`` and ``.plain_leaves``).
     """
 
     def __init__(self, params, name: str = "adam", lr: float = 1e-4,
@@ -513,6 +531,7 @@ class Optimizer(torch.optim.Optimizer):
     def step(self, value=None):
         """Apply one update from the parameters' ``.grad``. ``value``: the
         batch loss, read by the plateau scheduler when it is on."""
+        fused = plain = 0
         for group in self.param_groups:
             group["count"] += 1
             n, name = group["count"], group["name"]
@@ -522,9 +541,40 @@ class Optimizer(torch.optim.Optimizer):
                     raise ValueError("the plateau scheduler needs "
                                      "step(value=loss)")
                 scale = self._plateau_scale(group["plateau"], float(value))
+            leaves = []
             for p in group["params"]:
-                if p.grad is not None:
+                if p.grad is None:
+                    continue
+                if kernel_leaf(p, name):
+                    leaves.append(p)
+                else:
                     self._update(p, group, n, name, scale)
+                    plain += 1
+            if leaves:
+                self._update_leaves(leaves, group, n, name, scale)
+                fused += len(leaves)
+        count("ctunet.train.optimizer.fused_leaves", fused)
+        count("ctunet.train.optimizer.plain_leaves", plain)
+
+    def _update_leaves(self, leaves, group, n: int, name: str,
+                       scale: float) -> None:
+        """:meth:`_update` of the f32 ``adam`` / ``adamw`` leaves on the
+        card, all in one multi-tensor kernel, the moments in place."""
+        states = []
+        for p in leaves:
+            st = self.state[p]
+            if not st:
+                st.update(mu=torch.zeros_like(p), nu=torch.zeros_like(p),
+                          nu_max=torch.zeros_like(p))
+            states.append(st)
+        b1, b2 = group["b1"], group["b2"]
+        k = adam_kernel.constants(
+            name, group["lr"], b1, b2, group["eps"], group["weight_decay"],
+            _bias_correction(b1, n), _bias_correction(b2, n), scale)
+        adam_kernel.adam_mt(leaves, [p.grad for p in leaves],
+                            [st["mu"] for st in states],
+                            [st["nu"] for st in states],
+                            [st["nu_max"] for st in states], k)
 
     def _update(self, p, group, n: int, name: str, scale: float) -> None:
         if p.dtype == torch.float32:

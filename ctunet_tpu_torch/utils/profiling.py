@@ -336,7 +336,7 @@ HAND_KERNELS = (
     "maxpool2_rows_kernel", "conv3d_bias_act_kernel",
     "conv3d_plane_staged_kernel", "conv3d_q_kernel", "convt_k2s2_kernel",
     "maxpool2_kernel", "maxpool2_f32x4_kernel", "upconv_bn_relu_kernel",
-    "upconv_q_kernel")
+    "upconv_q_kernel", "adam_mt_kernel")
 
 
 def hand_written(name: str) -> bool:

@@ -39,10 +39,13 @@ Legacy family (recAE_v2_fixed, UNet4_2IC; :func:`build_legacy_predict`):
   two small matmuls plus the bias in the compute dtype, softmax in f32
   (``engine.py:814-820``).
 
-That is 18 K5, 4 K2, 1 K7a and 3 K7b launches per volume. Weight rounding
-follows the JAX engine: conv weights are folded with BN in f32 and then
-cast to the compute dtype, biases (``conv_bias * scale + bn_shift`` where
-the conv has a bias) stay f32; ConvT weights are cast once.
+That is 18 K5, 4 K2, 1 K7a and 3 K7b launches per volume. The encoder
+(with the centre) and the decoder each run inside a span timed on the
+device (``ctunet.engine.encoder``, ``ctunet.engine.decoder``) beside the
+heads' span. Weight rounding follows the JAX engine: conv weights are
+folded with BN in f32 and then cast to the compute dtype, biases
+(``conv_bias * scale + bn_shift`` where the conv has a bias) stay f32;
+ConvT weights are cast once.
 
 Both dtypes run on the card, as the JAX engine runs its Pallas kernels in
 ``compute_dtype``: in bf16 the convs and upsamplings launch the
@@ -81,6 +84,10 @@ from .utils import profiling
 # the span around the heads (the 1x1 last conv and the double head's maps),
 # timed on the device too (utils/profiling.py)
 HEADS_SPAN = "ctunet.engine.heads"
+# the legacy engine's spans beside the heads', timed on the device too: the
+# four encoder levels and the centre, then the four decoder blocks
+ENCODER_SPAN = "ctunet.engine.encoder"
+DECODER_SPAN = "ctunet.engine.decoder"
 
 # Structural config per model (``ctunet_tpu/engine.py:37-48``).
 ENGINE_CONFIGS = {
@@ -407,6 +414,7 @@ def build_legacy_predict(state_dict: Dict[str, torch.Tensor],
         lambda a, b, wa, wb, bias: kt.convt_k2s2(a, wa, bias))
     up2 = kt.convt_k2s2_plain if plain else (
         lambda a, b, wa, wb, bias: kt.convt_k2s2_dual(a, b, wa, wb, bias))
+    cuda = device.type == "cuda"
 
     sd = {k: v.detach().cpu() for k, v in state_dict.items()}
 
@@ -438,17 +446,19 @@ def build_legacy_predict(state_dict: Dict[str, torch.Tensor],
                              "divide by 16 (pad the volume)")
         h = x.to(compute_dtype).contiguous()
         skips = []
-        for (w0, b0), (w1, b1) in enc:
-            h = conv(conv(h, w0, b0), w1, b1)
-            skips.append(h)
-            h = pool(h)
-        (w0, b0), (w1, b1) = center
-        a, b = conv(conv(h, w0, b0), w1, b1), None
-        for i, ((wa, wb, bu), ((w0, b0), (w1, b1))) in enumerate(dec):
-            a = (up1 if b is None else up2)(a, b, wa, wb, bu)
-            a = conv(conv(a, w0, b0), w1, b1)
-            b = skips[3 - i]
-        with profiling.span(HEADS_SPAN, device=device.type == "cuda"):
+        with profiling.span(ENCODER_SPAN, device=cuda):
+            for (w0, b0), (w1, b1) in enc:
+                h = conv(conv(h, w0, b0), w1, b1)
+                skips.append(h)
+                h = pool(h)
+            (w0, b0), (w1, b1) = center
+            a, b = conv(conv(h, w0, b0), w1, b1), None
+        with profiling.span(DECODER_SPAN, device=cuda):
+            for i, ((wa, wb, bu), ((w0, b0), (w1, b1))) in enumerate(dec):
+                a = (up1 if b is None else up2)(a, b, wa, wb, bu)
+                a = conv(conv(a, w0, b0), w1, b1)
+                b = skips[3 - i]
+        with profiling.span(HEADS_SPAN, device=cuda):
             # full f32 in f32, as the generic head
             lc = a @ lka + b @ lkb + lb
             return torch.softmax(lc.float(), -1).to(compute_dtype)
